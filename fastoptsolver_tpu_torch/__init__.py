@@ -3,10 +3,13 @@
 A second package beside the JAX one, which stays the reference: every module
 here keeps its JAX counterpart's name and surface, and the tests feed both
 packages the same inputs. The slice ported so far is the certified
-batched-lasso main path (``batch.solve_lasso_batch``): the torch Gram-form
-FISTA driver (``batch.fista_gram``) runs on any device, and on a CUDA tensor
-the router sends fixed-momentum configurations to one launch of the
-hand-written Hopper fused build+solve kernel (``kernels.fused_solve``).
+batched-lasso surface (``batch.solve_lasso_batch``, ``batch.solve_gram_batch``):
+the torch Gram-form FISTA driver (``batch.fista_gram``) runs on any device; on
+a CUDA tensor the router sends fixed-momentum configurations with n ≤ 8 to one
+launch of the hand-written Hopper fused build+solve kernel
+(``kernels.fused_solve``), and every other configuration with n ≤ 104 to the
+two-kernel path: the Gram build kernels (``kernels.gram_build``) and the
+certified burst kernel (``kernels.fista_vmem``).
 
 The package imports no JAX, and nothing that needs ``nvcc``, Triton or a GPU:
 CUDA kernels are compiled on first use (``kernels._build``).

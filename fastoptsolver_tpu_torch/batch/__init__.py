@@ -1,5 +1,5 @@
 """Instance-batched lasso: the torch Gram-form driver and the routed surface."""
-from .api import solve_lasso_batch
+from .api import solve_gram_batch, solve_lasso_batch
 from .fista_gram import (
     BatchFISTAConfig,
     BatchResult,
@@ -18,5 +18,6 @@ __all__ = [
     "fista_gram_batch",
     "init_batch_state",
     "make_gram_batch",
+    "solve_gram_batch",
     "solve_lasso_batch",
 ]

@@ -1,65 +1,190 @@
 """The routed batched-lasso surface (port of the routing in
-``fastoptsolver_tpu/batch/api.py``: ``_kernel_route`` and
-``solve_lasso_batch``).
+``fastoptsolver_tpu/batch/api.py``: ``_kernel_route``, ``solve_gram_batch``,
+``solve_lasso_batch``, ``_resume_lasso_batch`` and ``_build_gram_routed``).
 
-Routing follows the reference's "guards decide" rule: the fused kernel's own
-guards (``_check_fused_cfg`` + ``auto_tiles_fused``) say what the kernel
-route can take, so the router cannot drift from the kernel.
+Routing follows the reference's "guards decide" rule, in its order:
 
-- **Kernel route** — taken when ``A`` is a CUDA tensor (the reference's
-  ``jax.default_backend() == "tpu"``) or ``interpret=True``, and the guards
-  pass: one launch of the fused CUDA kernel on a CUDA tensor, its plain twin
-  on a CPU tensor under ``interpret``. ``interpret=True`` with a CUDA tensor
-  raises.
-- **Torch driver** (``make_gram_batch`` + ``fista_gram_batch``) — everything
-  else under ``backend="auto"``; always under ``backend="xla"`` (the
-  reference's name for "force the driver", kept for the same meaning).
-- ``backend="kernel"`` raises with the guard's message when the kernel route
-  cannot serve the call, including a CPU tensor without ``interpret``.
+1. **Kernel route or driver** — ``_kernel_route`` asks the kernel guards
+   (``_check_kernel_cfg`` + ``plan_gram_solve``) whether a kernel engine can
+   take ``(n, cfg)``. It can when ``A`` is a CUDA tensor (the reference's
+   ``jax.default_backend() == "tpu"``) or ``interpret=True``, and n is inside
+   the burst engine's window (n ≤ 104; the resident and Q-streaming engines
+   past it are not ported yet). ``interpret=True`` with a CUDA tensor raises.
+2. On the kernel route, **the fused kernel** first (``kernels.fused_solve``:
+   one launch, the Gram never in device memory) when its own guards pass:
+   fixed momentum, ``check_every > 0``, n ≤ 8.
+3. Otherwise **the two-kernel path**: the Gram build
+   (``kernels.gram_build.make_gram_batch_fused``, two launches) and the burst
+   engine (``kernels.fista_vmem.fista_gram_vmem``, one launch per burst), in
+   every momentum mode including Armijo. On a CPU tensor under ``interpret``
+   both run their plain twins.
+4. Otherwise **the torch driver** (``make_gram_batch`` +
+   ``fista_gram_batch``), always under ``backend="xla"`` (the reference's
+   name for "force the driver", kept for the same meaning).
 
-Until the fused kernel learns them, adaptive restart, greedy momentum and
-Armijo backtracking on CUDA go to the torch driver, as do n above the
-kernel's envelope (ROADMAP Queue 1 item 4). ``mesh``, ``state0`` and
-``return_state`` are not ported yet.
+``backend="kernel"`` raises with the guard's message when the kernel route
+cannot serve the call, including a CPU tensor without ``interpret``.
+``state0`` pins the route to the engine whose state it is
+(``VmemSolveState`` → burst engine, ``BatchState`` → driver); the fused and
+resident engines' states are not ported yet, and ``mesh=`` is not ported.
 """
 from __future__ import annotations
 
 import torch
 
-from .fista_gram import BatchFISTAConfig, fista_gram_batch, make_gram_batch
+from .fista_gram import (
+    BatchFISTAConfig,
+    BatchState,
+    fista_gram_batch,
+    make_gram_batch,
+)
+
+# State types of engines that are not ported yet, by class name (a state of the
+# reference package may arrive here by mistake): the ROADMAP item for each.
+_UNPORTED_STATES = {
+    "FusedSolveState": "ROADMAP Queue 1 item 4: the fused engine's resume",
+    "ResidentSolveState": "ROADMAP Queue 2 item 7: the resident engine",
+}
 
 
 def _default_cfg() -> BatchFISTAConfig:
     return BatchFISTAConfig(max_iter=1000, check_every=25, rel_gap_tol=1e-6)
 
 
-def _kernel_route(n: int, m: int, cfg, backend: str, interpret: bool,
-                  on_cuda: bool):
-    """Can/should this (n, m, cfg) run on the fused kernel? Returns
+def _not_on_kernel_reason(interpret: bool, on_cuda: bool):
+    """None when the kernel route can run here, else why not; raises for
+    ``interpret=True`` with a CUDA tensor."""
+    if interpret and on_cuda:
+        raise ValueError("interpret=True runs the plain twin on a CPU tensor; "
+                         "A is a CUDA tensor")
+    if on_cuda or interpret:
+        return None
+    return "not a CUDA tensor (pass interpret=True to run the plain twins)"
+
+
+def _kernel_route(n: int, cfg, backend: str, interpret: bool, on_cuda: bool):
+    """Can/should this (n, cfg) run on a kernel engine? Returns
     ``(use_kernel, reason_if_not)``; raises under ``backend="kernel"`` when
     the answer is no, with the guard's message."""
     if backend not in ("auto", "kernel", "xla"):
         raise ValueError(f"Unknown backend '{backend}'")
     if backend == "xla":
         return False, "backend='xla'"
-    from ..kernels.fused_solve import _check_fused_cfg, auto_tiles_fused
+    from ..kernels.fista_vmem import _check_kernel_cfg, plan_gram_solve
 
     try:
-        _check_fused_cfg(cfg)
-        auto_tiles_fused(n, m)
+        _check_kernel_cfg(cfg)
+        plan_gram_solve(n, cfg)
     except (ValueError, NotImplementedError) as e:
         if backend == "kernel":
             raise ValueError(f"backend='kernel' unsupported here: {e}") from e
         return False, str(e)
-    if interpret and on_cuda:
-        raise ValueError("interpret=True runs the plain twin on a CPU tensor; "
-                         "A is a CUDA tensor")
-    if on_cuda or interpret:
+    reason = _not_on_kernel_reason(interpret, on_cuda)
+    if reason is None:
         return True, None
-    reason = "not a CUDA tensor (pass interpret=True to run the plain twin)"
     if backend == "kernel":
         raise ValueError(f"backend='kernel' unsupported here: {reason}")
     return False, reason
+
+
+def _unported_state(state0) -> None:
+    item = _UNPORTED_STATES.get(type(state0).__name__)
+    if item is not None:
+        raise NotImplementedError(
+            f"state0 is a {type(state0).__name__}, which this package does not "
+            f"resume yet ({item})"
+        )
+
+
+def solve_gram_batch(gb, cfg=None, backend: str = "auto",
+                     interpret: bool = False, state0=None,
+                     return_state: bool = False,
+                     est_l_iters: int | None = None):
+    """Route a prebuilt ``GramBatch`` to its fastest supported solver: the
+    burst engine (``kernels.fista_vmem.fista_gram_vmem``) when the kernel
+    route can take it (a CUDA tensor, or ``interpret=True``, n ≤ 104),
+    otherwise the torch driver (``fista_gram_batch``). ``"kernel"`` forces
+    the burst engine (raises with the guard's reason if unsupported);
+    ``"xla"`` forces the driver.
+
+    A non-None ``state0`` pins the route to the engine that produced it: a
+    ``VmemSolveState`` resumes on the burst engine, a ``BatchState`` on the
+    driver; anything else raises ``TypeError``. ``est_l_iters`` belongs to
+    the resident engine, which is not ported yet, and is refused."""
+    if est_l_iters is not None:
+        raise NotImplementedError(
+            "est_l_iters configures the resident engine, which is not ported "
+            f"yet ({_UNPORTED_STATES['ResidentSolveState']})"
+        )
+    from ..kernels.fista_vmem import VmemSolveState, fista_gram_vmem
+
+    if cfg is None:
+        cfg = _default_cfg()
+    on_cuda = gb.Q.is_cuda
+    if state0 is not None:
+        _unported_state(state0)
+        if isinstance(state0, VmemSolveState):
+            if backend == "xla":
+                raise ValueError(
+                    "state0 is a kernel-path VmemSolveState; it cannot resume "
+                    "on backend='xla' (the torch driver's BatchState carries a "
+                    "different trajectory layout)"
+                )
+            reason = _not_on_kernel_reason(interpret, on_cuda)
+            if reason is not None:
+                raise ValueError(f"state0 is a kernel-path VmemSolveState but {reason}")
+            return fista_gram_vmem(gb, cfg, interpret=interpret, state0=state0,
+                                   return_state=return_state)
+        if isinstance(state0, BatchState):
+            if backend == "kernel":
+                raise ValueError(
+                    "state0 is a torch-driver BatchState; it cannot resume "
+                    "on backend='kernel'"
+                )
+            return fista_gram_batch(gb, cfg, state0=state0,
+                                    return_state=return_state)
+        raise TypeError(
+            f"state0 must be a ResidentSolveState, VmemSolveState, or "
+            f"BatchState, got {type(state0).__name__}"
+        )
+    use_kernel, _ = _kernel_route(gb.dim, cfg, backend, interpret, on_cuda)
+    if use_kernel:
+        return fista_gram_vmem(gb, cfg, interpret=interpret,
+                               return_state=return_state)
+    return fista_gram_batch(gb, cfg, return_state=return_state)
+
+
+def _feature_major(A, b, feature_major: bool):
+    if feature_major:
+        return A, b
+    return A.permute(2, 1, 0).contiguous(), b.T.contiguous()
+
+
+def _build_gram_routed(A, b, alpha1, alpha2, feature_major, key, interpret,
+                       use_kernel):
+    """The Gram stage of :func:`solve_lasso_batch`, shared with the resume
+    dispatch: the build kernels (their twin on a CPU tensor) inside their
+    window on the kernel route, otherwise the torch precompute
+    ``make_gram_batch`` with its power iteration started from ``key``."""
+    n = A.shape[0] if feature_major else A.shape[-1]
+    fused_build = False
+    if use_kernel:
+        from ..kernels.gram_build import _auto_tiles
+
+        try:
+            _auto_tiles(n, A.shape[1])
+            fused_build = True
+        except ValueError:
+            fused_build = False
+    if fused_build:
+        from ..kernels.gram_build import make_gram_batch_fused
+
+        A_fm, b_fm = _feature_major(A, b, feature_major)
+        return make_gram_batch_fused(A_fm.contiguous(), b_fm.contiguous(),
+                                     alpha1, alpha2, interpret=interpret)
+    A_im = A.permute(2, 1, 0) if feature_major else A
+    b_im = b.T if feature_major else b
+    return make_gram_batch(A_im, b_im, alpha1, alpha2, generator=key)
 
 
 def solve_lasso_batch(
@@ -83,32 +208,85 @@ def solve_lasso_batch(
     ``feature_major``: inputs are ``A (n, m, B), b (m, B)`` (the native
     layout, no transpose); otherwise ``A (B, m, n), b (B, m)``. ``key`` is
     the ``torch.Generator`` for the driver's power-iteration start (the
-    reference takes a ``jax.random`` key there). Returns a ``BatchResult``."""
+    reference takes a ``jax.random`` key there). Returns a ``BatchResult``,
+    or ``(result, state)`` with ``return_state``; ``state0`` resumes on the
+    engine whose state it is."""
     if mesh is not None or mesh_axis is not None:
         raise NotImplementedError(
             "solve_lasso_batch(mesh=) is not ported yet (ROADMAP Queue 1 "
             "item 9: torch.distributed)"
         )
-    if state0 is not None or return_state:
-        raise NotImplementedError(
-            "checkpoint/resume through solve_lasso_batch is not ported yet "
-            "(ROADMAP Queue 1 item 4: FusedSolveState and the resume dispatch)"
-        )
     if cfg is None:
         cfg = _default_cfg()
     n = A.shape[0] if feature_major else A.shape[-1]
-    m = A.shape[1]
+    if state0 is not None:
+        return _resume_lasso_batch(A, b, alpha1, alpha2, cfg, backend,
+                                   feature_major, key, interpret, state0,
+                                   return_state)
 
-    use_kernel, _ = _kernel_route(n, m, cfg, backend, interpret, A.is_cuda)
+    # route before building: a doomed backend='kernel' call must not first
+    # spend the Gram build
+    use_kernel, _ = _kernel_route(n, cfg, backend, interpret, A.is_cuda)
     if use_kernel:
-        from ..kernels.fused_solve import solve_lasso_fused
+        from ..kernels.fused_solve import (
+            _check_fused_cfg,
+            auto_tiles_fused,
+            solve_lasso_fused,
+        )
 
-        A_fm = A if feature_major else A.permute(2, 1, 0)
-        b_fm = b if feature_major else b.T
-        return solve_lasso_fused(A_fm.contiguous(), b_fm.contiguous(), alpha1,
-                                 alpha2, cfg=cfg, interpret=interpret)
+        try:
+            _check_fused_cfg(cfg)
+            auto_tiles_fused(n, A.shape[1])
+        except (NotImplementedError, ValueError):
+            pass
+        else:
+            A_fm, b_fm = _feature_major(A, b, feature_major)
+            return solve_lasso_fused(A_fm.contiguous(), b_fm.contiguous(),
+                                     alpha1, alpha2, cfg=cfg,
+                                     interpret=interpret,
+                                     return_state=return_state)
 
-    A_im = A.permute(2, 1, 0) if feature_major else A
-    b_im = b.T if feature_major else b
-    gb = make_gram_batch(A_im, b_im, alpha1, alpha2, generator=key)
-    return fista_gram_batch(gb, cfg)
+    gb = _build_gram_routed(A, b, alpha1, alpha2, feature_major, key,
+                            interpret, use_kernel)
+    if use_kernel:
+        from ..kernels.fista_vmem import fista_gram_vmem
+
+        return fista_gram_vmem(gb, cfg, interpret=interpret,
+                               return_state=return_state)
+    return fista_gram_batch(gb, cfg, return_state=return_state)
+
+
+def _resume_lasso_batch(A, b, alpha1, alpha2, cfg, backend, feature_major,
+                        key, interpret, state0, return_state):
+    """Resume dispatch for :func:`solve_lasso_batch`: the state type pins the
+    engine. The Gram is rebuilt from the same ``(A, b)`` by the same route,
+    so only the solver rows round-trip."""
+    from ..kernels.fista_vmem import VmemSolveState, fista_gram_vmem
+
+    n = A.shape[0] if feature_major else A.shape[-1]
+    _unported_state(state0)
+    if isinstance(state0, VmemSolveState):
+        if backend == "xla":
+            raise ValueError(
+                "state0 is a kernel-path VmemSolveState; it cannot resume "
+                "on backend='xla'"
+            )
+        _kernel_route(n, cfg, "kernel", interpret, A.is_cuda)
+        gb = _build_gram_routed(A, b, alpha1, alpha2, feature_major, key,
+                                interpret, use_kernel=True)
+        return fista_gram_vmem(gb, cfg, interpret=interpret, state0=state0,
+                               return_state=return_state)
+    if isinstance(state0, BatchState):
+        if backend == "kernel":
+            raise ValueError(
+                "state0 is a torch-driver BatchState; it cannot resume on "
+                "backend='kernel'"
+            )
+        gb = _build_gram_routed(A, b, alpha1, alpha2, feature_major, key,
+                                interpret, use_kernel=False)
+        return fista_gram_batch(gb, cfg, state0=state0,
+                                return_state=return_state)
+    raise TypeError(
+        f"state0 must be a FusedSolveState, ResidentSolveState, "
+        f"VmemSolveState, or BatchState; got {type(state0).__name__}"
+    )

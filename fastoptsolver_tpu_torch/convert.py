@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from .batch.fista_gram import BatchFISTAConfig, BatchState, GramBatch
+from .kernels.fista_vmem import VmemSolveState
 
 
 def _tensor(x) -> torch.Tensor:
@@ -36,6 +37,18 @@ def batch_state_from_numpy(X, Y, t, prev_step, done, iters, gap, k, tau,
         prev_step=_tensor(prev_step), done=_tensor(np.asarray(done, bool)),
         iters=_tensor(np.asarray(iters, np.int32)), gap=_tensor(gap),
         k=int(np.asarray(k)), tau=_tensor(tau), first_step=_tensor(first_step),
+    )
+
+
+def vmem_state_from_numpy(X, Y, t, ps, tau, k, done, iters, gap) -> VmemSolveState:
+    """A CPU ``VmemSolveState`` from the reference's fields, in its field
+    order (``vmem_state_from_numpy(*jax_state)``), so that a checkpoint of
+    the reference's burst engine resumes in the port."""
+    return VmemSolveState(
+        X=_tensor(X), Y=_tensor(Y), t=_tensor(t), ps=_tensor(ps),
+        tau=_tensor(tau), k=torch.tensor(int(np.asarray(k)), dtype=torch.int32),
+        done=_tensor(np.asarray(done, bool)),
+        iters=_tensor(np.asarray(iters, np.int32)), gap=_tensor(gap),
     )
 
 

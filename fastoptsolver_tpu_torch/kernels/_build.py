@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels: nvcc → one shared library → ctypes.
 
 The sources under ``kernels/csrc/`` have a plain C interface (no PyTorch
-headers), so one ``nvcc`` call builds them in seconds. The library lands in
-``fastoptsolver_tpu_torch/_build/`` (listed in ``.gitignore``), named by a
-hash of the sources and the flags, so an edited source rebuilds and an
-unchanged one loads the cached build. Nothing here runs at import: the first
-wrapper that launches a kernel calls :func:`library`.
+headers). Each is compiled by its own ``nvcc`` process, all started
+together, and one more ``nvcc`` links the objects: seconds in all. The
+library lands in ``fastoptsolver_tpu_torch/_build/`` (listed in
+``.gitignore``), named by a hash of the sources and the flags, so an edited
+source rebuilds and an unchanged one loads the cached build. Nothing here
+runs at import: the first wrapper that launches a kernel calls
+:func:`library`.
 
 Pointers and the stream go to the C functions as ``ctypes.c_void_p``; each
 function returns a ``cudaError_t`` (0 = success) that the wrappers check
@@ -23,14 +25,22 @@ import time
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("fused_solve.cu", "stream.cu")
+# source -> extra flags. --fmad=false keeps nvcc from contracting a*b + c into
+# one FMA, so those kernels round each product and each sum as their plain
+# twins do (explicit fmaf() calls stay fused).
+SOURCES = {
+    "fused_solve.cu": (),
+    "stream.cu": (),
+    "gram_build.cu": ("--fmad=false",),
+    "fista_burst.cu": ("--fmad=false",),
+}
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 # No --use_fast_math: τ = 1/L, the norms' sqrt and the gap's divisions must be
 # IEEE and denormals must not flush. -Xptxas -v writes each kernel's
 # registers and spills into the build log.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _vp, _i, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
@@ -41,6 +51,16 @@ _SIGNATURES = {
                                       _f, _vp],
     # A, b, out, n, m, B, b_tile, stream
     "stream_ceiling": [_vp, _vp, _vp, _i, _ll, _ll, _i, _vp],
+    # A, b, Q, c, btb, n, m, B, stream
+    "gram_pairs": [_vp] * 5 + [_i, _ll, _ll, _vp],
+    # Q, c, lam, n, B, pl_iters, stream
+    "gram_power": [_vp] * 3 + [_i, _ll, _i, _vp],
+    # Q, c, tau, thr, a2, a1, btb, X, Y, t, ps, taumin, tauv, betas,
+    # Xo, Yo, to, pso, tauvo, gap, n, B, n_steps, k0, mode, armijo,
+    # with_gap, restart_threshold, greedy_S, greedy_shrink, armijo_c,
+    # armijo_eta, max_backtracks, stream
+    "fista_burst": [_vp] * 20 + [_i, _ll, _i, _i, _i, _i, _i, _f, _f, _f,
+                                 _f, _f, _i, _vp],
     "fos_cuda_error_string": [_i],
 }
 _RESTYPES = {"fos_cuda_error_string": ctypes.c_char_p}  # the rest return int
@@ -65,10 +85,30 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
-        h.update(name.encode())
+    for name, extra in SOURCES.items():
+        h.update(name.encode() + " ".join(extra).encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
+
+
+def _compile(nvcc: str, tmpdir: str) -> tuple[list[str], str]:
+    """One ``nvcc -c`` per source, all running at once; returns the object
+    paths and the compilers' output. Raises if any compile fails."""
+    procs = []
+    for name, extra in SOURCES.items():
+        obj = os.path.join(tmpdir, name + ".o")
+        cmd = [nvcc, *NVCC_FLAGS, *extra, "-c", "-o", obj, str(CSRC / name)]
+        procs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = "", []
+    for cmd, _, proc in procs:
+        out = proc.communicate()[0]
+        log += out
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return [obj for _, obj, _ in procs], log
 
 
 def library() -> ctypes.CDLL:
@@ -84,20 +124,22 @@ def library() -> ctypes.CDLL:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         # build under a private name, then rename: concurrent builders never
         # load a half-written library
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *(str(CSRC / s) for s in SOURCES)]
+        nvcc = _nvcc()
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmpdir:
+            objs, out = _compile(nvcc, tmpdir)
+            tmp = os.path.join(tmpdir, "lib.so")
+            cmd = [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                   "-o", tmp, *objs]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc link failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+                    f"{proc.stdout}{proc.stderr}"
+                )
+            log.write_text(out + proc.stdout + proc.stderr)
+            os.replace(tmp, so)
         build_seconds = time.perf_counter() - t0
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
-        log.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, so)
     build_log = log.read_text() if log.exists() else ""
     lib = ctypes.CDLL(str(so))
     for name, argtypes in _SIGNATURES.items():

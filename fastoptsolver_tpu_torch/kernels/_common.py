@@ -11,7 +11,9 @@ padding were artefacts of Pallas block shapes.
 
 Only the fixed-momentum (table-β) branch of ``certified_solve_body`` is
 ported; adaptive restart, greedy and Armijo in the fused engine are still to
-port (ROADMAP Queue 1 item 4).
+port (ROADMAP Queue 1 item 4). :func:`fista_general_chunk` and
+:func:`fista_armijo_chunk` carry those modes for the burst engine
+(``fista_vmem``, CUDA ``csrc/fista_burst.cu``).
 """
 from __future__ import annotations
 
@@ -84,6 +86,14 @@ def gram_rel_gap_from_qx(X, QX, c_vec, a1, a2, btb):
     return gap / torch.clamp_min(f, 1.0)
 
 
+def _soft(V, thr):
+    return torch.sign(V) * torch.clamp_min(torch.abs(V) - thr, 0.0)
+
+
+def _red(v):
+    return torch.sum(v, dim=0, keepdim=True)
+
+
 def fista_fixed_chunk(matvec, betas: torch.Tensor, c_vec, tau, thr, a2,
                       chunk: int):
     """``chunk`` fixed-momentum FISTA iterations, β read from the table at
@@ -92,11 +102,117 @@ def fista_fixed_chunk(matvec, betas: torch.Tensor, c_vec, tau, thr, a2,
     def run(k0, X, Y):
         for i in range(chunk):
             grad = matvec(Y) + a2 * Y - c_vec
-            V = Y - tau * grad
-            Xn = torch.sign(V) * torch.clamp_min(torch.abs(V) - thr, 0.0)
+            Xn = _soft(Y - tau * grad, thr)
             beta = float(betas[k0 + i])
             X, Y = Xn, Xn + beta * (Xn - X)
         return X, Y
+
+    return run
+
+
+def _restart_momentum(X, Xn, t, ps, restart_threshold):
+    """Nesterov with adaptive restart (reference iterative_solvers.py:209-217):
+    per-lane ``t`` and previous step norm ``ps``; returns ``(Yn, t, ps)``."""
+    this = torch.sqrt(_red((Xn - X) ** 2))
+    t_next = 0.5 * (1.0 + torch.sqrt(1.0 + 4.0 * t * t))
+    beta = (t - 1.0) / t_next
+    Yn = Xn + beta * (Xn - X)
+    ratio = torch.where(ps > 0.0, this / torch.clamp_min(ps, 1e-30),
+                        torch.full_like(this, float("inf")))
+    restart = ratio > restart_threshold
+    t_next = torch.where(restart, torch.ones_like(t_next), t_next)
+    Yn = torch.where(restart, Xn, Yn)
+    return Yn, t_next, this
+
+
+def fista_general_chunk(matvec, betas, c_vec, tau, thr, a1, a2, chunk: int,
+                        restart_threshold, greedy, taumin):
+    """``chunk`` FISTA iterations in any momentum mode but Armijo, carrying
+    the per-lane rows: ``(k0, X, Y, t, ps) -> (X, Y, t, ps)``.
+
+    - fixed (``restart_threshold`` and ``greedy`` None): β from the host
+      table at absolute indices; ``t``/``ps`` pass through;
+    - adaptive restart: per-lane Nesterov scalar ``t`` and previous step
+      norm ``ps``;
+    - greedy (``(S, shrink)``): ``t`` is the per-lane τ, ``ps`` the
+      first-step norm; unit momentum, gradient-mapping restart, τ shrunk
+      toward the floor ``taumin``.
+
+    The same per-lane arithmetic as the reference's ``fista_general_chunk``."""
+    def run(k0, X, Y, t, ps):
+        for i in range(chunk):
+            grad = matvec(Y) + a2 * Y - c_vec
+            if greedy is not None:
+                S_val, shrink = greedy
+                Xn = _soft(Y - t * grad, t * a1)
+                this = torch.sqrt(_red((Xn - X) ** 2))
+                Yn = Xn + (Xn - X)  # unit momentum
+                restart = _red((Y - Xn) * (Xn - X)) >= 0.0
+                Yn = torch.where(restart, Xn, Yn)
+                ps = torch.where(ps == 0.0, this, ps)
+                grow = this > S_val * ps
+                t = torch.where(grow | restart,
+                                torch.maximum(shrink * t, taumin), t)
+                X, Y = Xn, Yn
+                continue
+            Xn = _soft(Y - tau * grad, thr)
+            if restart_threshold is None:
+                beta = float(betas[k0 + i])
+                X, Y = Xn, Xn + beta * (Xn - X)
+                continue
+            Y, t, ps = _restart_momentum(X, Xn, t, ps, restart_threshold)
+            X = Xn
+        return X, Y, t, ps
+
+    return run
+
+
+def fista_armijo_chunk(matvec, betas, c_vec, a1, a2, btb, chunk: int,
+                       restart_threshold, armijo):
+    """``chunk`` FISTA iterations with the masked per-lane Armijo search
+    (reference iterative_solvers.py:183-197 semantics, C = ``armijo[0]``,
+    shrink η = ``armijo[1]``, at most ``armijo[2]`` trial rounds):
+    ``(k0, X, Y, t, ps, tau) -> (X, Y, t, ps, tau)``, ``tau`` the per-lane
+    step row, which persists and never grows.
+
+    Trial rounds run in lockstep over all lanes while any lane is still
+    unaccepted; an accepted lane is left untouched. So a lane's outcome
+    depends only on its own data, and a kernel may give each lane its own
+    trial loop. The accept mask is a bool tensor (the reference carried it
+    as float 0/1 only to get past Mosaic). Momentum is table-β when
+    ``restart_threshold`` is None, else Nesterov with adaptive restart."""
+    C, eta, max_bt = armijo
+
+    def smooth(Z, QZ):
+        return (0.5 * _red(Z * QZ) - _red(c_vec * Z) + 0.5 * btb
+                + 0.5 * a2 * _red(Z * Z))
+
+    def run(k0, X, Y, t, ps, tau):
+        for i in range(chunk):
+            QY = matvec(Y)
+            grad = QY + a2 * Y - c_vec
+            g_y = smooth(Y, QY)
+
+            def trial(tv):
+                Xc = _soft(Y - tv * grad, tv * a1)
+                ok = smooth(Xc, matvec(Xc)) <= g_y + C * _red(grad * (Xc - Y))
+                return Xc, ok
+
+            Xn, acc = trial(tau)
+            kbt = 0
+            while bool(torch.any(~acc)) and kbt < max_bt:
+                tau = torch.where(acc, tau, eta * tau)
+                Xt, ok = trial(tau)
+                Xn = torch.where(acc, Xn, Xt)
+                acc = acc | ok
+                kbt += 1
+            if restart_threshold is None:
+                beta = float(betas[k0 + i])
+                X, Y = Xn, Xn + beta * (Xn - X)
+                continue
+            Y, t, ps = _restart_momentum(X, Xn, t, ps, restart_threshold)
+            X = Xn
+        return X, Y, t, ps, tau
 
     return run
 

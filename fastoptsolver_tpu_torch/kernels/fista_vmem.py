@@ -1,13 +1,65 @@
-"""Host-side pieces of ``fastoptsolver_tpu/kernels/fista_vmem.py`` that the
-fused kernel needs: the β table, the shared config guard and the Armijo
-triple. The burst and adaptive kernels themselves are still to port
-(ROADMAP Queue 2)."""
+"""The burst engine of the two-kernel path (port of
+``fastoptsolver_tpu/kernels/fista_vmem.py``).
+
+:func:`fista_gram_vmem` solves a prebuilt :class:`GramBatch` in bursts of
+``check_every`` FISTA iterations. On a CUDA tensor each burst is one launch of
+the hand-written Hopper kernel ``csrc/fista_burst.cu`` (see its note for the
+design and the bound); on a CPU tensor it is the plain twin
+:func:`_burst_reference`, built from ``kernels/_common.py``. Every momentum
+mode runs in the burst: fixed (nesterov or delta, β from a host table at the
+absolute iteration), adaptive restart, greedy, and the masked per-lane Armijo
+search. With ``check_every > 0`` each burst ends with the per-lane relative
+duality gap, and the host loop (:func:`_solve_on_device`) keeps the
+certification record: non-finite quarantine, the greedy stuck-lane shrink,
+the burst-boundary ``iters``, and the exit once every lane is certified.
+
+Differences from the reference, all forced by the framework or the card:
+
+- The reference runs the whole burst loop as one jitted ``while_loop`` on the
+  device. Here it is a Python loop with one host sync per burst (the
+  all-done test); the card idles for that sync and the next launch.
+- Lanes are not padded: the kernel masks its ragged last CTA, and no lane's
+  result depends on its neighbours, so ``b_tile`` selects nothing (it is
+  kept for the reference's signature and plans, :func:`auto_b_tile`).
+- The window: the engine takes n ≤ 104, the reference's own burst ceiling,
+  so both packages pick the same engine there. The resident (104 < n ≤ 168)
+  and Q-streaming (n > 168) engines are not ported yet (ROADMAP Queue 2
+  items 7-9): :func:`plan_gram_solve` raises past 104, which sends the router
+  to the torch driver.
+"""
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ..batch.fista_gram import BatchFISTAConfig
+from ..batch.fista_gram import (
+    BatchFISTAConfig,
+    BatchResult,
+    GramBatch,
+    _rel_gap,
+)
+from . import _build
+from ._common import (
+    fista_armijo_chunk,
+    fista_general_chunk,
+    gram_rel_gap,
+    make_matvec,
+)
+
+LANE = 128
+SUBLANE = 8
+# The burst engine's feature window (the reference's vmem ceiling, n_pad < 112).
+MAX_N = 104
+# Launches of the CUDA kernel by this process (one per burst); incremented
+# only where it launches.
+LAUNCHES = 0
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
 
 
 def _check_kernel_cfg(cfg: BatchFISTAConfig, backtracking_ok: bool = True) -> None:
@@ -16,8 +68,9 @@ def _check_kernel_cfg(cfg: BatchFISTAConfig, backtracking_ok: bool = True) -> No
     (the torch driver, batch/fista_gram.py, implements everything)."""
     if cfg.backtracking and not backtracking_ok:
         raise NotImplementedError(
-            "backtracking runs on the torch driver "
-            "(batch.fista_gram.fista_gram_batch) — not on this kernel"
+            "backtracking runs on the burst kernel (kernels.fista_vmem) or "
+            "the torch driver (batch.fista_gram.fista_gram_batch) — not on "
+            "this kernel"
         )
     if cfg.adaptive_restart and cfg.momentum != "nesterov":
         raise ValueError("adaptive restart applies to nesterov momentum only")
@@ -47,3 +100,314 @@ def momentum_betas(k0: int, n_steps: int, t0: float, cfg: BatchFISTAConfig):
             betas[i] = (t - 1.0) / t_next
             t = t_next
     return torch.from_numpy(betas), t
+
+
+@functools.lru_cache(maxsize=16)
+def _beta_table(k_end: int, cfg: BatchFISTAConfig) -> torch.Tensor:
+    """The host β table for iterations 0..k_end-1, built once per (k_end,
+    cfg): the recurrence is a Python loop of k_end steps that would
+    otherwise run, with the card idle, before every solve. Callers only
+    read it."""
+    return momentum_betas(0, k_end, 1.0, cfg)[0]
+
+
+def auto_b_tile(n_pad: int, vmem_budget_bytes: int = 12 * 1024 * 1024) -> int:
+    """The reference's lane tile for the burst engine: the largest multiple
+    of 128 lanes, clamped to [128, 1024], whose double-buffered Q tile fits
+    its TPU budget. Kept so that :func:`plan_gram_solve` returns the same
+    plan in both packages; here no result depends on it (the CUDA kernel
+    runs 32-lane CTAs). Raises past the window (n_pad ≥ 112, n > 104)."""
+    fit = vmem_budget_bytes // (2 * n_pad * n_pad * 4)
+    if fit < LANE:
+        raise ValueError(
+            f"n_pad={n_pad} is past the burst engine's window (n <= {MAX_N}); "
+            "the resident and Q-streaming engines that serve wider problems "
+            "are not ported yet (ROADMAP Queue 2 items 7-9): use the torch "
+            "driver (batch.fista_gram.fista_gram_batch)"
+        )
+    return int(max(LANE, min(1024, (fit // LANE) * LANE)))
+
+
+def plan_gram_solve(n: int, cfg: BatchFISTAConfig) -> tuple[str, int, int]:
+    """The kernel engine for a Gram-form solve at feature count ``n``:
+    ``("vmem", b_tile, 0)`` for n ≤ 104, as the reference plans. Past 104
+    the reference picks its resident or Q-streaming engine, which are not
+    ported yet, so this raises ``ValueError`` and the router falls back to
+    the torch driver, as on the reference's own guard errors."""
+    del cfg
+    n_pad = _round_up(max(n, SUBLANE), SUBLANE)
+    if not 1 <= n <= MAX_N:
+        raise ValueError(
+            f"n={n}: past the burst engine's window (n <= {MAX_N}) the "
+            "reference runs its resident (n <= 168) or Q-streaming engine, "
+            "neither ported yet (ROADMAP Queue 2 items 7-9); use the torch "
+            "driver (batch.fista_gram.fista_gram_batch)"
+        )
+    return "vmem", auto_b_tile(n_pad), 0
+
+
+class VmemSolveState(NamedTuple):
+    """Checkpointable state of the burst engine, field for field the
+    reference's: ``t``/``ps`` are the per-lane momentum rows (Nesterov
+    scalar and previous step norm; per-lane τ and first-step norm under
+    greedy; the fixed modes resume through the β table indexed by ``k``),
+    ``tau`` the per-lane Armijo step, and ``done``/``iters``/``gap`` the
+    certification record. Produced by ``fista_gram_vmem(...,
+    return_state=True)`` and fed back as ``state0``: the continued run is
+    bit-identical to an uninterrupted one."""
+
+    X: torch.Tensor  # (n, B)
+    Y: torch.Tensor  # (n, B)
+    t: torch.Tensor  # (1, B)
+    ps: torch.Tensor  # (1, B)
+    tau: torch.Tensor  # (1, B) — per-lane Armijo step row
+    k: torch.Tensor  # () int32 — iterations completed
+    done: torch.Tensor  # (B,) bool
+    iters: torch.Tensor  # (B,) int32 — burst-boundary certification counts
+    gap: torch.Tensor  # (B,) — last certified per-lane relative gap
+
+
+def _burst_reference(betas, k0, Q, c, tau, thr, a2, a1, btb, X, Y, t, ps,
+                     taumin=None, tauv=None, *, n_steps, with_gap=False,
+                     restart_threshold=None, greedy=None, armijo=None):
+    """The plain twin of one burst on tensors of any device; rows are
+    ``(1, B)``. Returns ``(X, Y, t, ps, tauv, gap)``: ``t``/``ps`` pass
+    through under fixed momentum, ``tauv`` unless ``armijo``; ``gap`` is the
+    per-lane relative duality gap of the final X when ``with_gap``, else
+    zeros."""
+    matvec = make_matvec(Q, Q.shape[0])
+    betas = betas.cpu()
+    if armijo is not None:
+        steps = fista_armijo_chunk(matvec, betas, c, a1, a2, btb, n_steps,
+                                   restart_threshold, armijo)
+        X, Y, t, ps, tauv = steps(k0, X, Y, t, ps, tauv)
+    else:
+        steps = fista_general_chunk(matvec, betas, c, tau, thr, a1, a2, n_steps,
+                                    restart_threshold, greedy, taumin)
+        X, Y, t, ps = steps(k0, X, Y, t, ps)
+    gap = (gram_rel_gap(X, matvec, c, a1, a2, btb) if with_gap
+           else torch.zeros_like(tau))
+    return X, Y, t, ps, tauv, gap
+
+
+def _launch_burst(betas, k0, Q, c, tau, thr, a2, a1, btb, X, Y, t, ps,
+                  taumin=None, tauv=None, *, n_steps, with_gap=False,
+                  restart_threshold=None, greedy=None, armijo=None):
+    """Launch ``fista_burst`` on the current stream; the same outputs as
+    :func:`_burst_reference`. Raises on any input the kernel does not take
+    and on a launch error."""
+    global LAUNCHES
+    n, B = c.shape
+    rows = (("tau", tau), ("thr", thr), ("a2", a2), ("a1", a1), ("btb", btb),
+            ("t", t), ("ps", ps), ("tauv", tauv))
+    tensors = (("Q", Q), ("c", c), ("X", X), ("Y", Y), ("betas", betas)) + rows
+    if greedy is not None:
+        tensors += (("taumin", taumin),)
+    for name, v in tensors:
+        if (not isinstance(v, torch.Tensor) or not v.is_cuda
+                or v.dtype != torch.float32 or not v.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous float32 CUDA tensor")
+        if v.device != Q.device:
+            raise ValueError(f"{name} is on {v.device}, Q on {Q.device}")
+    if Q.shape != (n, n, B) or X.shape != (n, B) or Y.shape != (n, B):
+        raise ValueError(f"shapes do not match: Q {tuple(Q.shape)}, c {(n, B)}, "
+                         f"X {tuple(X.shape)}, Y {tuple(Y.shape)}")
+    for name, v in rows + ((("taumin", taumin),) if greedy is not None else ()):
+        if v.numel() != B:
+            raise ValueError(f"{name} must hold {B} lanes, got {tuple(v.shape)}")
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"the burst kernel takes n = 1..{MAX_N}, got n={n}")
+    fixed = greedy is None and restart_threshold is None
+    if fixed and betas.numel() < k0 + n_steps:
+        raise ValueError("the β table is shorter than k0 + n_steps")
+    mode = 2 if greedy is not None else (0 if fixed else 1)
+    S, shrink = greedy if greedy is not None else (0.0, 0.0)
+    C, eta, max_bt = armijo if armijo is not None else (0.0, 0.0, 0)
+    lib = _build.library()
+    Xo, Yo = torch.empty_like(X), torch.empty_like(Y)
+    to, pso, tauvo, gap = (torch.empty_like(tau) for _ in range(4))
+    ptr = lambda v: None if v is None else v.data_ptr()
+    stream = torch.cuda.current_stream(Q.device).cuda_stream
+    with torch.cuda.device(Q.device):
+        err = lib.fista_burst(
+            *(ptr(v) for v in (Q, c, tau, thr, a2, a1, btb, X, Y, t, ps,
+                               taumin if greedy is not None else None, tauv,
+                               betas, Xo, Yo, to, pso, tauvo, gap)),
+            n, B, n_steps, k0, mode, int(armijo is not None), int(with_gap),
+            float(restart_threshold or 0.0), S, shrink, C, eta, max_bt, stream,
+        )
+    _build.check(err, "fista_burst")
+    LAUNCHES += 1
+    return Xo, Yo, to, pso, tauvo, gap
+
+
+def _burst(*args, **kw):
+    """One burst: the CUDA kernel on a CUDA tensor, the plain twin on a CPU
+    tensor (``args[2]`` is Q)."""
+    return (_launch_burst if args[2].is_cuda else _burst_reference)(*args, **kw)
+
+
+def _solve_on_device(burst, betas, Q, c, btb, alpha1, a2v, tau, thr, a2,
+                     taumin, state0, *, chunk, n_bursts, tol, certify,
+                     restart_threshold=None, greedy=None, k0: int = 0,
+                     armijo=None) -> VmemSolveState:
+    """The certified solve: bursts of ``chunk`` iterations with the gap
+    check between them, until every lane is certified or ``k0 + n_bursts ·
+    chunk`` iterations have run. One host sync per burst reads the all-done
+    test. ``state0`` resumes a run exactly: the fixed modes index the β table
+    at absolute iterations, the others continue from their carried rows, and
+    ``done``/``iters``/``gap`` keep the certification record."""
+    n, B = c.shape
+    a1row, btbrow = alpha1[None, :], btb[None, :]
+    if state0 is None:
+        z = lambda *s: torch.zeros(s, dtype=c.dtype, device=c.device)
+        X, Y, ps = z(n, B), z(n, B), z(1, B)
+        # greedy reinterprets (t, ps) as (per-lane τ, first-step norm)
+        t = tau if greedy is not None else torch.ones_like(tau)
+        tv = tau
+        done = torch.zeros((B,), dtype=torch.bool, device=c.device)
+        iters = torch.zeros((B,), dtype=torch.int32, device=c.device)
+        gap = torch.full((B,), float("inf"), dtype=c.dtype, device=c.device)
+    else:
+        mv = lambda v: v.to(device=c.device).contiguous()
+        X, Y, t, ps, tv = (mv(v).to(c.dtype) for v in state0[:5])
+        done, iters, gap = mv(state0.done), mv(state0.iters), mv(state0.gap)
+    k = k0
+
+    def step(X, Y, t, ps, tv, with_gap):
+        return burst(betas, k, Q, c, tau, thr, a2, a1row, btbrow, X, Y, t, ps,
+                     taumin, tv, n_steps=chunk, with_gap=with_gap,
+                     restart_threshold=restart_threshold, greedy=greedy,
+                     armijo=armijo)
+
+    if certify and n_bursts > 0:
+        inf = torch.full_like(gap, float("inf"))
+        while k < k0 + n_bursts * chunk and not bool(done.all()):
+            X, Y, t, ps, tv, gvec = step(X, Y, t, ps, tv, True)
+            k += chunk
+            g = gvec[0]
+            # quarantine non-finite lanes so the loop exits
+            failed = ~torch.all(torch.isfinite(X), dim=0) | torch.isnan(g)
+            g = torch.where(failed, inf, g)
+            newly = ~done & ((g <= tol) | failed)
+            if greedy is not None:
+                # a live lane whose gap did not improve over a whole check
+                # window gets its τ halved toward 1/L
+                stuck = ~done & ~newly & (g > 0.9 * gap)
+                t = torch.where(stuck[None, :], torch.maximum(0.5 * t, taumin), t)
+            iters = torch.where(newly | ~done, torch.full_like(iters, k), iters)
+            gap = torch.where(done, gap, g)
+            done = done | newly
+    else:
+        # fixed-iteration runs and zero-burst resumes: certify the carried
+        # iterate afterwards
+        for _ in range(n_bursts):
+            X, Y, t, ps, tv, _ = step(X, Y, t, ps, tv, False)
+            k += chunk
+        gb = GramBatch(Q=Q, c=c, btb=btb, alpha1=alpha1, alpha2=a2v, L=alpha1)
+        gap = _rel_gap(gb, X)
+        done = gap <= tol
+        iters = torch.full((B,), k, dtype=torch.int32, device=c.device)
+    return VmemSolveState(X=X, Y=Y, t=t, ps=ps, tau=tv,
+                          k=torch.tensor(k, dtype=torch.int32), done=done,
+                          iters=iters, gap=gap)
+
+
+def _pad_and_solve(burst, betas, Q, c, btb, alpha1, alpha2, L, state0, *,
+                   chunk, n_bursts, tol, certify, t_init_factor,
+                   restart_threshold=None, greedy=None, k0: int = 0,
+                   armijo=None):
+    """The per-lane rows (τ = t_init_factor/L, threshold τα₁, α₂, the greedy
+    floor 1/L), the solve and the result, as the reference's function of
+    this name; lanes need no padding here (the kernel masks its ragged
+    CTA). Returns ``(BatchResult, VmemSolveState)``."""
+    Q, c, btb, alpha1, alpha2, L = (v.contiguous() for v in (Q, c, btb, alpha1,
+                                                            alpha2, L))
+    tau = (t_init_factor / L)[None, :]
+    thr = tau * alpha1[None, :]
+    a2 = alpha2[None, :]
+    taumin = (1.0 / L)[None, :]
+    fin = _solve_on_device(
+        burst, betas.to(Q.device), Q, c, btb, alpha1, alpha2, tau, thr, a2,
+        taumin, state0, chunk=chunk, n_bursts=n_bursts, tol=tol,
+        certify=certify, restart_threshold=restart_threshold, greedy=greedy,
+        k0=k0, armijo=armijo,
+    )
+    failed = ~torch.all(torch.isfinite(fin.X), dim=0)
+    result = BatchResult(x=fin.X.T, iters=fin.iters, rel_gap=fin.gap,
+                         n_iters_total=fin.k, converged=fin.done & ~failed,
+                         failed=failed)
+    return result, fin
+
+
+def _solve(burst, gb, cfg, state0, return_state):
+    _check_kernel_cfg(cfg)
+    n = gb.c.shape[0]
+    if MAX_N < n <= 168 and cfg.check_every > 0:
+        raise NotImplementedError(
+            f"n={n} is in the resident engine's window (104 < n <= 168), "
+            "which is not ported yet (ROADMAP Queue 2 item 7)"
+        )
+    if n > MAX_N:
+        raise NotImplementedError(
+            f"n={n} needs the Q-streaming engine, which is not ported yet "
+            "(ROADMAP Queue 2 item 9)"
+        )
+    plan_gram_solve(n, cfg)
+    k0 = int(state0.k) if state0 is not None else 0
+    certify = cfg.check_every > 0
+    remaining = max(cfg.max_iter - k0, 0)
+    chunk = cfg.check_every if certify else max(remaining, 1)
+    n_bursts = -(-remaining // chunk)
+    greedy = ((cfg.greedy_S, cfg.greedy_shrink) if cfg.momentum == "greedy"
+              else None)
+    result, fin = _pad_and_solve(
+        burst, _beta_table(max(k0 + n_bursts * chunk, 1), cfg), gb.Q, gb.c,
+        gb.btb, gb.alpha1, gb.alpha2, gb.L, state0, chunk=chunk,
+        n_bursts=n_bursts, tol=cfg.rel_gap_tol, certify=certify,
+        t_init_factor=cfg.greedy_xi if greedy is not None else cfg.t_init_factor,
+        restart_threshold=cfg.restart_threshold if cfg.adaptive_restart else None,
+        greedy=greedy, k0=k0, armijo=_armijo_static(cfg),
+    )
+    return (result, fin) if return_state else result
+
+
+def fista_gram_vmem_reference(gb: GramBatch, cfg: BatchFISTAConfig = BatchFISTAConfig(),
+                              state0: VmemSolveState | None = None,
+                              return_state: bool = False):
+    """:func:`fista_gram_vmem` with the plain twin for every burst, on a
+    tensor of any device: the same result as the kernel route up to f32
+    summation order."""
+    return _solve(_burst_reference, gb, cfg, state0, return_state)
+
+
+def fista_gram_vmem(
+    gb: GramBatch,
+    cfg: BatchFISTAConfig = BatchFISTAConfig(),
+    b_tile: int | None = None,
+    interpret: bool = False,
+    state0: VmemSolveState | None = None,
+    return_state: bool = False,
+):
+    """Solve the batch in bursts: one launch of the burst kernel per burst on
+    a CUDA tensor, the plain twin on a CPU tensor (``interpret=True`` asks
+    for the twin and raises with a CUDA tensor).
+
+    ``cfg.check_every > 0``: bursts of that many iterations, each ending
+    with the per-lane gap; the loop exits when every lane is certified
+    (``max_iter`` rounds up to a burst). ``check_every <= 0``: one fixed run
+    of ``max_iter`` iterations, certified afterwards. Certified lanes keep
+    iterating; ``iters`` records the burst at which each lane first
+    certified. Every momentum mode and Armijo backtracking run in the burst.
+
+    ``state0`` resumes a previous run exactly (``max_iter`` counts the
+    resumed iterations); with ``return_state`` the final
+    :class:`VmemSolveState` comes back with the result. ``b_tile`` selects
+    nothing (no lane depends on another). Past n = 104 this raises
+    ``NotImplementedError``: the resident and Q-streaming engines the
+    reference hands off to are not ported yet."""
+    del b_tile
+    if gb.Q.is_cuda and interpret:
+        raise ValueError("interpret=True runs the plain twin on a CPU tensor; "
+                         "the GramBatch is on a CUDA device")
+    return _solve(_burst, gb, cfg, state0, return_state)

@@ -12,14 +12,13 @@ it runs the plain PyTorch twin :func:`fused_solve_reference`, built from
 Scope of this port: fixed (table-β) momentum, ``nesterov`` or ``delta``.
 Adaptive restart, greedy momentum, Armijo backtracking and checkpoint/resume
 (``FusedSolveState``) are still to port (ROADMAP Queue 1 item 4); the guards
-refuse them, and the router sends them to the torch driver. Both ``overlap``
+refuse them, and the router sends them to the two-kernel path
+(``gram_build`` + ``fista_vmem``). Both ``overlap``
 values run the same kernel: on an SM, resident CTAs overlap one CTA's solve
 with another's loads in hardware, which the TPU's ``_overlap_kernel`` had to
 pipeline by hand.
 """
 from __future__ import annotations
-
-import functools
 
 import torch
 
@@ -31,7 +30,7 @@ from ._common import (
     make_matvec,
     power_lambda_max,
 )
-from .fista_vmem import _check_kernel_cfg, momentum_betas
+from .fista_vmem import _beta_table, _check_kernel_cfg
 from .gram_build import _round_up
 
 # Feature counts the CUDA template is instantiated for (csrc/fused_solve.cu).
@@ -50,26 +49,31 @@ def _check_fused_cfg(cfg: BatchFISTAConfig, overlap: bool = False) -> None:
     if cfg.adaptive_restart or cfg.momentum == "greedy":
         raise NotImplementedError(
             "the fused CUDA kernel implements fixed (table-β) momentum only; "
-            "adaptive restart and greedy momentum run on the torch driver "
-            "until they are ported (ROADMAP Queue 1 item 4)"
+            "adaptive restart and greedy momentum run on the two-kernel path "
+            "(gram_build + fista_vmem) until they are ported here (ROADMAP "
+            "Queue 1 item 4)"
         )
     if cfg.check_every <= 0:
         raise ValueError(
             "the single-launch fused kernel certifies in-kernel and needs "
-            "check_every > 0; for fixed-iteration runs use the torch driver"
+            "check_every > 0; fixed-iteration runs take the burst engine "
+            "(fista_vmem) or the torch driver"
         )
 
 
 def auto_tiles_fused(n: int, m: int):
     """``(b_tile, m_tile)`` for the fused kernel. The Hopper envelope is the
     template range: Q (n²), c, X, Y and the pair sums live in one thread's
-    registers, and at n = 8 that is ~150 of the 255 a thread may hold; wider
-    problems go to the torch driver. ``m_tile`` is always ``m``: each thread
+    registers, and ptxas gives the n = 8 instance 126 of the 255 a thread
+    may hold (128 at n = 7; chip_smoke's ``-- ptxas`` lines); wider problems
+    go to the two-kernel path. ``m_tile`` is always ``m``: each thread
     walks all its rows, so there is no row tiling to choose."""
     if not 1 <= n <= MAX_N:
         raise ValueError(
             f"fused build+solve kernel: n={n} is outside the instantiated "
-            f"range 1..{MAX_N} (per-thread registers); use the torch driver"
+            f"range 1..{MAX_N} (per-thread registers); the two-kernel path "
+            "(gram_build + fista_vmem) takes n <= 104, the torch driver wider "
+            "problems"
         )
     return B_TILE, m
 
@@ -156,15 +160,6 @@ def _result(X, iters, gap, done, tol: float) -> BatchResult:
         converged=(done > 0) & (gap <= tol) & ~failed,
         failed=failed,
     )
-
-
-@functools.lru_cache(maxsize=16)
-def _beta_table(k_end: int, cfg: BatchFISTAConfig) -> torch.Tensor:
-    """The host β table for iterations 0..k_end-1, built once per (k_end,
-    cfg): the recurrence is a Python loop of k_end steps that would
-    otherwise run, with the card idle, before every launch. Callers only
-    read it."""
-    return momentum_betas(0, k_end, 1.0, cfg)[0]
 
 
 def _plan(A, alpha1, alpha2, cfg, pl_iters, l_safety, b_tile) -> dict:

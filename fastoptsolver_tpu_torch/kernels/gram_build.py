@@ -1,8 +1,36 @@
-"""Index helpers from ``fastoptsolver_tpu/kernels/gram_build.py``.
+"""The Gram build of the two-kernel path (port of
+``fastoptsolver_tpu/kernels/gram_build.py``).
 
-Only ``_pairs`` and ``_round_up`` are ported so far; the two-kernel path's
-build kernel (``_gram_tile_kernel``) is still to port (ROADMAP Queue 2)."""
+:func:`make_gram_batch_fused` turns feature-leading ``A (n, m, B)``,
+``b (m, B)`` and α into a :class:`GramBatch`: ``Q = AᵀA`` (both triangles),
+``c = Aᵀb``, ``bᵀb`` and the per-lane Lipschitz bound ``L``. On a CUDA tensor
+it launches the hand-written Hopper kernels of ``csrc/gram_build.cu`` — two
+launches, ``gram_pairs`` (one pass over A and b) and ``gram_power`` (the power
+iteration against each lane's Gram held in shared memory); see the source's
+note for their design and bounds. On a CPU tensor it runs the plain twin
+:func:`gram_build_reference`, built from ``_common.augmented_gram`` and
+``_common.power_lambda_max``: v0 = c, 32 steps at n ≤ 7, else 96, and the
+host rule ``L = where(λ > 0, 1.02·λ, 1) + α₂``.
+
+The reference's TPU tiling knobs ``b_tile``, ``m_tile`` and ``split_k`` have no
+counterpart: the kernels tile lanes themselves and each lane's sums do not
+depend on the tiling.
+"""
 from __future__ import annotations
+
+import torch
+
+from ..batch.fista_gram import GramBatch, _lane_vector
+from . import _build
+from ._common import augmented_gram, make_matvec, power_lambda_max
+
+# Shared memory a Hopper block may opt into (H100: 227 KB).
+SMEM_PER_BLOCK = 232448
+# Lanes per CTA of gram_pairs (csrc/gram_build.cu kLanes).
+LANE_TILE = 32
+# Launches of the CUDA kernels by this process (gram_pairs and gram_power each
+# count one, so a build adds 2); incremented only where they launch.
+LAUNCHES = 0
 
 
 def _round_up(x: int, mult: int) -> int:
@@ -13,3 +41,109 @@ def _pairs(na: int):
     """Upper-triangle index pairs of the (na, na) augmented Gram, row-major:
     the accumulator row of pair (i, k) is ``p = i·na − i(i−1)/2 + (k − i)``."""
     return [(i, k) for i in range(na) for k in range(i, na)]
+
+
+def _power_smem_bytes(n: int) -> int:
+    """Shared memory of ``gram_power`` at feature count n: 8 lanes' upper
+    triangles, their iterates and an 8 × 8 reduction buffer (the C function
+    ``gram_power_smem_bytes``)."""
+    return (n * (n + 1) // 2 + n + 8) * 8 * 4
+
+
+# The largest n whose power-iteration block fits: 118.
+MAX_N = max(n for n in range(1, 129) if _power_smem_bytes(n) <= SMEM_PER_BLOCK)
+
+
+def _auto_tiles(n: int, m: int):
+    """``(b_tile, m_tile)`` of the Hopper build: 32 lanes per CTA and the
+    whole row axis in the block's own loop. The window is what the power
+    iteration's shared-memory block holds, 1 ≤ n ≤ ``MAX_N`` (118; the burst
+    engine needs n ≤ 104). Raises past it, with a pointer to the torch
+    precompute, as the reference raises past its VMEM budget."""
+    if not 1 <= n <= MAX_N:
+        raise ValueError(
+            f"fused Gram build: n={n} needs {_power_smem_bytes(n)} bytes of "
+            f"shared memory for the power iteration's 8-lane block, past the "
+            f"{SMEM_PER_BLOCK} a Hopper block holds (n <= {MAX_N}). Use the "
+            "torch precompute (batch.make_gram_batch) for wider problems."
+        )
+    return LANE_TILE, m
+
+
+def gram_build_reference(A: torch.Tensor, b: torch.Tensor, pl_iters: int):
+    """The plain twin of the two kernels on a tensor of any device:
+    ``(Q (n, n, B), c (n, B), btb (B,), lam (B,))``, λ the power-iteration
+    estimate from v0 = c (no safety factor, no α₂)."""
+    n = A.shape[0]
+    Q, c, btb = augmented_gram(A, b)
+    lam = power_lambda_max(make_matvec(Q, n), c, pl_iters)
+    return Q.contiguous(), c.contiguous(), btb[0], lam[0]
+
+
+def _launch(A: torch.Tensor, b: torch.Tensor, pl_iters: int):
+    """Launch ``gram_pairs`` then ``gram_power`` on the current stream; the
+    same outputs as :func:`gram_build_reference`. Raises on any input the
+    kernels do not take and on a launch error."""
+    global LAUNCHES
+    n, m, B = A.shape
+    for name, t in (("A", A), ("b", b)):
+        if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous float32 CUDA tensor")
+    if b.device != A.device or b.shape != (m, B):
+        raise ValueError(f"b {tuple(b.shape)} on {b.device} does not match A "
+                         f"{tuple(A.shape)} on {A.device}")
+    _auto_tiles(n, m)
+    lib = _build.library()
+    Q = torch.empty((n, n, B), dtype=A.dtype, device=A.device)
+    c = torch.empty((n, B), dtype=A.dtype, device=A.device)
+    btb = torch.empty((B,), dtype=A.dtype, device=A.device)
+    lam = torch.empty((B,), dtype=A.dtype, device=A.device)
+    stream = torch.cuda.current_stream(A.device).cuda_stream
+    with torch.cuda.device(A.device):
+        err = lib.gram_pairs(A.data_ptr(), b.data_ptr(), Q.data_ptr(),
+                             c.data_ptr(), btb.data_ptr(), n, m, B, stream)
+        _build.check(err, "gram_pairs")
+        LAUNCHES += 1
+        err = lib.gram_power(Q.data_ptr(), c.data_ptr(), lam.data_ptr(), n, B,
+                             pl_iters, stream)
+        _build.check(err, "gram_power")
+        LAUNCHES += 1
+    return Q, c, btb, lam
+
+
+def make_gram_batch_fused(
+    A: torch.Tensor,  # (n, m, B) feature-leading
+    b: torch.Tensor,  # (m, B)
+    alpha1,
+    alpha2,
+    pl_iters: int | None = None,
+    l_safety: float = 1.02,
+    b_tile: int | None = None,
+    m_tile: int | None = None,
+    interpret: bool = False,
+    split_k: int = 4,
+) -> GramBatch:
+    """The two build kernels on a CUDA tensor, their plain twin on a CPU
+    tensor; ``interpret=True`` asks for the twin and raises with a CUDA
+    tensor. ``pl_iters`` defaults to 32 at n ≤ 7, else 96; ``L =
+    where(λ > 0, l_safety·λ, 1) + α₂`` (a lane with c = 0 has λ = 0 and
+    x* = 0). ``b_tile``, ``m_tile`` and ``split_k`` are the reference's TPU
+    knobs and select nothing here; ``split_k < 1`` still raises."""
+    del b_tile, m_tile
+    if A.dim() != 3:
+        raise ValueError("A must be (n, m, B)")
+    n, m, B = A.shape
+    if split_k < 1:
+        raise ValueError(f"split_k must be >= 1 (got {split_k})")
+    _auto_tiles(n, m)
+    if pl_iters is None:
+        pl_iters = 32 if n <= 7 else 96
+    if A.is_cuda and interpret:
+        raise ValueError("interpret=True runs the plain twin on a CPU tensor; "
+                         "A is a CUDA tensor")
+    run = _launch if A.is_cuda else gram_build_reference
+    Q, c, btb, lam = run(A, b, pl_iters)
+    a1 = _lane_vector(alpha1, B, A)
+    a2 = _lane_vector(alpha2, B, A)
+    L = torch.where(lam > 0.0, l_safety * lam, torch.ones_like(lam)) + a2
+    return GramBatch(Q=Q, c=c, btb=btb, alpha1=a1, alpha2=a2, L=L)

@@ -1,0 +1,105 @@
+"""The Gram build's plain twin (``fastoptsolver_tpu_torch.kernels.gram_build``)
+held against ``fastoptsolver_tpu.kernels.make_gram_batch_fused(...,
+interpret=True)``, plus its window and host rule.
+
+Tolerances: Q, c and bᵀb to 1e-5 of each lane's largest entry (the two sum
+the m rows in other f32 orders); L to 1e-4 relative (both start the power
+iteration at v0 = c, run the same number of steps and apply the same 1.02
+factor, so only that rounding separates them).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fastoptsolver_tpu.kernels import gram_build as jgram
+from fastoptsolver_tpu.kernels import make_gram_batch_fused as jax_build
+from fastoptsolver_tpu_torch.kernels import gram_build as tgram
+
+torch.set_num_threads(1)
+
+# (n, m, B): the n <= 7 power depth (32), the first n past the fused kernel's
+# envelope, and a ragged 200-lane batch (not a whole 128-lane tile)
+SHAPES = [(5, 120, 384), (9, 33, 128), (20, 70, 200)]
+
+
+def _problem(n, m, B, seed):
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(n, m, B)).astype(np.float32)
+    b = (np.einsum("nmb,nb->mb", A, rng.normal(size=(n, B)))
+         + rng.normal(size=(m, B))).astype(np.float32)
+    a1 = (0.1 * np.abs(np.einsum("nmb,mb->nb", A, b)).max(axis=0)).astype(np.float32)
+    return A, b, a1
+
+
+@pytest.fixture(scope="module")
+def built():
+    """Both packages' GramBatch for every shape (α₂ = 0.3), computed once."""
+    out = {}
+    for i, shape in enumerate(SHAPES):
+        A, b, a1 = _problem(*shape, seed=i)
+        gj = jax_build(jnp.asarray(A), jnp.asarray(b), jnp.asarray(a1), 0.3,
+                       interpret=True)
+        gt = tgram.make_gram_batch_fused(torch.from_numpy(A), torch.from_numpy(b),
+                                         torch.from_numpy(a1), 0.3, interpret=True)
+        out[shape] = (gj, gt)
+    return out
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_twin_matches_jax_gram_build(built, shape):
+    gj, gt = built[shape]
+    n, _, B = shape
+    Qj, cj, btbj = (np.asarray(v, np.float64) for v in (gj.Q, gj.c, gj.btb))
+    assert gt.Q.shape == (n, n, B) and gt.c.shape == (n, B) and gt.btb.shape == (B,)
+    scale = np.maximum(np.abs(Qj).max(axis=(0, 1)), btbj)  # per lane
+    assert np.all(np.abs(gt.Q.numpy() - Qj) <= 1e-5 * scale)
+    assert np.all(np.abs(gt.c.numpy() - cj) <= 1e-5 * scale)
+    assert np.all(np.abs(gt.btb.numpy() - btbj) <= 1e-5 * scale)
+    np.testing.assert_allclose(gt.L.numpy(), np.asarray(gj.L), rtol=1e-4)
+    np.testing.assert_array_equal(gt.alpha2.numpy(), np.asarray(gj.alpha2))
+    np.testing.assert_array_equal(gt.alpha1.numpy(), np.asarray(gj.alpha1))
+    assert torch.equal(gt.Q, gt.Q.transpose(0, 1))  # both triangles, symmetric
+
+
+def test_host_rule_and_power_depth():
+    """L = where(λ > 0, 1.02·λ, 1) + α₂: a lane with b = 0 has c = 0, λ = 0
+    and gets 1 + α₂; the power depth is 32 steps at n <= 7, else 96."""
+    A, b, a1 = _problem(5, 40, 64, seed=3)
+    b[:, 7] = 0.0
+    At, bt = torch.from_numpy(A), torch.from_numpy(b)
+    gb = tgram.make_gram_batch_fused(At, bt, 0.1, 0.25)
+    assert float(gb.L[7]) == pytest.approx(1.25)
+    _, _, _, lam = tgram.gram_build_reference(At, bt, 32)
+    want = torch.where(lam > 0, 1.02 * lam, torch.ones_like(lam)) + 0.25
+    assert torch.equal(gb.L, want)
+    A9, b9, _ = _problem(9, 30, 16, seed=4)
+    g96 = tgram.make_gram_batch_fused(torch.from_numpy(A9), torch.from_numpy(b9), 0.1, 0.0)
+    lam96 = tgram.gram_build_reference(torch.from_numpy(A9), torch.from_numpy(b9), 96)[3]
+    assert torch.equal(g96.L, 1.02 * lam96)
+    assert tgram.LAUNCHES == 0  # the CPU route never launches the kernels
+
+
+def test_window_and_guards():
+    for n in (1, 20, 96, 104, tgram.MAX_N):
+        assert tgram._auto_tiles(n, 70) == (32, 70)
+    assert tgram.MAX_N == 118  # 8 lanes' triangles in 227 KB of shared memory
+    assert tgram._power_smem_bytes(tgram.MAX_N) <= tgram.SMEM_PER_BLOCK
+    assert tgram._power_smem_bytes(tgram.MAX_N + 1) > tgram.SMEM_PER_BLOCK
+    with pytest.raises(ValueError, match="torch precompute"):
+        tgram._auto_tiles(tgram.MAX_N + 1, 70)
+    A = torch.ones((5, 16, 32))
+    with pytest.raises(ValueError, match="split_k"):
+        tgram.make_gram_batch_fused(A, torch.ones((16, 32)), 0.1, 0.0, split_k=0)
+    with pytest.raises(ValueError, match="torch precompute"):
+        tgram.make_gram_batch_fused(torch.ones((130, 4, 8)), torch.ones((4, 8)), 0.1, 0.0)
+    with pytest.raises(ValueError, match="CUDA"):  # the CUDA wrapper refuses a CPU tensor
+        tgram._launch(A, torch.ones((16, 32)), 32)
+    # the reference's window is narrower (its VMEM budget ends at n = 80 for
+    # m = 200): the port's covers it and the burst window past it
+    for n in (5, 64, 80):
+        jgram._auto_tiles(n, 200)
+        tgram._auto_tiles(n, 200)
+    with pytest.raises(ValueError):
+        jgram._auto_tiles(96, 200)
+    assert tgram._auto_tiles(96, 200) == (32, 200)

@@ -34,7 +34,7 @@ from fastoptsolver_tpu_torch.batch import (
     make_gram_batch,
     solve_lasso_batch,
 )
-from fastoptsolver_tpu_torch.kernels import fused_solve
+from fastoptsolver_tpu_torch.kernels import fista_gram_vmem, fused_solve, make_gram_batch_fused
 from fastoptsolver_tpu_torch.problems import X_TRUE, generate_scenario_batch_fm
 
 torch.set_num_threads(1)
@@ -145,17 +145,22 @@ def test_router_cpu_auto_runs_driver():
 
 @pytest.mark.parametrize("case", ["restart", "greedy", "backtracking", "wide_n"])
 def test_router_auto_falls_back_to_driver(case):
-    """What the fused guards refuse goes to the driver under auto, even with
-    interpret=True; backend='kernel' raises with the guard's message."""
+    """What the fused guards refuse goes to the two-kernel path (the build
+    and burst twins) under interpret=True, and backend='kernel' runs it too;
+    without a CUDA tensor or interpret, auto falls back to the driver."""
     kw = {"restart": dict(adaptive_restart=True), "greedy": dict(momentum="greedy"),
           "backtracking": dict(backtracking=True), "wide_n": {}}[case]
     A, b = _small(n=fused_solve.MAX_N + 1 if case == "wide_n" else 5)
     cfg = BatchFISTAConfig(max_iter=200, check_every=10, **kw)
     got = solve_lasso_batch(A, b, 0.5, 0.0, cfg=cfg, interpret=True)
-    want = fista_gram_batch(make_gram_batch(A, b, 0.5, 0.0), cfg)
-    assert torch.equal(got.x, want.x)
-    with pytest.raises(ValueError, match="backend='kernel' unsupported here"):
-        solve_lasso_batch(A, b, 0.5, 0.0, cfg=cfg, backend="kernel", interpret=True)
+    gb = make_gram_batch_fused(A.permute(2, 1, 0).contiguous(), b.T.contiguous(),
+                               0.5, 0.0)
+    want = fista_gram_vmem(gb, cfg)
+    assert torch.equal(got.x, want.x) and torch.equal(got.iters, want.iters)
+    forced = solve_lasso_batch(A, b, 0.5, 0.0, cfg=cfg, backend="kernel", interpret=True)
+    assert torch.equal(forced.x, want.x)
+    drv = solve_lasso_batch(A, b, 0.5, 0.0, cfg=cfg)
+    assert torch.equal(drv.x, fista_gram_batch(make_gram_batch(A, b, 0.5, 0.0), cfg).x)
 
 
 def test_router_kernel_route_and_errors():
@@ -175,14 +180,17 @@ def test_router_kernel_route_and_errors():
     assert isinstance(xla.n_iters_total, int)
 
 
-@pytest.mark.parametrize("kw, match", [
-    (dict(mesh=object()), "mesh"),
-    (dict(state0=object()), "resume"),
-    (dict(return_state=True), "resume"),
+@pytest.mark.parametrize("kw, exc, match", [
+    pytest.param(dict(mesh=object()), NotImplementedError, "mesh", id="kw0-mesh"),
+    # a state of no known engine raises TypeError, as in the reference
+    pytest.param(dict(state0=object()), TypeError, "state0 must be", id="kw1-resume"),
+    # the fused engine's state is not ported yet (n = 5, fixed momentum)
+    pytest.param(dict(return_state=True, interpret=True), NotImplementedError,
+                 "FusedSolveState", id="kw2-resume"),
 ])
-def test_router_unported_options_raise(kw, match):
+def test_router_unported_options_raise(kw, exc, match):
     A, b = _small()
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(exc, match=match):
         solve_lasso_batch(A, b, 0.5, **kw)
 
 
@@ -232,3 +240,175 @@ def test_no_port_source_imports_jax():
             offenders += [f"{path.name}:{node.lineno} {n}" for n in names
                           if n.split(".")[0] in ("jax", "jaxlib", "fastoptsolver_tpu")]
     assert not offenders
+
+
+def test_kernel_backend_runs_past_the_fused_envelope():
+    """The router keys on the kernel engines' guards (plan_gram_solve), not
+    the fused kernel's: n = 9 under backend='kernel', interpret=True runs the
+    two-kernel twins (it raised before), while n <= 8 with fixed momentum
+    still prefers the fused kernel."""
+    cfg = BatchFISTAConfig(max_iter=200, check_every=10)
+    A, b = _small(n=9)
+    got = solve_lasso_batch(A, b, 0.5, 0.0, cfg=cfg, backend="kernel", interpret=True)
+    gb = make_gram_batch_fused(A.permute(2, 1, 0).contiguous(), b.T.contiguous(), 0.5, 0.0)
+    assert torch.equal(got.x, fista_gram_vmem(gb, cfg).x)
+    A8, b8 = _small(n=8)
+    fused = solve_lasso_batch(A8, b8, 0.5, 0.0, cfg=cfg, backend="kernel", interpret=True)
+    twin = fused_solve.fused_solve_reference(A8.permute(2, 1, 0).contiguous(),
+                                             b8.T.contiguous(), 0.5, 0.0, cfg=cfg)
+    assert torch.equal(fused.x, twin.x)
+
+
+def _wide_inputs(n=20, m=150, B=256, seed=5):
+    """Feature-leading f32 instances, AR(1) features (ρ = 0.2) and noise 2:
+    the f32 gap floor sits well below 1e-6 on these."""
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(n, m, B))
+    for k in range(1, n):
+        A[k] = 0.2 * A[k - 1] + np.sqrt(1 - 0.04) * A[k]
+    xt = np.zeros((n, B))
+    xt[: n // 2] = rng.normal(size=(n // 2, B))
+    b = np.einsum("nmb,nb->mb", A, xt) + 2.0 * rng.normal(size=(m, B))
+    a1 = 0.1 * np.abs(np.einsum("nmb,mb->nb", A, b)).max(axis=0)
+    f32 = lambda x: np.ascontiguousarray(x, np.float32)
+    return f32(A), f32(b), f32(a1)
+
+
+@pytest.fixture(scope="module")
+def wide_pair():
+    """n = 20 through the port's routed surface (the two-kernel twins) and
+    through the same composition in JAX: the Pallas build, then the Pallas
+    burst engine, both in interpret mode."""
+    from fastoptsolver_tpu.kernels import fista_gram_vmem as jax_vmem
+    from fastoptsolver_tpu.kernels import make_gram_batch_fused as jax_build
+
+    A, b, a1 = _wide_inputs()
+    gbj = jax_build(jnp.asarray(A), jnp.asarray(b), jnp.asarray(a1), 0.0, interpret=True)
+    rj = jax_vmem(gbj, JaxConfig(**CFG), interpret=True)
+    rt = solve_lasso_batch(torch.from_numpy(A), torch.from_numpy(b), torch.from_numpy(a1),
+                           0.0, cfg=BatchFISTAConfig(**CFG), feature_major=True,
+                           interpret=True)
+    return rj, rt
+
+
+def test_two_kernel_slice_matches_jax(wide_pair):
+    rj, rt = wide_pair
+    assert rt.x.shape == (256, 20) and not isinstance(rt.n_iters_total, int)
+    np.testing.assert_allclose(rt.x.numpy(), np.asarray(rj.x), rtol=1e-4, atol=1e-5)
+    np.testing.assert_array_equal(rt.converged.numpy(), np.asarray(rj.converged))
+    d_iters = np.abs(rt.iters.numpy().astype(np.int64) - np.asarray(rj.iters, np.int64))
+    assert d_iters.max() <= CFG["check_every"]
+    assert rt.converged.all() and float(rt.rel_gap.max()) <= CFG["rel_gap_tol"]
+
+
+def _route_of(res):
+    """'driver' for the torch driver's scalar k, else 'kernel'."""
+    return "driver" if isinstance(res.n_iters_total, int) else "kernel"
+
+
+@pytest.mark.parametrize("backend, interpret, route", [
+    ("auto", False, "driver"), ("auto", True, "kernel"), ("xla", True, "driver"),
+    ("kernel", True, "kernel"), ("kernel", False, ValueError)])
+def test_solve_gram_batch_routes_like_jax(backend, interpret, route):
+    from fastoptsolver_tpu.batch import solve_gram_batch as jax_sgb
+    from fastoptsolver_tpu.batch.fista_gram import GramBatch as JaxGramBatch
+    from fastoptsolver_tpu_torch.batch import solve_gram_batch
+
+    A, b = _small()
+    gbt = make_gram_batch(A, b, 0.5, 0.0)
+    gbj = JaxGramBatch(*(jnp.asarray(v.numpy()) for v in (
+        gbt.Q, gbt.c, gbt.btb, gbt.alpha1, gbt.alpha2, gbt.L)))
+    cfg = BatchFISTAConfig(max_iter=200, check_every=10)
+    if route is ValueError:
+        with pytest.raises(ValueError, match="backend='kernel' unsupported here"):
+            jax_sgb(gbj, JaxConfig(max_iter=200, check_every=10), backend=backend,
+                    interpret=interpret)
+        with pytest.raises(ValueError, match="backend='kernel' unsupported here"):
+            solve_gram_batch(gbt, cfg, backend=backend, interpret=interpret)
+        return
+    got = solve_gram_batch(gbt, cfg, backend=backend, interpret=interpret)
+    assert _route_of(got) == route
+    want = (fista_gram_batch(gbt, cfg) if route == "driver"
+            else fista_gram_vmem(gbt, cfg, interpret=True))
+    assert torch.equal(got.x, want.x)
+
+
+def test_state0_pins_the_route_like_jax():
+    """Each state resumes only on its own engine, with the reference's
+    errors; states are built from zeros, since every check fires first."""
+    from fastoptsolver_tpu.batch import solve_gram_batch as jax_sgb
+    from fastoptsolver_tpu.batch.fista_gram import BatchState as JaxBatchState
+    from fastoptsolver_tpu.batch.fista_gram import GramBatch as JaxGramBatch
+    from fastoptsolver_tpu.kernels import VmemSolveState as JaxVmemState
+    from fastoptsolver_tpu_torch.batch import BatchState, GramBatch, solve_gram_batch
+    from fastoptsolver_tpu_torch.kernels import VmemSolveState
+
+    n, B = 5, 4
+    z = lambda *s: np.zeros(s, np.float32)
+    gbj = JaxGramBatch(*(jnp.asarray(v) for v in (z(n, n, B), z(n, B), z(B), z(B), z(B), z(B) + 1)))
+    gbt = GramBatch(*(torch.from_numpy(v) for v in (z(n, n, B), z(n, B), z(B), z(B), z(B), z(B) + 1)))
+    vj = JaxVmemState(*([jnp.asarray(z(1))] * 9))
+    vt = VmemSolveState(*([torch.zeros(1)] * 9))
+    bj = JaxBatchState(*([jnp.asarray(z(1))] * 10))
+    bt = BatchState(*([torch.zeros(1)] * 10))
+    cases = [(vj, vt, dict(backend="xla", interpret=True), ValueError, "backend='xla'"),
+             (vj, vt, dict(), ValueError, "VmemSolveState"),
+             (bj, bt, dict(backend="kernel", interpret=True), ValueError, "backend='kernel'"),
+             (object(), object(), dict(), TypeError, "state0 must be")]
+    for sj, st, kw, exc, match in cases:
+        with pytest.raises(exc, match=match):
+            jax_sgb(gbj, JaxConfig(), state0=sj, **kw)
+        with pytest.raises(exc, match=match):
+            solve_gram_batch(gbt, BatchFISTAConfig(), state0=st, **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(adaptive_restart=True), dict(momentum="greedy")])
+def test_routed_resume_is_bit_exact(kw):
+    """A certified run cut at 40 iterations and resumed through
+    solve_lasso_batch's state0 equals the straight run bit for bit, on the
+    burst engine (a VmemSolveState) and on the driver (a BatchState); each
+    state refuses the other engine's backend."""
+    A, b = _small(n=9)
+    full = BatchFISTAConfig(max_iter=300, check_every=10, **kw)
+    half = BatchFISTAConfig(max_iter=40, check_every=10, **kw)
+    for interpret, engine, other in ((True, "VmemSolveState", "xla"),
+                                     (False, "BatchState", "kernel")):
+        straight = solve_lasso_batch(A, b, 0.5, 0.0, cfg=full, interpret=interpret)
+        _, mid = solve_lasso_batch(A, b, 0.5, 0.0, cfg=half, interpret=interpret,
+                                   return_state=True)
+        assert type(mid).__name__ == engine
+        resumed = solve_lasso_batch(A, b, 0.5, 0.0, cfg=full, interpret=interpret,
+                                    state0=mid)
+        assert torch.equal(resumed.x, straight.x)
+        assert torch.equal(resumed.iters, straight.iters)
+        with pytest.raises(ValueError, match=f"backend='{other}'"):
+            solve_lasso_batch(A, b, 0.5, 0.0, cfg=full, interpret=True, state0=mid,
+                              backend=other)
+
+
+def test_wide_n_problems_follow_the_recipe():
+    """bench/wide_n.build_problems: A ~ N(0, 1/n) feature-leading, a
+    10%-sparse x_true with N(0, 9) entries, b = A x_true + 0.1 noise,
+    α₁ = 0.1·‖Aᵀb‖∞; run_one measures the card and refuses without one."""
+    from fastoptsolver_tpu_torch.bench import wide_n
+
+    n, m, B = 16, 32, 4096
+    A, b, a1 = wide_n.build_problems(torch.Generator().manual_seed(0), B, m, n)
+    assert A.shape == (n, m, B) and b.shape == (m, B) and a1.shape == (B,)
+    assert A.dtype == b.dtype == a1.dtype == torch.float32
+    assert abs(float(A.var()) * n - 1.0) < 0.02 and abs(float(A.mean())) < 2e-3
+    torch.testing.assert_close(
+        a1, 0.1 * torch.einsum("nmb,mb->nb", A, b).abs().amax(0), rtol=1e-5, atol=0)
+    g = torch.Generator().manual_seed(0)
+    A2, b2, _ = wide_n.build_problems(g, B, m, n)
+    assert torch.equal(A, A2) and torch.equal(b, b2)
+    # the noise left after the best least-squares fit has std 0.1, and the
+    # signal is sparse: about 10% of the features carry it
+    x_ls = torch.linalg.lstsq(A.permute(2, 1, 0).double(), b.T.double()[..., None]).solution[..., 0]
+    resid = b.T.double() - torch.einsum("bmn,bn->bm", A.permute(2, 1, 0).double(), x_ls)
+    assert abs(float(resid.pow(2).sum() / (B * (m - n))) ** 0.5 - 0.1) < 0.005
+    share = float((x_ls.abs() > 1.0).double().mean())
+    assert 0.05 < share < 0.15
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            wide_n.run_one(8, hbm_gb=1e-3)
