@@ -18,7 +18,14 @@ Phases, one line each (``--`` lines are detail):
    2e-4/atol 2e-5; certified runs at rel_gap_tol=1e-5: ``converged``
    identical, ``iters`` within ``check_every``; Armijo in the decisive regime: x to rtol 1e-4/atol
    1e-5), a 40 + 60 resume bit-exact against 100 straight iterations, and
-   fixed Nesterov at the wide-n shape;
+   fixed Nesterov at the wide-n shape; the resident kernel at n ∈ {112, 168},
+   B = 300, every mode with L estimated in-kernel (certified runs at
+   rel_gap_tol 1e-5: ``converged`` identical, ``iters`` within a burst, x to
+   rtol 2e-4/atol 2e-5) and Armijo in the decisive regime (x to rtol
+   1e-4/atol 1e-5), against its twin at the kernel's lane grouping; the
+   adaptive entry onto it at n = 96; the Q-streaming kernel at
+   n ∈ {200, 256}, B = 300, one burst per mode (state to rtol 2e-4/atol
+   2e-5) and a certified run; a 40 + 60 resume bit-exact for each engine;
 4. main path — ``solve_lasso_batch`` at the bench configuration (n=5,
    m=1000, float32, fixed Nesterov momentum, check_every=25, rel_gap_tol=1e-6,
    max_iter=1000) on data the ported generator makes on the card; every lane
@@ -32,19 +39,36 @@ Phases, one line each (``--`` lines are detail):
    (n=96, m=192, B=54144: a 2 GB Gram; data from
    ``bench.wide_n.build_problems`` on the card; the default certified
    config): the two-kernel path, so the build kernels launch twice, the
-   burst kernel once per burst and the fused kernel never; every lane must
-   certify, none may fail, 4096 sampled lanes are rechecked in float64, and
-   ``solve_gram_batch`` on the built Gram must give the same x; then CUDA
-   event medians of 3: the build kernels vs their twin, the burst solve vs
-   its twin, the routed call (ms, certified instances/s) and the torch
-   driver on the same Gram (the route this path replaces).
+   burst kernel once per burst and the fused kernel never. In f32 ~85% of
+   these lanes reach 1e-6 within max_iter (the JAX reference certifies ~86%
+   on its own recipe): none may fail, every certified lane is ≤ 1e-6, every
+   lane ≤ 1e-5, at least 80% certify, 4096 sampled lanes are rechecked in
+   float64 (≤ 1e-4), and ``solve_gram_batch`` on the built Gram must give
+   the same x; then CUDA event medians of 3: the build kernels vs their
+   twin, the burst solve vs its twin, the routed call (ms, certified
+   instances/s) and the torch driver on the same Gram (the route this path
+   replaces);
+7. resident path — the same recipe at n=128, m=256, B=30464 (a 2 GB Gram):
+   the einsum build without the power loop and one launch of the resident
+   kernel, nothing else; the same checks with at least 80% certified (the
+   JAX driver: 88% at B = 256), and ``solve_gram_batch(gb, est_l_iters=96)``
+   on the ``estimate_l=False`` Gram must give the same x; then medians of 3:
+   the routed call, the kernel solve alone, a one-step launch (the copy-in
+   of the Gram and two matvecs), the twin and the kernel on the first 3840
+   lanes (the twin is per-plane torch ops), and the torch driver;
+8. Q-streaming path — n=256, m=512, B=7552: the einsum build with its power
+   loop and one Q-streaming launch per burst, nothing else; at least 75%
+   certified (the JAX driver: 82%); then the routed call, the kernel solve
+   alone with its Q read rate against a plain ``Q.sum()``, the twin and the
+   kernel on the first 1920 lanes, and the torch driver.
 
 Launch counts are set to 0 just before each main-path call (phase 4's solve,
-phase 4's ceiling measurement, phase 6's solve) and read just after it. The
-script then prints the per-kernel JSON line (``ms`` is the kernel's own time:
-the fused and stream launches, the two build launches, and one certified
-burst-engine solve; ``e2e_ms`` is the routed call), the card's name and power
-limit, and, last, ``{"ok": true, "device": {...}}``. It exits non-zero,
+phase 4's ceiling measurement, phases 6, 7 and 8's solves) and read just
+after it. The script then prints the per-kernel JSON line (``ms`` is the
+kernel's own time: the fused and stream launches, the two build launches, and
+one certified solve of the burst, resident and Q-streaming engines;
+``e2e_ms`` is the routed call), the card's name and power limit, and, last,
+``{"ok": true, "device": {...}}``. It exits non-zero,
 printing no result, when there is no CUDA device or any phase fails.
 """
 from __future__ import annotations
@@ -58,12 +82,19 @@ FUSED_SRC = "fastoptsolver_tpu_torch/kernels/csrc/fused_solve.cu"
 STREAM_SRC = "fastoptsolver_tpu_torch/kernels/csrc/stream.cu"
 GRAM_SRC = "fastoptsolver_tpu_torch/kernels/csrc/gram_build.cu"
 BURST_SRC = "fastoptsolver_tpu_torch/kernels/csrc/fista_burst.cu"
+RESIDENT_SRC = "fastoptsolver_tpu_torch/kernels/csrc/resident.cu"
+QSTREAM_SRC = "fastoptsolver_tpu_torch/kernels/csrc/qstream.cu"
 SMALL_SHAPES = ((5, 250, 390), (1, 64, 128), (8, 333, 300))
 BATCH = 262144  # the bench configuration's instances (bench.py:88)
 BUILD_SHAPES = ((9, 33, 300), (20, 70, 200), (64, 128, 256))
 # bench/wide_n.py's first width: n = 96, m = 2n, B sized to a 2 GB Gram
 WIDE_N = 96
 WIDE_B = int(2e9 / (WIDE_N * WIDE_N * 4)) // 128 * 128  # 54144
+# the next widths of bench/wide_n.py's default list, each sized to a 2 GB Gram:
+# the resident window (W1) and the Q-streaming engine (W2)
+W1_N, W2_N = 128, 256
+W1_B = int(2e9 / (W1_N * W1_N * 4)) // 128 * 128  # 30464
+W2_B = int(2e9 / (W2_N * W2_N * 4)) // 128 * 128  # 7552
 
 
 class PhaseFailed(Exception):
@@ -355,6 +386,338 @@ def check_bursts(dev):
     return worst
 
 
+def wide_gram(n: int, B: int, a2: float, seed: int, dev, decisive: bool = False):
+    """A GramBatch past the build kernels' window, by the torch precompute on
+    the card: ``small_problem``'s AR(1) instances, or with ``decisive`` the
+    Armijo regime (noise-free b, α₁ = 0.5, L understated 4×)."""
+    import dataclasses
+
+    import torch
+
+    from fastoptsolver_tpu_torch.batch.fista_gram import make_gram_batch
+
+    if decisive:
+        g = torch.Generator(device=dev).manual_seed(seed)
+        A = torch.randn((n, 2 * n, B), generator=g, device=dev)
+        xt = torch.zeros((n, B), device=dev)
+        xt[:2] = torch.randn((2, B), generator=g, device=dev)
+        b = torch.einsum("nmb,nb->mb", A, xt)
+        a1 = torch.full((B,), 0.5, device=dev)
+    else:
+        A, b, a1 = small_problem(n, 2 * n, B, seed=seed, device=dev)
+    gb = make_gram_batch(A.permute(2, 1, 0), b.T, a1, a2)
+    return dataclasses.replace(gb, Q=gb.Q.contiguous(), c=gb.c.contiguous(),
+                               L=gb.L / (4.0 if decisive else 1.0))
+
+
+WIDE_MODES = {"nesterov": (dict(), 0.0), "delta_ridge": (dict(momentum="delta"), 0.3),
+              "restart": (dict(adaptive_restart=True), 0.0),
+              "greedy": (dict(momentum="greedy"), 0.0)}
+
+
+def compare_certified(rk, rt, label: str, check_every: int = 25) -> float:
+    """A certified run (rel_gap_tol 1e-5) of a kernel against its twin:
+    ``converged`` identical, ``iters`` within a burst, x to rtol 2e-4/atol
+    2e-5. Returns max|dx|."""
+    import torch
+
+    dx = float((rk.x - rt.x).abs().max())
+    d_it = int((rk.iters.long() - rt.iters.long()).abs().max())
+    same = bool(torch.equal(rk.converged, rt.converged))
+    print(f"-- {label}: max|dx|={dx:.3e} converged_equal={same} max|d_iters|={d_it} "
+          f"certified={int(rk.converged.sum())}/{rk.converged.numel()}")
+    require(same and d_it <= check_every
+            and bool(torch.allclose(rk.x, rt.x, rtol=2e-4, atol=2e-5)),
+            f"{label}: the kernel disagrees with its twin")
+    return dx
+
+
+def check_resident(dev) -> float:
+    """The resident kernel against its twin at the kernel's grouping, n ∈
+    {112, 168}, every mode with L estimated in-kernel, Armijo decisive; a
+    40 + 60 resume bit-exact; the adaptive entry at n = 96. Returns the
+    largest |dx|."""
+    import dataclasses
+
+    import torch
+
+    from fastoptsolver_tpu_torch.batch import BatchFISTAConfig
+    from fastoptsolver_tpu_torch.kernels import fista_vmem, gram_build, resident
+
+    worst = 0.0
+    for n in (112, 168):
+        for name, (kw, a2) in {**WIDE_MODES, "armijo": (dict(backtracking=True), 0.0)}.items():
+            armijo = name == "armijo"
+            gb = wide_gram(n, 300, a2, seed=30 + n, dev=dev, decisive=armijo)
+            if armijo:
+                cfg, est = BatchFISTAConfig(max_iter=5, check_every=5, **kw), None
+            else:
+                cfg, est = BatchFISTAConfig(max_iter=1000, check_every=25,
+                                            rel_gap_tol=1e-5, **kw), 96
+            rk = resident.fista_gram_resident(gb, cfg, est_l_iters=est)
+            torch.cuda.synchronize()
+            rt = resident.fista_gram_resident_reference(gb, cfg, est_l_iters=est)
+            label = f"resident n={n} {name} (group {resident.group_lanes(n)})"
+            if armijo:
+                dx = float((rk.x - rt.x).abs().max())
+                print(f"-- {label} decisive: max|dx|={dx:.3e}")
+                require(bool(torch.allclose(rk.x, rt.x, rtol=1e-4, atol=1e-5)),
+                        f"{label}: the kernel disagrees with its twin")
+            else:
+                dx = compare_certified(rk, rt, label)
+            worst = max(worst, dx)
+            full = BatchFISTAConfig(max_iter=100, check_every=20, rel_gap_tol=1e-12, **kw)
+            straight = resident.fista_gram_resident(gb, full, est_l_iters=est)
+            _, mid = resident.fista_gram_resident(
+                gb, dataclasses.replace(full, max_iter=40), est_l_iters=est,
+                return_state=True)
+            resumed = resident.fista_gram_resident(gb, full, est_l_iters=est, state0=mid)
+            require(bool(torch.equal(resumed.x, straight.x)),
+                    f"{label}: resume 40 + 60 is not bit-exact")
+    A, b, a1 = small_problem(96, 192, 300, seed=41, device=dev)
+    gb = gram_build.make_gram_batch_fused(A, b, a1, 0.0)
+    for name in ("restart", "greedy"):
+        cfg = BatchFISTAConfig(max_iter=1000, check_every=25, rel_gap_tol=1e-5,
+                               **WIDE_MODES[name][0])
+        rk = fista_vmem.fista_gram_vmem_adaptive(gb, cfg)
+        torch.cuda.synchronize()
+        rt = resident.fista_gram_resident_reference(gb, cfg)
+        worst = max(worst, compare_certified(rk, rt, f"adaptive entry n=96 {name}"))
+    print(f"-- resident resume 40 + 60 == 100: bit-exact (every mode, n = 112 and 168); "
+          f"launches so far {resident.LAUNCHES}")
+    return worst
+
+
+def check_qstream(dev) -> float:
+    """The Q-streaming kernel against its twin at n ∈ {200, 256}: one burst
+    per mode, a certified run, a 40 + 60 resume bit-exact. Returns the
+    largest |dx|."""
+    import dataclasses
+
+    import torch
+
+    from fastoptsolver_tpu_torch.batch import BatchFISTAConfig
+    from fastoptsolver_tpu_torch.kernels import fista_vmem, qstream
+
+    worst = 0.0
+    for n in (200, 256):
+        for name, (kw, a2) in WIDE_MODES.items():
+            gb = wide_gram(n, 300, a2, seed=50 + n, dev=dev)
+            cfg = BatchFISTAConfig(max_iter=100, check_every=25, **kw)
+            rows, X, Y, t, ps = burst_inputs(gb, cfg)
+            static = dict(n_steps=25, with_gap=True,
+                          restart_threshold=cfg.restart_threshold if cfg.adaptive_restart else None,
+                          greedy=(cfg.greedy_S, cfg.greedy_shrink) if cfg.momentum == "greedy" else None)
+            args = (fista_vmem._beta_table(100, cfg).to(dev), 25, gb.Q, gb.c, rows["tau"],
+                    rows["thr"], rows["a2"], rows["a1"], rows["btb"], X, Y, t, ps,
+                    rows["taumin"], rows["tau"])
+            got = qstream._launch_qstream(*args, **static)
+            torch.cuda.synchronize()
+            want = qstream._qstream_burst_reference(*args, **static)
+            for label, g, w in zip(("X", "Y", "t", "ps", "tau", "gap"), got, want):
+                require(torch.allclose(g, w, rtol=2e-4, atol=2e-5),
+                        f"qstream n={n} {name}: {label} differs from the twin by "
+                        f"{float((g - w).abs().max()):.3e}")
+            worst = max(worst, float((got[0] - want[0]).abs().max()))
+            cert = BatchFISTAConfig(max_iter=1000, check_every=25, rel_gap_tol=1e-5, **kw)
+            rk = fista_vmem.fista_gram_vmem(gb, cert)
+            torch.cuda.synchronize()
+            rt = fista_vmem.fista_gram_vmem_reference(gb, cert)
+            worst = max(worst, compare_certified(rk, rt, f"qstream n={n} {name}"))
+            full = BatchFISTAConfig(max_iter=100, check_every=0, **kw)
+            straight = fista_vmem.fista_gram_vmem(gb, full)
+            _, mid = fista_vmem.fista_gram_vmem(gb, dataclasses.replace(full, max_iter=40),
+                                                return_state=True)
+            require(bool(torch.equal(fista_vmem.fista_gram_vmem(gb, full, state0=mid).x,
+                                     straight.x)),
+                    f"qstream n={n} {name}: resume 40 + 60 is not bit-exact")
+    print(f"-- qstream resume 40 + 60 == 100: bit-exact (every mode, n = 200 and 256); "
+          f"launches so far {qstream.LAUNCHES}")
+    return worst
+
+
+def check_wide(res, A, b, a1, share: float, label: str) -> dict:
+    """The wide cells' checks on a routed result: x finite of shape (B, n),
+    no lane failed, every certified lane at ≤ 1e-6, every lane ≤ 1e-5, at
+    least ``share`` certified (the f32 floor: PERF.md §6), and a float64
+    recheck of 4096 sampled lanes ≤ 1e-4."""
+    import torch
+
+    from fastoptsolver_tpu_torch.batch.fista_gram import _rel_gap, make_gram_batch
+
+    n, _, B = A.shape
+    dev = A.device
+    n_conv, n_failed = int(res.converged.sum()), int(res.failed.sum())
+    max_gap = float(res.rel_gap.max())
+    gap_ok = float(res.rel_gap[res.converged].max()) if n_conv else float("inf")
+    require(res.x.shape == (B, n) and bool(torch.isfinite(res.x).all()),
+            f"{label}: x is not finite of shape (B, n)")
+    require(n_conv >= share * B and n_failed == 0 and gap_ok <= 1e-6 and max_gap <= 1e-5,
+            f"{label}: {n_conv}/{B} certified, {n_failed} failed, max rel_gap "
+            f"{max_gap:.3e} ({gap_ok:.3e} on certified lanes)")
+    idx = torch.randperm(B, generator=torch.Generator(device=dev).manual_seed(1),
+                         device=dev)[:4096]
+    gb64 = make_gram_batch(A[:, :, idx].double().permute(2, 1, 0), b[:, idx].double().T,
+                           a1[idx].double(), 0.0,
+                           L=torch.ones(idx.numel(), dtype=torch.float64, device=dev))
+    gap64 = float(_rel_gap(gb64, res.x[idx].double().T).max())
+    require(gap64 <= 1e-4, f"{label} float64 recheck: max rel_gap {gap64:.3e} > 1e-4")
+    it = res.iters.float()
+    return dict(certified=n_conv, failed=n_failed, max_gap=max_gap, gap_ok=gap_ok,
+                gap64=gap64, iters_median=int(it.median()), iters_max=int(it.max()))
+
+
+def med3(fn):
+    """(median ms of 3 timed calls after a warm one, the trials, the last
+    result)."""
+    fn()
+    runs = [cuda_ms(fn) for _ in range(3)]
+    ms = [r[0] for r in runs]
+    return median(ms), ms, runs[-1][1]
+
+
+def lanes(gb, B: int):
+    """The first ``B`` lanes of a GramBatch, contiguous."""
+    from fastoptsolver_tpu_torch.batch.fista_gram import GramBatch
+
+    return GramBatch(*(v[..., :B].contiguous() for v in (gb.Q, gb.c, gb.btb, gb.alpha1,
+                                                         gb.alpha2, gb.L)))
+
+
+def zero_counts(mods) -> None:
+    for mod in mods.values():
+        mod.LAUNCHES = 0
+
+
+def resident_path(dev, cfg, mods) -> dict:
+    """Phase 7: W1 through solve_lasso_batch, counted, checked, then timed."""
+    import torch
+
+    from fastoptsolver_tpu_torch.batch import solve_gram_batch, solve_lasso_batch
+    from fastoptsolver_tpu_torch.batch.fista_gram import (
+        _batched_power_L, fista_gram_batch, make_gram_batch)
+    from fastoptsolver_tpu_torch.bench.wide_n import build_problems
+    from fastoptsolver_tpu_torch.kernels import resident
+
+    n, B = W1_N, W1_B
+    A, b, a1 = build_problems(torch.Generator(device=dev).manual_seed(0), B, 2 * n, n)
+    torch.cuda.synchronize()
+    zero_counts(mods)
+    res = solve_lasso_batch(A, b, a1, 0.0, cfg=cfg, feature_major=True)
+    torch.cuda.synchronize()
+    counts = {k: m.LAUNCHES for k, m in mods.items()}
+    require(counts == dict(counts, resident=1) and sum(counts.values()) == 1,
+            f"resident path: launches {counts} (want resident 1, every other 0)")
+    chk = check_wide(res, A, b, a1, 0.80, "resident path")
+    gb = make_gram_batch(A.permute(2, 1, 0), b.T, a1, 0.0, estimate_l=False)
+    res_g = solve_gram_batch(gb, cfg, est_l_iters=96)
+    require(bool(torch.equal(res_g.x, res.x)), "solve_gram_batch(est_l_iters=96) on the "
+            "estimate_l=False Gram gives another x than solve_lasso_batch")
+    print(f"[7 resident path] n={n} m={2 * n} B={B}: launches {counts} | certified "
+          f"{chk['certified']}/{B}, failed {chk['failed']}, max rel_gap {chk['max_gap']:.3e} "
+          f"({chk['gap_ok']:.3e} on certified lanes), f64 recheck max rel_gap "
+          f"{chk['gap64']:.3e} on 4096 lanes | solve_gram_batch x equal | iters median "
+          f"{chk['iters_median']} max {chk['iters_max']}")
+    del res, res_g
+    routed_ms, routed_trials, _ = med3(lambda: solve_lasso_batch(A, b, a1, 0.0, cfg=cfg,
+                                                                 feature_major=True))
+    del A, b
+    torch.cuda.empty_cache()
+    gb = type(gb)(*(v.contiguous() for v in (gb.Q, gb.c, gb.btb, gb.alpha1, gb.alpha2, gb.L)))
+    kernel_ms, kernel_trials, _ = med3(lambda: resident.fista_gram_resident(
+        gb, cfg, est_l_iters=96))
+    from fastoptsolver_tpu_torch.batch import BatchFISTAConfig
+
+    one = BatchFISTAConfig(max_iter=1, check_every=1)
+    copy_ms, _, _ = med3(lambda: resident.fista_gram_resident(gb, one))
+    small = lanes(gb, 3840)
+    k_small_ms, _, rk = med3(lambda: resident.fista_gram_resident(small, cfg, est_l_iters=96))
+    plain_ms, _, rt = med3(lambda: resident.fista_gram_resident_reference(
+        small, cfg, est_l_iters=96))
+    both = rk.converged & rt.converged
+    dx = float((rk.x - rt.x)[both].abs().max())
+    print(f"-- resident kernel vs twin on the first 3840 lanes: certified "
+          f"{int(rk.converged.sum())} vs {int(rt.converged.sum())}, max|dx| on lanes both "
+          f"certified {dx:.3e}")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    v0 = torch.randn((n, B), generator=gen, device=dev)
+    gbL = type(gb)(gb.Q, gb.c, gb.btb, gb.alpha1, gb.alpha2,
+                   _batched_power_L(gb.Q, v0, 100, 1e-6) + gb.alpha2)
+    driver_ms, _, res_d = med3(lambda: fista_gram_batch(gbL, cfg))
+    print(f"[7 times] routed solve_lasso_batch {routed_ms:.3f} ms ({chk['certified'] / routed_ms * 1e3:.4g} "
+          f"certified instances/s) | resident kernel solve {kernel_ms:.3f} ms (one launch; "
+          f"a one-step launch, the Gram's copy-in and 2 matvecs, {copy_ms:.3f} ms = "
+          f"{100.0 * copy_ms / kernel_ms:.1f}%) | on 3840 lanes kernel {k_small_ms:.3f} ms vs "
+          f"twin {plain_ms:.3f} ms | torch driver on the same Gram {driver_ms:.3f} ms "
+          f"(certified {int(res_d.converged.sum())}/{B}) | trials routed "
+          f"{[round(x, 3) for x in routed_trials]} kernel {[round(x, 3) for x in kernel_trials]}")
+    return dict(launches=counts["resident"], ms=kernel_ms, plain_ms=plain_ms,
+                plain_lanes=3840, ms_at_plain_lanes=k_small_ms, e2e_ms=routed_ms,
+                driver_ms=driver_ms, copy_in_ms=copy_ms, dx_small=dx)
+
+
+def qstream_path(dev, cfg, mods) -> dict:
+    """Phase 8: W2 through solve_lasso_batch, counted, checked, then timed."""
+    import torch
+
+    from fastoptsolver_tpu_torch.batch import solve_gram_batch, solve_lasso_batch
+    from fastoptsolver_tpu_torch.batch.fista_gram import fista_gram_batch, make_gram_batch
+    from fastoptsolver_tpu_torch.bench.wide_n import build_problems
+    from fastoptsolver_tpu_torch.kernels import fista_vmem
+
+    n, B = W2_N, W2_B
+    A, b, a1 = build_problems(torch.Generator(device=dev).manual_seed(0), B, 2 * n, n)
+    torch.cuda.synchronize()
+    zero_counts(mods)
+    res = solve_lasso_batch(A, b, a1, 0.0, cfg=cfg, feature_major=True)
+    torch.cuda.synchronize()
+    counts = {k: m.LAUNCHES for k, m in mods.items()}
+    bursts = int(res.n_iters_total) // cfg.check_every
+    require(counts == dict(counts, qstream=bursts) and sum(counts.values()) == bursts,
+            f"qstream path: launches {counts} (want qstream {bursts} = bursts, every other 0)")
+    chk = check_wide(res, A, b, a1, 0.75, "qstream path")
+    gb = make_gram_batch(A.permute(2, 1, 0), b.T, a1, 0.0)
+    res_g = solve_gram_batch(gb, cfg)
+    require(bool(torch.equal(res_g.x, res.x)),
+            "solve_gram_batch on the built Gram gives another x than solve_lasso_batch")
+    print(f"[8 qstream path] n={n} m={2 * n} B={B}: launches {counts} = bursts {bursts} | "
+          f"certified {chk['certified']}/{B}, failed {chk['failed']}, max rel_gap "
+          f"{chk['max_gap']:.3e} ({chk['gap_ok']:.3e} on certified lanes), f64 recheck max "
+          f"rel_gap {chk['gap64']:.3e} on 4096 lanes | solve_gram_batch x equal | iters "
+          f"median {chk['iters_median']} max {chk['iters_max']}")
+    del res, res_g
+    routed_ms, routed_trials, _ = med3(lambda: solve_lasso_batch(A, b, a1, 0.0, cfg=cfg,
+                                                                 feature_major=True))
+    del A, b
+    torch.cuda.empty_cache()
+    gb = type(gb)(*(v.contiguous() for v in (gb.Q, gb.c, gb.btb, gb.alpha1, gb.alpha2, gb.L)))
+    kernel_ms, kernel_trials, rk_full = med3(lambda: fista_vmem.fista_gram_vmem(gb, cfg))
+    q_gb = gb.Q.numel() * 4 / 1e9
+    iters = int(rk_full.n_iters_total)
+    q_reads = iters + iters // cfg.check_every
+    read_ms, _, _ = med3(lambda: gb.Q.sum())
+    small = lanes(gb, 1920)
+    k_small_ms, _, rk = med3(lambda: fista_vmem.fista_gram_vmem(small, cfg))
+    plain_ms, _, rt = med3(lambda: fista_vmem.fista_gram_vmem_reference(small, cfg))
+    both = rk.converged & rt.converged
+    dx = float((rk.x - rt.x)[both].abs().max())
+    print(f"-- qstream kernel vs twin on the first 1920 lanes: certified "
+          f"{int(rk.converged.sum())} vs {int(rt.converged.sum())}, max|dx| on lanes both "
+          f"certified {dx:.3e}")
+    driver_ms, _, res_d = med3(lambda: fista_gram_batch(gb, cfg))
+    print(f"[8 times] routed solve_lasso_batch {routed_ms:.3f} ms ({chk['certified'] / routed_ms * 1e3:.4g} "
+          f"certified instances/s) | qstream solve {kernel_ms:.3f} ms ({iters // cfg.check_every} "
+          f"launches, {q_reads} Q reads = {q_reads * q_gb / kernel_ms * 1e3:.1f} GB/s; a plain "
+          f"Q.sum() reads {q_gb / read_ms * 1e3:.1f} GB/s) | on 1920 lanes kernel "
+          f"{k_small_ms:.3f} ms vs twin {plain_ms:.3f} ms | torch driver on the same Gram "
+          f"{driver_ms:.3f} ms (certified {int(res_d.converged.sum())}/{B}) | trials routed "
+          f"{[round(x, 3) for x in routed_trials]} kernel {[round(x, 3) for x in kernel_trials]}")
+    return dict(launches=counts["qstream"], ms=kernel_ms, plain_ms=plain_ms,
+                plain_lanes=1920, ms_at_plain_lanes=k_small_ms, e2e_ms=routed_ms,
+                driver_ms=driver_ms, q_gbps=q_reads * q_gb / kernel_ms * 1e3,
+                q_sum_gbps=q_gb / read_ms * 1e3, dx_small=dx)
+
+
 def main() -> int:
     import torch
 
@@ -368,7 +731,8 @@ def main() -> int:
     from fastoptsolver_tpu_torch.bench import stream as stream_mod
     from fastoptsolver_tpu_torch.bench.stream import measure_stream_ceiling, stream_pass_reference
     from fastoptsolver_tpu_torch.bench.wide_n import build_problems
-    from fastoptsolver_tpu_torch.kernels import _build, fista_vmem, fused_solve, gram_build
+    from fastoptsolver_tpu_torch.kernels import (
+        _build, fista_vmem, fused_solve, gram_build, qstream, resident)
     from fastoptsolver_tpu_torch.kernels.fused_solve import (
         fused_solve_reference, solve_lasso_fused)
 
@@ -385,9 +749,9 @@ def main() -> int:
             mangled = ln.split("'")[1]
             entry = next((f"{k}<{mangled.split(k)[1].split('E')[0].lstrip('ILi')}>"
                           for k in ("fused_lasso_solve_kernel", "stream_ceiling_kernel",
-                                    "fista_burst_kernel") if k in mangled),
-                         next((k for k in ("gram_pairs_kernel", "gram_power_kernel")
-                               if k in mangled), mangled))
+                                    "fista_burst_kernel", "qstream_kernel") if k in mangled),
+                         next((k for k in ("gram_pairs_kernel", "gram_power_kernel",
+                                           "resident_kernel") if k in mangled), mangled))
         elif "registers" in ln:
             regs.append(f"{entry}: {ln.split(':', 1)[1].strip()}")
     print(f"[2 build] {time.perf_counter() - t0:.2f} s (nvcc {_build.build_seconds:.2f} s); "
@@ -411,6 +775,9 @@ def main() -> int:
     errs["gram"] = max(compare_build(*small_problem(n, m, B, seed=20 + i, device=dev)[:2],
                                      str((n, m, B))) for i, (n, m, B) in enumerate(BUILD_SHAPES))
     errs["burst"] = check_bursts(dev)
+    errs["resident"] = check_resident(dev)
+    errs["qstream"] = check_qstream(dev)
+    torch.cuda.empty_cache()
     print("[3 kernel vs twin] small shapes ok")
 
     m = 1000
@@ -454,18 +821,15 @@ def main() -> int:
     print("[3 kernel vs twin] wide-n shape ok")
 
     # ---- 4: the main path, counted ----
-    fused_solve.LAUNCHES = 0
-    stream_mod.LAUNCHES = 0
-    gram_build.LAUNCHES = 0
-    fista_vmem.LAUNCHES = 0
+    mods = {"fused": fused_solve, "stream": stream_mod, "gram": gram_build,
+            "burst": fista_vmem, "resident": resident, "qstream": qstream}
+    zero_counts(mods)
     res = solve_lasso_batch(A, b, alpha1, 0.0, cfg=cfg, feature_major=True)
     torch.cuda.synchronize()
+    counts = {k: m.LAUNCHES for k, m in mods.items()}
     launches = {"fused": fused_solve.LAUNCHES}
-    require(launches["fused"] == 1 and stream_mod.LAUNCHES == 0
-            and gram_build.LAUNCHES == 0 and fista_vmem.LAUNCHES == 0,
-            f"main path: fused kernel launched {launches['fused']} times "
-            f"(want 1), stream kernel {stream_mod.LAUNCHES}, build kernels "
-            f"{gram_build.LAUNCHES}, burst kernel {fista_vmem.LAUNCHES} (want 0)")
+    require(counts == dict(counts, fused=1) and sum(counts.values()) == 1,
+            f"main path: launches {counts} (want fused 1, every other 0)")
     require(bool(torch.equal(res.x, res_k.x)), "main path result differs from the kernel's")
     n_conv = int(res.converged.sum())
     n_failed = int(res.failed.sum())
@@ -526,17 +890,16 @@ def main() -> int:
     del res
     torch.cuda.empty_cache()
     cfg = BatchFISTAConfig(max_iter=1000, check_every=25, rel_gap_tol=1e-6)
-    for mod in (fused_solve, stream_mod, gram_build, fista_vmem):
-        mod.LAUNCHES = 0
+    zero_counts(mods)
     res = solve_lasso_batch(Aw, bw, a1w, 0.0, cfg=cfg, feature_major=True)
     torch.cuda.synchronize()
     bursts = int(res.n_iters_total) // cfg.check_every
+    counts = {k: m.LAUNCHES for k, m in mods.items()}
     launches["gram"], launches["burst"] = gram_build.LAUNCHES, fista_vmem.LAUNCHES
-    require(launches["gram"] == 2 and launches["burst"] == bursts
-            and fused_solve.LAUNCHES == 0 and stream_mod.LAUNCHES == 0,
-            f"wide-n path: build launches {launches['gram']} (want 2), burst "
-            f"launches {launches['burst']} (want {bursts} bursts), fused "
-            f"{fused_solve.LAUNCHES} and stream {stream_mod.LAUNCHES} (want 0)")
+    require(counts == dict(counts, gram=2, burst=bursts)
+            and sum(counts.values()) == 2 + bursts,
+            f"wide-n path: launches {counts} (want build 2, burst {bursts} = bursts, "
+            "every other 0)")
     n_conv, n_failed = int(res.converged.sum()), int(res.failed.sum())
     max_gap = float(res.rel_gap.max())
     require(res.x.shape == (WIDE_B, WIDE_N) and bool(torch.isfinite(res.x).all()),
@@ -571,14 +934,6 @@ def main() -> int:
           f"solve_gram_batch x equal | iters median {int(iters_w.median())} max "
           f"{int(iters_w.max())}")
     del res_g
-
-    def med3(fn):
-        """(median ms of 3 timed calls after a warm one, the trials, the last
-        result)."""
-        fn()
-        runs = [cuda_ms(fn) for _ in range(3)]
-        ms = [r[0] for r in runs]
-        return median(ms), ms, runs[-1][1]
 
     build_ms, build_trials, _ = med3(lambda: gram_build._launch(Aw, bw, 96))
     pairs_ms, _, _ = med3(lambda: gram_build._launch(Aw, bw, 0))  # no power steps
@@ -630,10 +985,18 @@ def main() -> int:
           f"{q_reads * q_gb / burst_ms * 1e3:.1f} GB/s; the {bursts} launches back to "
           f"back {launches_ms:.3f} ms, so the host loop costs "
           f"{burst_ms - launches_ms:.3f} ms) vs twin {burst_plain_ms:.3f} ms | "
-          f"routed solve_lasso_batch {wide_ms:.3f} ms ({WIDE_B / wide_ms * 1e3:.4g} "
+          f"routed solve_lasso_batch {wide_ms:.3f} ms ({n_conv / wide_ms * 1e3:.4g} "
           f"certified instances/s) | torch driver on the same Gram {driver_ms:.3f} ms | "
           f"trials build {[round(x, 3) for x in build_trials]} burst "
           f"{[round(x, 3) for x in burst_trials]} routed {[round(x, 3) for x in wide_trials]}")
+
+    del Aw, bw, gbw, res, res_d
+    torch.cuda.empty_cache()
+
+    # ---- 7 and 8: the resident and Q-streaming paths, counted, then timed ----
+    w1 = resident_path(dev, cfg, mods)
+    torch.cuda.empty_cache()
+    w2 = qstream_path(dev, cfg, mods)
 
     kernels = [
         {"name": "fused_lasso_solve", "route": "cuda", "source": FUSED_SRC,
@@ -654,6 +1017,21 @@ def main() -> int:
          "launches": launches["burst"], "max_abs_err": errs["burst"],
          "ms": burst_ms, "plain_ms": burst_plain_ms, "e2e_ms": wide_ms,
          "driver_ms": driver_ms, "launches_only_ms": launches_ms},
+        {"name": "resident_solve", "route": "cuda", "source": RESIDENT_SRC,
+         "replaces": "fastoptsolver_tpu/kernels/resident.py:103",
+         "also_replaces": "fastoptsolver_tpu/kernels/fista_vmem.py:897 (the adaptive "
+                          "kernel: fista_gram_vmem_adaptive launches this kernel)",
+         "launches": w1["launches"], "max_abs_err": errs["resident"], "ms": w1["ms"],
+         "plain_ms": w1["plain_ms"], "plain_lanes": w1["plain_lanes"],
+         "ms_at_plain_lanes": w1["ms_at_plain_lanes"], "e2e_ms": w1["e2e_ms"],
+         "driver_ms": w1["driver_ms"], "copy_in_ms": w1["copy_in_ms"]},
+        {"name": "qstream_burst", "route": "cuda", "source": QSTREAM_SRC,
+         "replaces": "fastoptsolver_tpu/kernels/qstream.py:90",
+         "launches": w2["launches"], "max_abs_err": errs["qstream"], "ms": w2["ms"],
+         "plain_ms": w2["plain_ms"], "plain_lanes": w2["plain_lanes"],
+         "ms_at_plain_lanes": w2["ms_at_plain_lanes"], "e2e_ms": w2["e2e_ms"],
+         "driver_ms": w2["driver_ms"], "q_gbps": w2["q_gbps"],
+         "q_sum_gbps": w2["q_sum_gbps"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

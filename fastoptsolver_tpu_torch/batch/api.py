@@ -1,32 +1,42 @@
 """The routed batched-lasso surface (port of the routing in
 ``fastoptsolver_tpu/batch/api.py``: ``_kernel_route``, ``solve_gram_batch``,
-``solve_lasso_batch``, ``_resume_lasso_batch`` and ``_build_gram_routed``).
+``solve_lasso_batch``, ``_resume_lasso_batch``, ``_solve_resident_routed``
+and ``_build_gram_routed``).
 
 Routing follows the reference's "guards decide" rule, in its order:
 
 1. **Kernel route or driver** — ``_kernel_route`` asks the kernel guards
    (``_check_kernel_cfg`` + ``plan_gram_solve``) whether a kernel engine can
    take ``(n, cfg)``. It can when ``A`` is a CUDA tensor (the reference's
-   ``jax.default_backend() == "tpu"``) or ``interpret=True``, and n is inside
-   the burst engine's window (n ≤ 104; the resident and Q-streaming engines
-   past it are not ported yet). ``interpret=True`` with a CUDA tensor raises.
+   ``jax.default_backend() == "tpu"``) or ``interpret=True``, and the plan
+   finds an engine: n ≤ 1016, and no Armijo where Q must stream (past
+   n = 168, or ``check_every <= 0`` past 104). ``interpret=True`` with a
+   CUDA tensor raises.
 2. On the kernel route, **the fused kernel** first (``kernels.fused_solve``:
    one launch, the Gram never in device memory) when its own guards pass:
    fixed momentum, ``check_every > 0``, n ≤ 8.
-3. Otherwise **the two-kernel path**: the Gram build
-   (``kernels.gram_build.make_gram_batch_fused``, two launches) and the burst
-   engine (``kernels.fista_vmem.fista_gram_vmem``, one launch per burst), in
-   every momentum mode including Armijo. On a CPU tensor under ``interpret``
-   both run their plain twins.
-4. Otherwise **the torch driver** (``make_gram_batch`` +
+3. Then, in the **resident window** (104 < n ≤ 168, ``check_every > 0``,
+   every mode including Armijo): the Gram built without the power loop
+   (``make_gram_batch(..., estimate_l=False)``: the port's build kernels
+   stop at n = 118) and one launch of the resident kernel
+   (``kernels.resident.fista_gram_resident``) with L estimated in-kernel
+   (``_RESIDENT_EST_L_ITERS`` power steps).
+4. Otherwise **the two-kernel path**: the Gram build
+   (``kernels.gram_build.make_gram_batch_fused``, two launches, n ≤ 118;
+   past it the torch einsum and power loop) and ``fista_gram_vmem``: the
+   burst engine (n ≤ 104) or the Q-streaming engine (``kernels.qstream``),
+   one launch per burst. On a CPU tensor under ``interpret`` every kernel
+   runs its plain twin.
+5. Otherwise **the torch driver** (``make_gram_batch`` +
    ``fista_gram_batch``), always under ``backend="xla"`` (the reference's
    name for "force the driver", kept for the same meaning).
 
 ``backend="kernel"`` raises with the guard's message when the kernel route
 cannot serve the call, including a CPU tensor without ``interpret``.
 ``state0`` pins the route to the engine whose state it is
-(``VmemSolveState`` → burst engine, ``BatchState`` → driver); the fused and
-resident engines' states are not ported yet, and ``mesh=`` is not ported.
+(``ResidentSolveState`` → resident engine, ``VmemSolveState`` → burst or
+Q-streaming engine, ``BatchState`` → driver); the fused engine's state is
+not ported yet, and ``mesh=`` is not ported.
 """
 from __future__ import annotations
 
@@ -43,8 +53,11 @@ from .fista_gram import (
 # reference package may arrive here by mistake): the ROADMAP item for each.
 _UNPORTED_STATES = {
     "FusedSolveState": "ROADMAP Queue 1 item 4: the fused engine's resume",
-    "ResidentSolveState": "ROADMAP Queue 2 item 7: the resident engine",
 }
+# In-kernel Lipschitz depth of the resident route, used by the fresh solve and
+# the resume alike: a resumed trajectory's τ derives from this estimate, so it
+# must be the same at checkpoint and at resume.
+_RESIDENT_EST_L_ITERS = 96
 
 
 def _default_cfg() -> BatchFISTAConfig:
@@ -100,29 +113,52 @@ def solve_gram_batch(gb, cfg=None, backend: str = "auto",
                      interpret: bool = False, state0=None,
                      return_state: bool = False,
                      est_l_iters: int | None = None):
-    """Route a prebuilt ``GramBatch`` to its fastest supported solver: the
-    burst engine (``kernels.fista_vmem.fista_gram_vmem``) when the kernel
-    route can take it (a CUDA tensor, or ``interpret=True``, n ≤ 104),
-    otherwise the torch driver (``fista_gram_batch``). ``"kernel"`` forces
-    the burst engine (raises with the guard's reason if unsupported);
-    ``"xla"`` forces the driver.
+    """Route a prebuilt ``GramBatch`` to its fastest supported solver:
+    ``fista_gram_vmem`` (the burst, resident or Q-streaming engine, as
+    ``plan_gram_solve`` picks) when the kernel route can take it (a CUDA
+    tensor, or ``interpret=True``), otherwise the torch driver
+    (``fista_gram_batch``). ``"kernel"`` forces the kernel route (raises
+    with the guard's reason if unsupported); ``"xla"`` forces the driver.
 
     A non-None ``state0`` pins the route to the engine that produced it: a
-    ``VmemSolveState`` resumes on the burst engine, a ``BatchState`` on the
-    driver; anything else raises ``TypeError``. ``est_l_iters`` belongs to
-    the resident engine, which is not ported yet, and is refused."""
-    if est_l_iters is not None:
-        raise NotImplementedError(
-            "est_l_iters configures the resident engine, which is not ported "
-            f"yet ({_UNPORTED_STATES['ResidentSolveState']})"
-        )
-    from ..kernels.fista_vmem import VmemSolveState, fista_gram_vmem
+    ``ResidentSolveState`` resumes on the resident engine, a
+    ``VmemSolveState`` on the burst-driven engines, a ``BatchState`` on the
+    driver; anything else raises ``TypeError``.
+
+    ``est_l_iters``: the resident engine's in-kernel L estimate, for a Gram
+    built with ``estimate_l=False``; required to resume a
+    ``ResidentSolveState`` on such a Gram (``solve_lasso_batch`` uses
+    ``_RESIDENT_EST_L_ITERS`` = 96). A fresh solve forwards it to the
+    resident engine and refuses it on any other route (the reference ignores
+    it there, and a sentinel L then runs with τ = t_init)."""
+    from ..kernels.fista_vmem import VmemSolveState, fista_gram_vmem, plan_gram_solve
+    from ..kernels.resident import ResidentSolveState, fista_gram_resident
 
     if cfg is None:
         cfg = _default_cfg()
     on_cuda = gb.Q.is_cuda
     if state0 is not None:
         _unported_state(state0)
+        if isinstance(state0, ResidentSolveState):
+            if backend == "xla":
+                raise ValueError("state0 is a ResidentSolveState; it cannot "
+                                 "resume on backend='xla'")
+            reason = _not_on_kernel_reason(interpret, on_cuda)
+            if reason is not None:
+                raise ValueError(
+                    f"state0 is a kernel-path ResidentSolveState but {reason}")
+            if est_l_iters is None and bool((gb.L == 1.0).all()):
+                # the reference's guard (batch/api.py:137-149): an
+                # estimate_l=False Gram carries L = 1 on every lane, and τ =
+                # t_init/1 would silently leave the checkpointed trajectory
+                raise ValueError(
+                    "this GramBatch carries the estimate_l=False sentinel; "
+                    "pass est_l_iters= matching the run that produced state0 "
+                    f"(solve_lasso_batch uses {_RESIDENT_EST_L_ITERS})"
+                )
+            return fista_gram_resident(gb, cfg, interpret=interpret,
+                                       state0=state0, est_l_iters=est_l_iters,
+                                       return_state=return_state)
         if isinstance(state0, VmemSolveState):
             if backend == "xla":
                 raise ValueError(
@@ -147,7 +183,18 @@ def solve_gram_batch(gb, cfg=None, backend: str = "auto",
             f"state0 must be a ResidentSolveState, VmemSolveState, or "
             f"BatchState, got {type(state0).__name__}"
         )
-    use_kernel, _ = _kernel_route(gb.dim, cfg, backend, interpret, on_cuda)
+    use_kernel, reason = _kernel_route(gb.dim, cfg, backend, interpret, on_cuda)
+    if est_l_iters is not None:
+        if not use_kernel or plan_gram_solve(gb.dim, cfg)[0] != "resident":
+            raise ValueError(
+                "est_l_iters configures the resident engine's in-kernel L "
+                "estimate; this call routes to "
+                + ("the torch driver" if not use_kernel else "another engine")
+                + (f" ({reason})" if reason else "")
+            )
+        return fista_gram_resident(gb, cfg, interpret=interpret,
+                                   est_l_iters=est_l_iters,
+                                   return_state=return_state)
     if use_kernel:
         return fista_gram_vmem(gb, cfg, interpret=interpret,
                                return_state=return_state)
@@ -161,11 +208,13 @@ def _feature_major(A, b, feature_major: bool):
 
 
 def _build_gram_routed(A, b, alpha1, alpha2, feature_major, key, interpret,
-                       use_kernel):
+                       use_kernel, estimate_l=True):
     """The Gram stage of :func:`solve_lasso_batch`, shared with the resume
     dispatch: the build kernels (their twin on a CPU tensor) inside their
-    window on the kernel route, otherwise the torch precompute
-    ``make_gram_batch`` with its power iteration started from ``key``."""
+    window (n ≤ 118) on the kernel route, otherwise the torch precompute
+    ``make_gram_batch`` with its power iteration started from ``key``;
+    ``estimate_l=False`` skips that power iteration (L = 1 sentinel), for
+    the resident engine's in-kernel estimate."""
     n = A.shape[0] if feature_major else A.shape[-1]
     fused_build = False
     if use_kernel:
@@ -184,7 +233,26 @@ def _build_gram_routed(A, b, alpha1, alpha2, feature_major, key, interpret,
                                      alpha1, alpha2, interpret=interpret)
     A_im = A.permute(2, 1, 0) if feature_major else A
     b_im = b.T if feature_major else b
-    return make_gram_batch(A_im, b_im, alpha1, alpha2, generator=key)
+    return make_gram_batch(A_im, b_im, alpha1, alpha2, generator=key,
+                           estimate_l=estimate_l)
+
+
+def _solve_resident_routed(A, b, alpha1, alpha2, cfg, feature_major, key,
+                           interpret, state0=None, return_state=False):
+    """The resident window's recipe, shared by the fresh route and the
+    resume dispatch so that both give the same floats: the Gram built
+    without the power loop, then the resident engine with L estimated
+    in-kernel against the Gram it holds (``_RESIDENT_EST_L_ITERS`` steps).
+    Past n = 118 the build is the einsum precompute, as in the reference;
+    at 104 < n ≤ 118 the port's build kernels take it, and the L their
+    power steps estimate goes unused."""
+    from ..kernels.resident import fista_gram_resident
+
+    gb = _build_gram_routed(A, b, alpha1, alpha2, feature_major, key,
+                            interpret, use_kernel=True, estimate_l=False)
+    return fista_gram_resident(gb, cfg, interpret=interpret,
+                               est_l_iters=_RESIDENT_EST_L_ITERS,
+                               state0=state0, return_state=return_state)
 
 
 def solve_lasso_batch(
@@ -245,6 +313,12 @@ def solve_lasso_batch(
                                      alpha1, alpha2, cfg=cfg,
                                      interpret=interpret,
                                      return_state=return_state)
+        from ..kernels.fista_vmem import plan_gram_solve
+
+        if plan_gram_solve(n, cfg)[0] == "resident":
+            return _solve_resident_routed(A, b, alpha1, alpha2, cfg,
+                                          feature_major, key, interpret,
+                                          return_state=return_state)
 
     gb = _build_gram_routed(A, b, alpha1, alpha2, feature_major, key,
                             interpret, use_kernel)
@@ -262,9 +336,18 @@ def _resume_lasso_batch(A, b, alpha1, alpha2, cfg, backend, feature_major,
     engine. The Gram is rebuilt from the same ``(A, b)`` by the same route,
     so only the solver rows round-trip."""
     from ..kernels.fista_vmem import VmemSolveState, fista_gram_vmem
+    from ..kernels.resident import ResidentSolveState
 
     n = A.shape[0] if feature_major else A.shape[-1]
     _unported_state(state0)
+    if isinstance(state0, ResidentSolveState):
+        if backend == "xla":
+            raise ValueError("state0 is a ResidentSolveState; it cannot "
+                             "resume on backend='xla'")
+        _kernel_route(n, cfg, "kernel", interpret, A.is_cuda)
+        return _solve_resident_routed(A, b, alpha1, alpha2, cfg, feature_major,
+                                      key, interpret, state0=state0,
+                                      return_state=return_state)
     if isinstance(state0, VmemSolveState):
         if backend == "xla":
             raise ValueError(

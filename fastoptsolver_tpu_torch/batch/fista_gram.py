@@ -2,7 +2,8 @@
 ``fastoptsolver_tpu/batch/fista_gram.py``).
 
 The torch driver: the CPU path, and the route the router takes for every
-configuration the CUDA kernels refuse (n past the burst engine's window). Same feature-major layout as the
+configuration the CUDA kernels refuse (Armijo where Q must stream, n past
+1016). Same feature-major layout as the
 reference — state ``(n, B)``, Gram ``(n, n, B)``, instances on the last axis —
 and the same lockstep semantics: every ``check_every`` iterations a batched
 relative duality gap marks certified instances, whose lanes freeze; the loop

@@ -4,26 +4,34 @@
 Per feature count, in one process on one card, on one batch made on the card
 from a seed:
 
-- the Gram build: the two build kernels (``make_gram_batch_fused``) and the
-  torch precompute (``make_gram_batch``: einsum and a 100-step power
+- the Gram build: the two build kernels (``make_gram_batch_fused``, n ≤ 118)
+  and the torch precompute (``make_gram_batch``: einsum and a 100-step power
   iteration that reads Q from device memory every step);
 - the read rate of the (n, n, B) Gram (a plain ``Q.sum()``, as the reference
   uses XLA's ``jnp.sum`` there, not a kernel) and of one einsum matvec;
 - the torch driver's certified solve (``fista_gram_batch``): instances/s and
   effective Q-stream GB/s (one Q read per iteration and per gap check);
-- inside the burst engine's window (n ≤ 104), the burst engine on the same
-  Gram (``fista_gram_vmem``), which also reads Q once per iteration (see
-  ``csrc/fista_burst.cu``) and once per burst for the gap;
-- the routed end-to-end call from raw ``(A, b)`` (``solve_lasso_batch``).
+- the kernel engine ``plan_gram_solve`` picks on the same Gram
+  (``fista_gram_vmem``): the burst engine (n ≤ 104), the resident engine
+  (n ≤ 168, one launch) or the Q-streaming engine. ``q_passes`` counts the
+  Q passes as the reference's model of its TPU engines does (burst engine
+  one per burst, resident one per solve, Q-streaming one per iteration and
+  one per burst); ``q_reads`` counts what the port's kernel reads (its
+  burst kernel reads Q every iteration, see ``csrc/fista_burst.cu``), and
+  ``q_stream_gbps`` is ``q_reads`` over the solve time;
+- the routed end-to-end call from raw ``(A, b)`` (``solve_lasso_batch``;
+  in the resident window its build skips the power loop and the kernel
+  estimates L itself).
 
 B is sized to a device-memory budget for Q (default 2 GB) and rounded to 128
-lanes: B = 54144 at n = 96. Times are CUDA-event medians of ``reps`` calls
-after one warm call. One JSON line per n, with the card's name and power
-limit. A device measurement: it raises without a CUDA device.
+lanes: B = 54144 at n = 96, 30464 at 128, 7552 at 256. Times are CUDA-event
+medians of ``reps`` calls after one warm call. One JSON line per n, with the
+card's name and power limit. A device measurement: it raises without a CUDA
+device.
 
 Usage (repo root, on a machine with a GPU):
-  python -m fastoptsolver_tpu_torch.bench.wide_n --n 96
-  python -m fastoptsolver_tpu_torch.bench.wide_n --n 64 96 --backtracking
+  python -m fastoptsolver_tpu_torch.bench.wide_n --n 96 128 256
+  python -m fastoptsolver_tpu_torch.bench.wide_n --n 128 160 256 --backtracking
 """
 from __future__ import annotations
 
@@ -77,7 +85,7 @@ def run_one(n: int, hbm_gb: float = 2.0, max_iter: int = 1000,
     from ..batch import solve_lasso_batch
     from ..batch.fista_gram import BatchFISTAConfig, fista_gram_batch, make_gram_batch
     from ..kernels.fista_vmem import fista_gram_vmem, plan_gram_solve
-    from ..kernels.gram_build import make_gram_batch_fused
+    from ..kernels.gram_build import _auto_tiles, make_gram_batch_fused
 
     if not torch.cuda.is_available():
         raise RuntimeError("wide_n measures the card; no CUDA device is visible")
@@ -88,11 +96,19 @@ def run_one(n: int, hbm_gb: float = 2.0, max_iter: int = 1000,
     cfg = BatchFISTAConfig(max_iter=max_iter, check_every=check_every,
                            rel_gap_tol=tol, backtracking=backtracking)
 
-    ms_build, gb = _timed(lambda: make_gram_batch_fused(A, b, alpha1, 0.0), reps)
-    q_bytes = gb.Q.numel() * 4.0
-    ms_build_torch, _ = _timed(lambda: make_gram_batch(
+    ms_build_torch, gb = _timed(lambda: make_gram_batch(
         A.permute(2, 1, 0), b.T, alpha1, 0.0,
         generator=torch.Generator(device=dev).manual_seed(0)), 1)
+    try:
+        _auto_tiles(n, m)
+    except ValueError as e:
+        ms_build, build_note = None, str(e)[:120]
+    else:
+        ms_build, gb = _timed(lambda: make_gram_batch_fused(A, b, alpha1, 0.0), reps)
+        build_note = None
+    gb = type(gb)(*(v.contiguous() for v in (gb.Q, gb.c, gb.btb, gb.alpha1,
+                                             gb.alpha2, gb.L)))
+    q_bytes = gb.Q.numel() * 4.0
     ms_read, _ = _timed(lambda: gb.Q.sum(), reps)
     Y0 = torch.ones((n, B), device=dev)
     ms_mv, _ = _timed(lambda: torch.einsum("ijb,jb->ib", gb.Q, Y0), reps)
@@ -106,7 +122,8 @@ def run_one(n: int, hbm_gb: float = 2.0, max_iter: int = 1000,
         "device": torch.cuda.get_device_name(dev), "power_limit": _power_limit(),
         "n": n, "m": m, "B": B, "backtracking": backtracking,
         "q_gb": q_bytes / 1e9,
-        "build_kernel_ms": ms_build, "build_torch_ms": ms_build_torch,
+        "build_kernel_ms": ms_build, "build_kernel_skipped": build_note,
+        "build_torch_ms": ms_build_torch,
         "q_read_gbps": read_gbps, "matvec_gbps": q_bytes / ms_mv / 1e6,
         "driver": {"solve_ms": ms_d, "converged": conv_d,
                    "inst_per_s": conv_d / ms_d * 1e3, "iters_total": it_d,
@@ -121,10 +138,13 @@ def run_one(n: int, hbm_gb: float = 2.0, max_iter: int = 1000,
         ms_k, res_k = _timed(lambda: fista_gram_vmem(gb, cfg), reps)
         conv_k = int(res_k.converged.sum())
         it_k = int(res_k.n_iters_total)
-        k_bytes = (it_k + -(-it_k // check_every)) * q_bytes
+        bursts = -(-it_k // check_every)
+        q_passes = {"vmem": bursts, "resident": 1}.get(engine, it_k + bursts)
+        q_reads = 1 if engine == "resident" else it_k + bursts
         out["kernel"] = {"engine": engine, "solve_ms": ms_k, "converged": conv_k,
                          "inst_per_s": conv_k / ms_k * 1e3, "iters_total": it_k,
-                         "q_stream_gbps": k_bytes / ms_k / 1e6,
+                         "q_passes": q_passes, "q_reads": q_reads,
+                         "q_stream_gbps": q_reads * q_bytes / ms_k / 1e6,
                          "speedup_vs_driver": ms_d / ms_k}
     del gb
     ms_r, res_r = _timed(lambda: solve_lasso_batch(A, b, alpha1, 0.0, cfg=cfg,
@@ -132,7 +152,7 @@ def run_one(n: int, hbm_gb: float = 2.0, max_iter: int = 1000,
     conv_r = int(res_r.converged.sum())
     out["routed_end_to_end"] = {
         "total_ms": ms_r, "converged": conv_r, "inst_per_s": conv_r / ms_r * 1e3,
-        "vs_build_plus_driver": (ms_build + ms_d) / ms_r,
+        "vs_build_plus_driver": ((ms_build or ms_build_torch) + ms_d) / ms_r,
     }
     return out
 
@@ -146,7 +166,7 @@ def _power_limit() -> str:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--n", type=int, nargs="+", default=[96])
+    ap.add_argument("--n", type=int, nargs="+", default=[96, 128, 256, 512])
     ap.add_argument("--hbm-gb", type=float, default=2.0,
                     help="device-memory budget for the Gram tensor (sizes B)")
     ap.add_argument("--max-iter", type=int, default=1000)

@@ -14,10 +14,14 @@ import torch
 
 from .batch.fista_gram import BatchFISTAConfig, BatchState, GramBatch
 from .kernels.fista_vmem import VmemSolveState
+from .kernels.resident import ResidentSolveState
 
 
 def _tensor(x) -> torch.Tensor:
-    return torch.from_numpy(np.array(x, copy=True))
+    # C order: the port's twins sum in an order that follows the layout, so a
+    # transposed numpy array would round differently from the same values
+    # made on the port's side
+    return torch.from_numpy(np.array(x, copy=True, order="C"))
 
 
 def gram_batch_from_numpy(Q, c, btb, alpha1, alpha2, L) -> GramBatch:
@@ -49,6 +53,26 @@ def vmem_state_from_numpy(X, Y, t, ps, tau, k, done, iters, gap) -> VmemSolveSta
         tau=_tensor(tau), k=torch.tensor(int(np.asarray(k)), dtype=torch.int32),
         done=_tensor(np.asarray(done, bool)),
         iters=_tensor(np.asarray(iters, np.int32)), gap=_tensor(gap),
+    )
+
+
+def resident_state_from_numpy(X, Y, t, ps, tau, k, done, iters, gap,
+                              n: int | None = None,
+                              B: int | None = None) -> ResidentSolveState:
+    """A CPU ``ResidentSolveState`` from the reference's fields, in its
+    field order (``resident_state_from_numpy(*jax_state)``): ``k`` and
+    ``iters`` int32, ``done`` bool, the rows ``(1, B)``. ``n``/``B`` strip
+    the feature and lane padding of raw kernel outputs (the reference's
+    returned state is already stripped)."""
+    rows = slice(None, n)
+    lanes = slice(None, B)
+    row = lambda v: _tensor(np.asarray(v).reshape(1, -1)[:, lanes])
+    lane = lambda v, dt: _tensor(np.asarray(v, dt).reshape(-1)[lanes])
+    return ResidentSolveState(
+        X=_tensor(np.asarray(X)[rows, lanes]), Y=_tensor(np.asarray(Y)[rows, lanes]),
+        t=row(t), ps=row(ps), tau=row(tau), k=lane(k, np.int32),
+        done=lane(done, bool), iters=lane(iters, np.int32),
+        gap=_tensor(np.asarray(gap).reshape(-1)[lanes]),
     )
 
 

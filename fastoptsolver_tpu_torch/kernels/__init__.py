@@ -4,7 +4,12 @@
   build+solve of the main path;
 - ``gram_build`` (CUDA ``csrc/gram_build.cu``) and ``fista_vmem`` (CUDA
   ``csrc/fista_burst.cu``): the two-kernel path, the Gram build and the
-  certified burst engine.
+  certified burst engine;
+- ``resident`` (CUDA ``csrc/resident.cu``): the whole certified solve in one
+  launch with each group's Gram on-chip, 104 < n ≤ 168, and the adaptive
+  entry ``fista_vmem.fista_gram_vmem_adaptive``;
+- ``qstream`` (CUDA ``csrc/qstream.cu``): bursts with Q streamed from device
+  memory at every step, past the resident window.
 
 The CUDA sources are compiled on first use (``_build``); importing this
 package needs no nvcc and no GPU."""
@@ -12,6 +17,7 @@ from .fista_vmem import (
     VmemSolveState,
     auto_b_tile,
     fista_gram_vmem,
+    fista_gram_vmem_adaptive,
     momentum_betas,
     plan_gram_solve,
 )
@@ -21,15 +27,29 @@ from .fused_solve import (
     solve_lasso_fused,
 )
 from .gram_build import make_gram_batch_fused
+from .qstream import auto_tiles_qstream, qstream_burst
+from .resident import (
+    ResidentSolveState,
+    auto_b_tile_resident,
+    fista_gram_resident,
+    fista_gram_resident_reference,
+)
 
 __all__ = [
+    "ResidentSolveState",
     "VmemSolveState",
     "auto_b_tile",
+    "auto_b_tile_resident",
     "auto_tiles_fused",
+    "auto_tiles_qstream",
+    "fista_gram_resident",
+    "fista_gram_resident_reference",
     "fista_gram_vmem",
+    "fista_gram_vmem_adaptive",
     "fused_solve_reference",
     "make_gram_batch_fused",
     "momentum_betas",
     "plan_gram_solve",
+    "qstream_burst",
     "solve_lasso_fused",
 ]

@@ -33,6 +33,8 @@ SOURCES = {
     "stream.cu": (),
     "gram_build.cu": ("--fmad=false",),
     "fista_burst.cu": ("--fmad=false",),
+    "resident.cu": ("--fmad=false",),
+    "qstream.cu": ("--fmad=false",),
 }
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 # No --use_fast_math: τ = 1/L, the norms' sqrt and the gap's divisions must be
@@ -61,6 +63,17 @@ _SIGNATURES = {
     # armijo_eta, max_backtracks, stream
     "fista_burst": [_vp] * 20 + [_i, _ll, _i, _i, _i, _i, _i, _f, _f, _f,
                                  _f, _f, _i, _vp],
+    # Q, c, tau, thr, a2, a1, btb, taumin, betas, X0, Y0, t0, ps0, tv0, k0,
+    # done0, iters0, gap0, X, Y, t, ps, tv, k, done, iters, gap, n, B, G,
+    # chunk, k_end, tol, mode, armijo, restart_threshold, greedy_S,
+    # greedy_shrink, armijo_c, armijo_eta, max_backtracks, est_l_iters,
+    # l_safety, t_init, stream
+    "resident_solve": [_vp] * 27 + [_i, _ll, _i, _i, _i, _f, _i, _i, _f, _f,
+                                    _f, _f, _f, _i, _i, _f, _f, _vp],
+    # Q, c, tau, thr, a2, a1, btb, X, Y, t, ps, taumin, betas, Xo, Yo, to,
+    # pso, gap, n, B, n_steps, k0, mode, with_gap, restart_threshold,
+    # greedy_S, greedy_shrink, stream
+    "qstream_burst": [_vp] * 18 + [_i, _ll, _i, _i, _i, _i, _f, _f, _f, _vp],
     "fos_cuda_error_string": [_i],
 }
 _RESTYPES = {"fos_cuda_error_string": ctypes.c_char_p}  # the rest return int

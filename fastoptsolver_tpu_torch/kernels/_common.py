@@ -9,11 +9,14 @@ twin of the CUDA kernel ``csrc/fused_solve.cu`` (see
 collapse into :func:`augmented_gram`: ragged-brick masking and sublane
 padding were artefacts of Pallas block shapes.
 
-Only the fixed-momentum (table-β) branch of ``certified_solve_body`` is
-ported; adaptive restart, greedy and Armijo in the fused engine are still to
-port (ROADMAP Queue 1 item 4). :func:`fista_general_chunk` and
-:func:`fista_armijo_chunk` carry those modes for the burst engine
-(``fista_vmem``, CUDA ``csrc/fista_burst.cu``).
+Every in-kernel momentum mode is here: :func:`fista_general_chunk` (fixed
+table-β, adaptive restart, greedy) and :func:`fista_armijo_chunk` carry the
+burst engine (``fista_vmem``, CUDA ``csrc/fista_burst.cu``) and the
+Q-streaming engine (``qstream``, ``csrc/qstream.cu``);
+:func:`certified_solve_body` runs the whole certified solve of the fused
+twin (fixed mode only so far: the fused kernel's other modes are still to
+port, ROADMAP Queue 1 item 4) and of the resident engine (``resident``,
+``csrc/resident.cu``) in every mode, with resume.
 """
 from __future__ import annotations
 
@@ -94,20 +97,14 @@ def _red(v):
     return torch.sum(v, dim=0, keepdim=True)
 
 
-def fista_fixed_chunk(matvec, betas: torch.Tensor, c_vec, tau, thr, a2,
-                      chunk: int):
-    """``chunk`` fixed-momentum FISTA iterations, β read from the table at
-    ABSOLUTE iteration indices: ``(k0, X, Y) -> (X, Y)``. ``betas`` is a
-    host (CPU) tensor so reading one entry never syncs with a device."""
-    def run(k0, X, Y):
-        for i in range(chunk):
-            grad = matvec(Y) + a2 * Y - c_vec
-            Xn = _soft(Y - tau * grad, thr)
-            beta = float(betas[k0 + i])
-            X, Y = Xn, Xn + beta * (Xn - X)
-        return X, Y
-
-    return run
+def _beta_at(betas, k0, i: int):
+    """β of step ``i`` of a chunk that starts at ``k0``: a float read from
+    the host table when ``k0`` is an int, a per-lane row gathered from the
+    table when ``k0`` is a ``(1, B)`` index row (a lane past the table's end,
+    in a group that has stopped, reads its last entry)."""
+    if isinstance(k0, int):
+        return float(betas[k0 + i])
+    return betas.to(k0.device)[torch.clamp(k0 + i, max=betas.numel() - 1)]
 
 
 def _restart_momentum(X, Xn, t, ps, restart_threshold):
@@ -130,8 +127,9 @@ def fista_general_chunk(matvec, betas, c_vec, tau, thr, a1, a2, chunk: int,
     """``chunk`` FISTA iterations in any momentum mode but Armijo, carrying
     the per-lane rows: ``(k0, X, Y, t, ps) -> (X, Y, t, ps)``.
 
-    - fixed (``restart_threshold`` and ``greedy`` None): β from the host
-      table at absolute indices; ``t``/``ps`` pass through;
+    - fixed (``restart_threshold`` and ``greedy`` None): β from the table
+      at absolute indices (``k0`` an int, or a per-lane row: :func:`_beta_at`);
+      ``t``/``ps`` pass through;
     - adaptive restart: per-lane Nesterov scalar ``t`` and previous step
       norm ``ps``;
     - greedy (``(S, shrink)``): ``t`` is the per-lane τ, ``ps`` the
@@ -157,7 +155,7 @@ def fista_general_chunk(matvec, betas, c_vec, tau, thr, a1, a2, chunk: int,
                 continue
             Xn = _soft(Y - tau * grad, thr)
             if restart_threshold is None:
-                beta = float(betas[k0 + i])
+                beta = _beta_at(betas, k0, i)
                 X, Y = Xn, Xn + beta * (Xn - X)
                 continue
             Y, t, ps = _restart_momentum(X, Xn, t, ps, restart_threshold)
@@ -207,7 +205,7 @@ def fista_armijo_chunk(matvec, betas, c_vec, a1, a2, btb, chunk: int,
                 acc = acc | ok
                 kbt += 1
             if restart_threshold is None:
-                beta = float(betas[k0 + i])
+                beta = _beta_at(betas, k0, i)
                 X, Y = Xn, Xn + beta * (Xn - X)
                 continue
             Y, t, ps = _restart_momentum(X, Xn, t, ps, restart_threshold)
@@ -217,42 +215,99 @@ def fista_armijo_chunk(matvec, betas, c_vec, a1, a2, btb, chunk: int,
     return run
 
 
-def certified_solve_body(matvec, betas, c_vec, tau, thr, a1, a2, btb, *,
-                         b_tile: int, chunk: int, k_end: int, tol: float):
-    """The whole certified fixed-momentum solve, every lane tile at once.
+def assert_tile_k_uniform(k, B: int, b_tile: int, offset: int = 0) -> None:
+    """Resume guard of the per-lane-k engines (reference
+    ``kernels/_common.py:173``): ``k`` must be uniform within every
+    ``b_tile``-lane group starting at ``offset``. A checkpoint cut under
+    another grouping would put lanes at different iterations into one
+    lockstep group, which neither the kernel nor its twin represents."""
+    kh = torch.as_tensor(k).detach().cpu().reshape(-1)
+    for s0 in range(offset, offset + B, b_tile):
+        seg = kh[s0:min(s0 + b_tile, offset + B)]
+        if seg.numel() and bool((seg != seg[0]).any()):
+            raise ValueError(
+                f"state0.k is not uniform within lane tile [{s0}, "
+                f"{s0 + b_tile}): the checkpoint was taken under a different "
+                "tile grouping (b_tile); resume with the grouping that "
+                "produced it"
+            )
 
-    Each ``b_tile``-lane tile behaves as one CTA of the kernel (one Pallas
-    grid column of the reference): bursts of ``chunk`` steps, then the gap,
-    the non-finite quarantine and the done/iters/gap updates; the tile stops
-    once all its lanes are done or ``k`` reaches ``k_end``. Certified lanes
-    keep iterating until their tile stops. All tiles share ``k`` while they
-    run, so a stopped tile is simply frozen. Returns ``(X, iters, gap,
-    done)`` with per-lane rows ``(1, B)``; ``B`` must be a multiple of
-    ``b_tile``."""
+
+def certified_solve_body(matvec, betas, c_vec, tau, thr, a1, a2, btb,
+                         taumin=None, state0=None, *, b_tile: int, chunk: int,
+                         k_end: int, tol: float, restart_threshold=None,
+                         greedy=None, armijo=None):
+    """The whole certified solve, every ``b_tile``-lane group at once, in
+    any momentum mode (reference ``kernels/_common.py:200``).
+
+    Each group behaves as one CTA of the kernels (one Pallas grid step of
+    the reference): bursts of ``chunk`` steps (:func:`fista_general_chunk`,
+    or :func:`fista_armijo_chunk` when ``armijo``), then the gap, the
+    non-finite quarantine, the greedy stuck-lane shrink and the
+    done/iters/gap updates; a group stops once all its lanes are done or its
+    ``k`` reaches ``k_end``. Certified lanes keep iterating until their
+    group stops. Each group keeps its own ``k``, so a stopped group stays
+    frozen while the others run, and a resumed state may hold groups at
+    different iterations.
+
+    ``state0`` is None or the 9-tuple ``(X, Y, t, ps, tv, k, done, iters,
+    gap)`` of ``(n, B)`` planes and ``(1, B)`` rows (``k`` an integer row,
+    uniform within each group); the same 9-tuple comes back. ``tv`` is the
+    per-lane Armijo step, which only the Armijo search changes."""
     B = c_vec.shape[1]
-    nt = B // b_tile
-    steps = fista_fixed_chunk(matvec, betas, c_vec, tau, thr, a2, chunk)
-    X = torch.zeros_like(c_vec)
-    Y = torch.zeros_like(c_vec)
-    done = torch.zeros_like(tau, dtype=torch.bool)
-    iters = torch.zeros_like(tau, dtype=torch.int32)
-    gap = torch.full_like(tau, float("inf"))
+    dev = c_vec.device
+    betas = betas.cpu()  # an int k0 reads it without a device sync
+    if state0 is None:
+        X, Y = torch.zeros_like(c_vec), torch.zeros_like(c_vec)
+        t = tau if greedy is not None else torch.ones_like(tau)
+        ps, tv = torch.zeros_like(tau), tau
+        k = torch.zeros((1, B), dtype=torch.int64, device=dev)
+        done = torch.zeros((1, B), dtype=torch.bool, device=dev)
+        iters = torch.zeros((1, B), dtype=torch.int32, device=dev)
+        gap = torch.full_like(tau, float("inf"))
+    else:
+        X, Y, t, ps, tv, k, done, iters, gap = state0
+        k = k.to(torch.int64)
+    if armijo is not None:
+        steps = fista_armijo_chunk(matvec, betas, c_vec, a1, a2, btb, chunk,
+                                   restart_threshold, armijo)
+    else:
+        general = fista_general_chunk(matvec, betas, c_vec, tau, thr, a1, a2,
+                                      chunk, restart_threshold, greedy, taumin)
+
+        def steps(k0, X, Y, t, ps, tv):
+            return (*general(k0, X, Y, t, ps), tv)
+
+    n_groups = -(-B // b_tile)
+    group = torch.arange(B, device=dev) // b_tile
+
+    def group_all(row):  # (1, B) bool -> each lane's group all-reduced
+        full = torch.ones(n_groups * b_tile, dtype=torch.bool, device=dev)
+        full[:B] = row[0]
+        return full.view(n_groups, b_tile).all(dim=1)[group][None, :]
+
     inf = torch.full_like(tau, float("inf"))
-    k = 0
-    while k < k_end:
-        tile_live = ~done.view(nt, b_tile).all(dim=1)
-        if not bool(tile_live.any()):
+    while True:
+        live = ~group_all(done) & (k < k_end)
+        if not bool(live.any()):
             break
-        live = tile_live.repeat_interleave(b_tile)[None, :]
-        Xn, Yn = steps(k, X, Y)
-        k += chunk
-        X = torch.where(live, Xn, X)
-        Y = torch.where(live, Yn, Y)
+        k_live = k[live]
+        k0 = int(k_live[0]) if bool((k_live == k_live[0]).all()) else k
+        new = steps(k0, X, Y, t, ps, tv)
+        X, Y, t, ps, tv = (torch.where(live, v_new, v)
+                           for v_new, v in zip(new, (X, Y, t, ps, tv)))
+        k = torch.where(live, k + chunk, k)
         finite = torch.all(torch.isfinite(X), dim=0, keepdim=True)
         gp = torch.where(finite, gram_rel_gap(X, matvec, c_vec, a1, a2, btb),
                          inf)
         open_ = live & ~done
-        iters = torch.where(open_, torch.full_like(iters, k), iters)
+        newly = open_ & ((gp <= tol) | ~finite)
+        if greedy is not None:
+            # a live lane whose gap did not improve over a whole check
+            # window gets its τ halved toward 1/L
+            stuck = open_ & ~newly & (gp > 0.9 * gap)
+            t = torch.where(stuck, torch.maximum(0.5 * t, taumin), t)
+        iters = torch.where(open_, k.to(torch.int32), iters)
         gap = torch.where(open_, gp, gap)
-        done = done | (open_ & ((gp <= tol) | ~finite))
-    return X, iters, gap, done
+        done = done | newly
+    return X, Y, t, ps, tv, k, done, iters, gap

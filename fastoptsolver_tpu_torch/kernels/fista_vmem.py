@@ -21,11 +21,16 @@ Differences from the reference, all forced by the framework or the card:
 - Lanes are not padded: the kernel masks its ragged last CTA, and no lane's
   result depends on its neighbours, so ``b_tile`` selects nothing (it is
   kept for the reference's signature and plans, :func:`auto_b_tile`).
-- The window: the engine takes n ≤ 104, the reference's own burst ceiling,
-  so both packages pick the same engine there. The resident (104 < n ≤ 168)
-  and Q-streaming (n > 168) engines are not ported yet (ROADMAP Queue 2
-  items 7-9): :func:`plan_gram_solve` raises past 104, which sends the router
-  to the torch driver.
+- The window: the burst kernel takes n ≤ 104, the reference's own burst
+  ceiling. Past it :func:`plan_gram_solve` climbs the reference's ladder:
+  the resident engine (``kernels.resident``, one launch per solve) for
+  certified configs up to n = 168, the Q-streaming engine
+  (``kernels.qstream``, one launch per burst under this module's host loop)
+  beyond, and for ``check_every <= 0`` in the window; Armijo past the window
+  raises, which sends the router to the torch driver.
+- :func:`fista_gram_vmem_adaptive`, the reference's per-tile adaptive
+  kernel, is an entry onto the resident kernel (external L, no Armijo, no
+  state): the same certified loop in one launch.
 """
 from __future__ import annotations
 
@@ -121,29 +126,48 @@ def auto_b_tile(n_pad: int, vmem_budget_bytes: int = 12 * 1024 * 1024) -> int:
     if fit < LANE:
         raise ValueError(
             f"n_pad={n_pad} is past the burst engine's window (n <= {MAX_N}); "
-            "the resident and Q-streaming engines that serve wider problems "
-            "are not ported yet (ROADMAP Queue 2 items 7-9): use the torch "
-            "driver (batch.fista_gram.fista_gram_batch)"
+            "wider problems run on the resident engine (kernels.resident, "
+            "n <= 168) or the Q-streaming engine (kernels.qstream)"
         )
     return int(max(LANE, min(1024, (fit // LANE) * LANE)))
 
 
 def plan_gram_solve(n: int, cfg: BatchFISTAConfig) -> tuple[str, int, int]:
-    """The kernel engine for a Gram-form solve at feature count ``n``:
-    ``("vmem", b_tile, 0)`` for n ≤ 104, as the reference plans. Past 104
-    the reference picks its resident or Q-streaming engine, which are not
-    ported yet, so this raises ``ValueError`` and the router falls back to
-    the torch driver, as on the reference's own guard errors."""
-    del cfg
+    """The kernel engine for a Gram-form solve at feature count ``n``, the
+    reference's ladder and plans:
+
+    - ``("vmem", b_tile, 0)`` for n ≤ 104 (the burst engine);
+    - ``("resident", 128, 0)`` for n ≤ 168 with ``check_every > 0`` (every
+      mode, Armijo included);
+    - ``("qstream", b_tile, g_planes)`` beyond, and for ``check_every <= 0``
+      in the window, up to n = 1016.
+
+    Raises ``NotImplementedError`` for Armijo where Q must stream and
+    ``ValueError`` past 1016; the router falls back to the torch driver on
+    exactly these errors."""
     n_pad = _round_up(max(n, SUBLANE), SUBLANE)
-    if not 1 <= n <= MAX_N:
-        raise ValueError(
-            f"n={n}: past the burst engine's window (n <= {MAX_N}) the "
-            "reference runs its resident (n <= 168) or Q-streaming engine, "
-            "neither ported yet (ROADMAP Queue 2 items 7-9); use the torch "
-            "driver (batch.fista_gram.fista_gram_batch)"
-        )
-    return "vmem", auto_b_tile(n_pad), 0
+    try:
+        return "vmem", auto_b_tile(n_pad), 0
+    except ValueError as vmem_err:
+        if cfg.check_every > 0:
+            from .resident import auto_b_tile_resident
+
+            try:
+                return "resident", auto_b_tile_resident(n_pad), 0
+            except ValueError:
+                pass
+        if cfg.backtracking:
+            raise NotImplementedError(
+                "at this width the Armijo search needs the resident engine, "
+                "which covers n <= 168 for certified configs "
+                "(check_every > 0); past the window, or with "
+                "check_every <= 0, backtracking runs on the torch driver "
+                "(batch.fista_gram.fista_gram_batch)"
+            ) from vmem_err
+        from .qstream import auto_tiles_qstream
+
+        bt, g = auto_tiles_qstream(n_pad)
+        return "qstream", bt, g
 
 
 class VmemSolveState(NamedTuple):
@@ -341,19 +365,6 @@ def _pad_and_solve(burst, betas, Q, c, btb, alpha1, alpha2, L, state0, *,
 
 
 def _solve(burst, gb, cfg, state0, return_state):
-    _check_kernel_cfg(cfg)
-    n = gb.c.shape[0]
-    if MAX_N < n <= 168 and cfg.check_every > 0:
-        raise NotImplementedError(
-            f"n={n} is in the resident engine's window (104 < n <= 168), "
-            "which is not ported yet (ROADMAP Queue 2 item 7)"
-        )
-    if n > MAX_N:
-        raise NotImplementedError(
-            f"n={n} needs the Q-streaming engine, which is not ported yet "
-            "(ROADMAP Queue 2 item 9)"
-        )
-    plan_gram_solve(n, cfg)
     k0 = int(state0.k) if state0 is not None else 0
     certify = cfg.check_every > 0
     remaining = max(cfg.max_iter - k0, 0)
@@ -372,13 +383,35 @@ def _solve(burst, gb, cfg, state0, return_state):
     return (result, fin) if return_state else result
 
 
+def _dispatch(gb, cfg, state0, return_state, twin: bool):
+    """Run the engine :func:`plan_gram_solve` picks: the resident engine in
+    its window unless ``state0`` is a ``VmemSolveState``, which pins the
+    Q-streaming engine there as in the reference; otherwise the burst
+    driver with the burst or Q-streaming burst. ``twin`` runs every engine's
+    plain twin; else each takes its kernel or twin by the tensor's device."""
+    from . import qstream, resident
+
+    _check_kernel_cfg(cfg)
+    engine = plan_gram_solve(gb.c.shape[0], cfg)[0]
+    if engine == "resident" and not isinstance(state0, VmemSolveState):
+        solve = (resident.fista_gram_resident_reference if twin
+                 else resident.fista_gram_resident)
+        return solve(gb, cfg, state0=state0, return_state=return_state)
+    if engine == "vmem":
+        burst = _burst_reference if twin else _burst
+    else:
+        burst = (qstream._qstream_burst_reference if twin
+                 else qstream.qstream_burst)
+    return _solve(burst, gb, cfg, state0, return_state)
+
+
 def fista_gram_vmem_reference(gb: GramBatch, cfg: BatchFISTAConfig = BatchFISTAConfig(),
                               state0: VmemSolveState | None = None,
                               return_state: bool = False):
-    """:func:`fista_gram_vmem` with the plain twin for every burst, on a
+    """:func:`fista_gram_vmem` with the plain twin of every engine, on a
     tensor of any device: the same result as the kernel route up to f32
     summation order."""
-    return _solve(_burst_reference, gb, cfg, state0, return_state)
+    return _dispatch(gb, cfg, state0, return_state, twin=True)
 
 
 def fista_gram_vmem(
@@ -389,25 +422,63 @@ def fista_gram_vmem(
     state0: VmemSolveState | None = None,
     return_state: bool = False,
 ):
-    """Solve the batch in bursts: one launch of the burst kernel per burst on
-    a CUDA tensor, the plain twin on a CPU tensor (``interpret=True`` asks
-    for the twin and raises with a CUDA tensor).
+    """Solve the batch on the engine :func:`plan_gram_solve` picks: on a
+    CUDA tensor the burst kernel (n ≤ 104) or the Q-streaming kernel, one
+    launch per burst, or, for certified configs in 104 < n ≤ 168, one launch
+    of the resident kernel (``kernels.resident.fista_gram_resident``, whose
+    ``ResidentSolveState`` it takes and returns); on a CPU tensor their plain
+    twins (``interpret=True`` asks for the twins and raises with a CUDA
+    tensor).
 
     ``cfg.check_every > 0``: bursts of that many iterations, each ending
     with the per-lane gap; the loop exits when every lane is certified
     (``max_iter`` rounds up to a burst). ``check_every <= 0``: one fixed run
     of ``max_iter`` iterations, certified afterwards. Certified lanes keep
     iterating; ``iters`` records the burst at which each lane first
-    certified. Every momentum mode and Armijo backtracking run in the burst.
+    certified. Every momentum mode runs in the burst kernel; the Q-streaming
+    kernel refuses Armijo.
 
     ``state0`` resumes a previous run exactly (``max_iter`` counts the
-    resumed iterations); with ``return_state`` the final
-    :class:`VmemSolveState` comes back with the result. ``b_tile`` selects
-    nothing (no lane depends on another). Past n = 104 this raises
-    ``NotImplementedError``: the resident and Q-streaming engines the
-    reference hands off to are not ported yet."""
+    resumed iterations); with ``return_state`` the final state comes back
+    with the result. A ``VmemSolveState`` in the resident window pins the
+    Q-streaming engine, as in the reference. ``b_tile`` selects nothing (no
+    lane of the burst engines depends on another)."""
     del b_tile
     if gb.Q.is_cuda and interpret:
         raise ValueError("interpret=True runs the plain twin on a CPU tensor; "
                          "the GramBatch is on a CUDA device")
-    return _solve(_burst, gb, cfg, state0, return_state)
+    return _dispatch(gb, cfg, state0, return_state, twin=False)
+
+
+def fista_gram_vmem_adaptive(
+    gb: GramBatch,
+    cfg: BatchFISTAConfig = BatchFISTAConfig(),
+    b_tile: int | None = None,
+    interpret: bool = False,
+) -> BatchResult:
+    """The reference's per-tile adaptive variant: the whole certified loop
+    in one launch, each group of lanes exiting at its own convergence point.
+    Here it is an entry onto the resident kernel (``kernels.resident``)
+    against the Gram's own L: fresh solves only, ``check_every > 0``,
+    adaptive restart and greedy momentum, no Armijo, and the reference's
+    window n ≤ 104 (:func:`auto_b_tile` raises past it).
+
+    ``b_tile`` is the twin's lane grouping on a CPU tensor (default: the
+    kernel's, ``resident.group_lanes``; the reference groups
+    ``auto_b_tile`` lanes); on a CUDA tensor the kernel's group is set by
+    shared memory and ``b_tile`` must be None."""
+    from . import resident
+
+    _check_kernel_cfg(cfg, backtracking_ok=False)
+    if cfg.check_every <= 0:
+        raise ValueError("adaptive kernel needs check_every > 0")
+    auto_b_tile(_round_up(max(gb.c.shape[0], SUBLANE), SUBLANE))
+    if gb.Q.is_cuda:
+        if interpret:
+            raise ValueError("interpret=True runs the plain twin on a CPU "
+                             "tensor; the GramBatch is on a CUDA device")
+        if b_tile is not None:
+            raise ValueError("on a CUDA tensor the resident kernel sets its "
+                             "own grouping; b_tile must be None")
+        return resident.fista_gram_resident(gb, cfg)
+    return resident.fista_gram_resident_reference(gb, cfg, b_tile=b_tile)

@@ -100,8 +100,8 @@ def _plain_run(A, b, a1, a2, betas, *, b_tile: int, pl_iters: int,
     L = torch.where(lam > 0.0, l_safety * lam, torch.ones_like(lam)) + a2
     tau = t_init / L
     thr = tau * a1
-    X, iters, gap, done = certified_solve_body(
-        matvec, betas.cpu(), c_vec, tau, thr, a1, a2, btb, b_tile=b_tile,
+    X, *_, done, iters, gap = certified_solve_body(
+        matvec, betas, c_vec, tau, thr, a1, a2, btb, b_tile=b_tile,
         chunk=chunk, k_end=k_end, tol=tol,
     )
     return (X[:, :B], iters[0, :B], gap[0, :B],

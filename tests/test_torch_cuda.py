@@ -1,6 +1,7 @@
 """The CUDA kernels of ``fastoptsolver_tpu_torch`` against their plain
 PyTorch twins, on the card (``chip_smoke.py`` phase 3 for pytest users):
-the fused solve, the stream pass, the Gram build and the burst engine.
+the fused solve, the stream pass, the Gram build, the burst engine, the
+resident engine (and the adaptive entry onto it) and the Q-streaming engine.
 
 Every test takes the ``cuda`` fixture, which skips when torch sees no CUDA
 device: run them on a GPU machine with ``python -m pytest -m cuda
@@ -17,7 +18,8 @@ import torch
 
 from fastoptsolver_tpu_torch.batch import BatchFISTAConfig, solve_lasso_batch
 from fastoptsolver_tpu_torch.bench import stream
-from fastoptsolver_tpu_torch.kernels import fista_vmem, fused_solve, gram_build
+from fastoptsolver_tpu_torch.batch.fista_gram import make_gram_batch
+from fastoptsolver_tpu_torch.kernels import fista_vmem, fused_solve, gram_build, qstream, resident
 
 pytestmark = pytest.mark.cuda
 
@@ -88,11 +90,18 @@ def test_router_takes_the_kernel_on_cuda(cuda):
     assert gram_build.LAUNCHES == builds + 2
     assert fista_vmem.LAUNCHES == bursts + int(res.n_iters_total) // 25
     assert res.converged.all()
-    # and past the burst window, to the torch driver on the card
+    # and past the burst window: n = 110 to one resident launch (the build
+    # kernels take n <= 118), Armijo at n = 200 to the torch driver
     A, b, a1 = _problem(110, 220, 64, seed=5, device=cuda)
+    launches, bursts = resident.LAUNCHES, fista_vmem.LAUNCHES
     res = solve_lasso_batch(A, b, a1, feature_major=True)
+    assert resident.LAUNCHES == launches + 1 and res.x.is_cuda
+    assert gram_build.LAUNCHES == builds + 4 and fista_vmem.LAUNCHES == bursts
+    A, b, a1 = _problem(200, 400, 64, seed=5, device=cuda)
+    res = solve_lasso_batch(A, b, a1, cfg=BatchFISTAConfig(max_iter=50, check_every=25,
+                                                           backtracking=True),
+                            feature_major=True)
     assert isinstance(res.n_iters_total, int) and res.x.is_cuda
-    assert gram_build.LAUNCHES == builds + 2
 
 
 @pytest.mark.parametrize("shape", [(9, 33, 300), (20, 70, 200), (64, 128, 256)])
@@ -177,3 +186,110 @@ def test_wrapper_refuses_bad_inputs(cuda):
     gb = gram_build.make_gram_batch_fused(A, b, a1, 0.0)
     with pytest.raises(ValueError, match="interpret"):
         fista_vmem.fista_gram_vmem(gb, interpret=True)
+
+
+def _wide_gram(n, a2, cuda, B=300, seed=8, l_div=1.0, decisive=False):
+    """The torch precompute on the card (the build kernels stop at n = 118)."""
+    if decisive:  # noise-free b, α₁ = 0.5, L understated
+        g = torch.Generator(device=cuda).manual_seed(seed)
+        A = torch.randn((n, 2 * n, B), generator=g, device=cuda)
+        xt = torch.zeros((n, B), device=cuda)
+        xt[:2] = torch.randn((2, B), generator=g, device=cuda)
+        b = torch.einsum("nmb,nb->mb", A, xt)
+        a1 = torch.full((B,), 0.5, device=cuda)
+    else:
+        A, b, a1 = _problem(n, 2 * n, B, seed=seed, device=cuda)
+    gb = make_gram_batch(A.permute(2, 1, 0), b.T, a1, a2)
+    return dataclasses.replace(gb, Q=gb.Q.contiguous(), c=gb.c.contiguous(), L=gb.L / l_div)
+
+
+RESIDENT_MODES = dict(BURST_MODES, armijo=(dict(backtracking=True), 0.0))
+
+
+@pytest.mark.parametrize("mode", list(RESIDENT_MODES))
+@pytest.mark.parametrize("n", [112, 168])
+def test_resident_kernel_matches_twin(cuda, n, mode):
+    """One launch, L estimated in-kernel, against the twin at the kernel's
+    grouping: certified runs (rel_gap_tol 1e-5) converged identical, iters
+    within a burst, x to rtol 2e-4/atol 2e-5; Armijo in the decisive regime
+    (5 iterations) x to rtol 1e-4/atol 1e-5. Then 40 + 60 resumes bit-exactly."""
+    kw, a2 = RESIDENT_MODES[mode]
+    armijo = mode == "armijo"
+    gb = _wide_gram(n, a2, cuda, l_div=4.0 if armijo else 1.0, decisive=armijo)
+    cfg = BatchFISTAConfig(**(dict(max_iter=5, check_every=5) if armijo else
+                              dict(max_iter=1000, check_every=25, rel_gap_tol=1e-5)), **kw)
+    est = None if armijo else 96
+    before = resident.LAUNCHES
+    got = resident.fista_gram_resident(gb, cfg, est_l_iters=est)
+    torch.cuda.synchronize()
+    assert resident.LAUNCHES == before + 1
+    want = resident.fista_gram_resident_reference(gb, cfg, est_l_iters=est)
+    if armijo:
+        torch.testing.assert_close(got.x, want.x, rtol=1e-4, atol=1e-5)
+    else:
+        assert torch.equal(got.converged, want.converged) and got.converged.all()
+        assert int((got.iters - want.iters).abs().max()) <= 25
+        torch.testing.assert_close(got.x, want.x, rtol=2e-4, atol=2e-5)
+    full = BatchFISTAConfig(max_iter=100, check_every=20, rel_gap_tol=1e-12, **kw)
+    straight = resident.fista_gram_resident(gb, full, est_l_iters=est)
+    _, mid = resident.fista_gram_resident(gb, dataclasses.replace(full, max_iter=40),
+                                          est_l_iters=est, return_state=True)
+    assert torch.equal(resident.fista_gram_resident(gb, full, est_l_iters=est,
+                                                    state0=mid).x, straight.x)
+
+
+@pytest.mark.parametrize("mode", ["restart", "greedy"])
+def test_adaptive_entry_matches_twin(cuda, mode):
+    kw, a2 = BURST_MODES[mode]
+    A, b, a1 = _problem(96, 192, 300, seed=9, device=cuda)
+    gb = gram_build.make_gram_batch_fused(A, b, a1, a2)
+    cfg = BatchFISTAConfig(max_iter=1000, check_every=25, rel_gap_tol=1e-5, **kw)
+    before = resident.LAUNCHES
+    got = fista_vmem.fista_gram_vmem_adaptive(gb, cfg)
+    assert resident.LAUNCHES == before + 1
+    want = fista_vmem.fista_gram_vmem_adaptive(
+        gram_build.GramBatch(*(v.cpu() for v in (gb.Q, gb.c, gb.btb, gb.alpha1,
+                                                 gb.alpha2, gb.L))), cfg)
+    assert torch.equal(got.converged.cpu(), want.converged) and got.converged.all()
+    torch.testing.assert_close(got.x.cpu(), want.x, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("mode", list(BURST_MODES))
+@pytest.mark.parametrize("n", [200, 256])
+def test_qstream_kernel_matches_twin(cuda, n, mode):
+    """One burst of 25 from a non-trivial state, every output to rtol
+    2e-4/atol 2e-5; a certified run (rel_gap_tol 1e-5) converged identical
+    and iters within a burst; 40 + 60 resumes bit-exactly."""
+    kw, a2 = BURST_MODES[mode]
+    gb = _wide_gram(n, a2, cuda)
+    cfg = BatchFISTAConfig(max_iter=100, check_every=25, **kw)
+    greedy = cfg.momentum == "greedy"
+    tau = ((cfg.greedy_xi if greedy else 1.0) / gb.L)[None, :].contiguous()
+    g = torch.Generator(device=cuda).manual_seed(7)
+    X = 0.1 * torch.randn(gb.c.shape, generator=g, device=cuda)
+    Y = X + 0.01 * torch.randn(gb.c.shape, generator=g, device=cuda)
+    row = lambda v: v[None, :].contiguous()
+    args = (fista_vmem._beta_table(100, cfg).to(cuda), 25, gb.Q, gb.c, tau,
+            (tau * row(gb.alpha1)).contiguous(), row(gb.alpha2), row(gb.alpha1),
+            row(gb.btb), X, Y, tau.clone() if greedy else torch.full_like(tau, 1.7),
+            torch.full_like(tau, 0.05), row(1.0 / gb.L), tau)
+    static = dict(n_steps=25, with_gap=True, greedy=(cfg.greedy_S, cfg.greedy_shrink)
+                  if greedy else None,
+                  restart_threshold=cfg.restart_threshold if cfg.adaptive_restart else None)
+    before = qstream.LAUNCHES
+    got = qstream._launch_qstream(*args, **static)
+    torch.cuda.synchronize()
+    assert qstream.LAUNCHES == before + 1
+    want = qstream._qstream_burst_reference(*args, **static)
+    for gv, wv in zip(got, want):
+        torch.testing.assert_close(gv, wv, rtol=2e-4, atol=2e-5)
+    cert = BatchFISTAConfig(max_iter=1000, check_every=25, rel_gap_tol=1e-5, **kw)
+    got = fista_vmem.fista_gram_vmem(gb, cert)
+    want = fista_vmem.fista_gram_vmem_reference(gb, cert)
+    assert torch.equal(got.converged, want.converged) and got.converged.all()
+    assert int((got.iters - want.iters).abs().max()) <= 25
+    full = BatchFISTAConfig(max_iter=100, check_every=0, **kw)
+    straight = fista_vmem.fista_gram_vmem(gb, full)
+    _, mid = fista_vmem.fista_gram_vmem(gb, dataclasses.replace(full, max_iter=40),
+                                        return_state=True)
+    assert torch.equal(fista_vmem.fista_gram_vmem(gb, full, state0=mid).x, straight.x)

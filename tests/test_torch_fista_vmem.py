@@ -218,6 +218,9 @@ def test_jax_checkpoint_resumes_in_the_port(grams, fixed_runs):
 
 
 def test_plans_agree_with_jax_in_the_window():
+    """The burst window's plans, and past it the reference's ladder: the
+    resident engine to n = 168, the Q-streaming engine beyond
+    (tests/test_torch_qstream.py crosses more widths and configs)."""
     cfg, tcfg = JaxConfig(), tvmem.BatchFISTAConfig()
     for n in range(1, tvmem.MAX_N + 1):
         assert tvmem.plan_gram_solve(n, tcfg) == jvmem.plan_gram_solve(n, cfg), n
@@ -225,21 +228,27 @@ def test_plans_agree_with_jax_in_the_window():
         assert tvmem.auto_b_tile(n_pad) == jvmem.auto_b_tile(n_pad)
     for n in (105, 168, 300):
         assert jvmem.plan_gram_solve(n, cfg)[0] != "vmem"
-        with pytest.raises(ValueError, match="Queue 2 items 7-9"):
-            tvmem.plan_gram_solve(n, tcfg)
+        assert tvmem.plan_gram_solve(n, tcfg) == jvmem.plan_gram_solve(n, cfg), n
     with pytest.raises(ValueError):
         jvmem.auto_b_tile(112)
     with pytest.raises(ValueError, match="window"):
         tvmem.auto_b_tile(112)
 
 
-@pytest.mark.parametrize("n, item", [(120, "item 7"), (200, "item 9")])
-def test_past_the_window_raises(n, item):
+@pytest.mark.parametrize("n, check_every", [pytest.param(120, 0, id="120-item 7"),
+                                            pytest.param(200, 10, id="200-item 9")])
+def test_past_the_window_raises(n, check_every):
+    """Armijo where Q must stream raises, as in the reference: past the
+    resident window (n = 200), and inside it without certification (n = 120,
+    check_every = 0); the router then takes the torch driver."""
     z = torch.zeros
     gb = GramBatch(Q=z((n, n, 2)), c=z((n, 2)), btb=z(2), alpha1=z(2),
                    alpha2=z(2), L=torch.ones(2))
-    with pytest.raises(NotImplementedError, match=item):
-        tvmem.fista_gram_vmem(gb, tvmem.BatchFISTAConfig(check_every=10), interpret=True)
+    cfg = tvmem.BatchFISTAConfig(check_every=check_every, backtracking=True)
+    with pytest.raises(NotImplementedError, match="torch driver"):
+        tvmem.fista_gram_vmem(gb, cfg, interpret=True)
+    with pytest.raises(NotImplementedError):
+        jvmem.plan_gram_solve(n, JaxConfig(check_every=check_every, backtracking=True))
 
 
 def test_cuda_wrapper_refuses_cpu_tensors(grams):
@@ -249,3 +258,18 @@ def test_cuda_wrapper_refuses_cpu_tensors(grams):
         tvmem._launch_burst(torch.zeros(10), 0, gbt.Q, gbt.c, row, row, row, row,
                             row, gbt.c, gbt.c, row, row, None, row, n_steps=5)
     assert tvmem.LAUNCHES == 0
+
+
+@pytest.mark.parametrize("cfg_kw", [dict(), dict(backtracking=True), dict(check_every=0)],
+                         ids=["default", "backtracking", "check_every_0"])
+def test_plan_parity_across_the_ladder(cfg_kw):
+    """plan_gram_solve equals the reference's on both sides of every window
+    edge (104, 168, 1016), and raises the same exception where it raises."""
+    for n in (1, 8, 104, 105, 112, 168, 169, 256, 1016, 1024):
+        try:
+            want = jvmem.plan_gram_solve(n, JaxConfig(**cfg_kw))
+        except (ValueError, NotImplementedError) as e:
+            with pytest.raises(type(e)):
+                tvmem.plan_gram_solve(n, tvmem.BatchFISTAConfig(**cfg_kw))
+        else:
+            assert tvmem.plan_gram_solve(n, tvmem.BatchFISTAConfig(**cfg_kw)) == want, n

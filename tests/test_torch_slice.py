@@ -412,3 +412,123 @@ def test_wide_n_problems_follow_the_recipe():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             wide_n.run_one(8, hbm_gb=1e-3)
+
+
+def _window_inputs(n, B=16, seed=9):
+    """(B, m, n) float32 instances past the burst window: A ~ N(0, 1/n), an
+    n/8-sparse signal, noise 0.01, α₁ = 0.1·‖Aᵀb‖∞."""
+    rng = np.random.default_rng(seed)
+    m = 2 * n + 40
+    A = rng.normal(size=(B, m, n)) / np.sqrt(n)
+    xt = np.zeros((B, n))
+    xt[:, : n // 8] = rng.normal(size=(B, n // 8))
+    b = np.einsum("bmn,bn->bm", A, xt) + 0.01 * rng.normal(size=(B, m))
+    a1 = 0.1 * np.abs(np.einsum("bmn,bm->bn", A, b)).max(axis=1)
+    f32 = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.float32))
+    return f32(A), f32(b), f32(a1)
+
+
+def _spy(monkeypatch, module, name):
+    calls = []
+    fn = getattr(module, name)
+    monkeypatch.setattr(module, name, lambda *a, **k: calls.append(1) or fn(*a, **k))
+    return calls
+
+
+WINDOW_CFG = dict(max_iter=400, check_every=25, rel_gap_tol=1e-5)
+
+
+@pytest.mark.parametrize("n, engine", [(112, "resident"), (200, "qstream")])
+def test_router_takes_the_wide_engines(monkeypatch, n, engine):
+    """Under interpret=True, n = 112 runs the resident twin once (the Gram
+    built without the power loop, L estimated in-kernel) and n = 200 the
+    Q-streaming twin once per burst; both certify every lane."""
+    from fastoptsolver_tpu_torch.kernels import qstream, resident
+
+    spies = {"resident": _spy(monkeypatch, resident, "_plain_run"),
+             "qstream": _spy(monkeypatch, qstream, "_qstream_burst_reference")}
+    A, b, a1 = _window_inputs(n)
+    res = solve_lasso_batch(A, b, a1, 0.0, cfg=BatchFISTAConfig(**WINDOW_CFG),
+                            interpret=True)
+    want = 1 if engine == "resident" else int(res.n_iters_total) // 25
+    assert len(spies[engine]) == want and want > 0
+    assert not spies["qstream" if engine == "resident" else "resident"]
+    assert res.converged.all() and not res.failed.any()
+    drv = fista_gram_batch(make_gram_batch(A, b, a1, 0.0), BatchFISTAConfig(**WINDOW_CFG))
+    np.testing.assert_allclose(res.x.numpy(), drv.x.numpy(), rtol=2e-3, atol=2e-4)
+
+
+def test_wide_armijo_takes_the_driver():
+    """Armijo past the resident window: the torch driver under auto, a
+    raise under backend='kernel', as in the reference."""
+    A, b, a1 = _window_inputs(200)
+    cfg = BatchFISTAConfig(max_iter=50, check_every=25, backtracking=True)
+    res = solve_lasso_batch(A, b, a1, 0.0, cfg=cfg, interpret=True)
+    assert isinstance(res.n_iters_total, int)  # the driver's scalar k
+    with pytest.raises(ValueError, match="backend='kernel' unsupported here"):
+        solve_lasso_batch(A, b, a1, 0.0, cfg=cfg, interpret=True, backend="kernel")
+
+
+def test_resident_route_is_the_shared_recipe():
+    """solve_lasso_batch at n = 112 is _solve_resident_routed, and
+    solve_gram_batch on the estimate_l=False Gram with est_l_iters=96 gives
+    the same x; a routed ResidentSolveState resumes bit-exactly."""
+    from fastoptsolver_tpu_torch.batch import api, solve_gram_batch
+    from fastoptsolver_tpu_torch.kernels import ResidentSolveState
+
+    A, b, a1 = _window_inputs(112)
+    cfg = BatchFISTAConfig(**WINDOW_CFG)
+    res = solve_lasso_batch(A, b, a1, 0.0, cfg=cfg, interpret=True)
+    shared = api._solve_resident_routed(A, b, a1, 0.0, cfg, False, None, True)
+    assert torch.equal(res.x, shared.x) and torch.equal(res.iters, shared.iters)
+    gb = make_gram_batch(A, b, a1, 0.0, estimate_l=False)
+    assert bool((gb.L == 1.0).all())
+    got = solve_gram_batch(gb, cfg, interpret=True, est_l_iters=api._RESIDENT_EST_L_ITERS)
+    assert torch.equal(got.x, res.x)
+    half = BatchFISTAConfig(**{**WINDOW_CFG, "max_iter": 50})
+    _, mid = solve_lasso_batch(A, b, a1, 0.0, cfg=half, interpret=True, return_state=True)
+    assert isinstance(mid, ResidentSolveState)
+    resumed = solve_lasso_batch(A, b, a1, 0.0, cfg=cfg, interpret=True, state0=mid)
+    assert torch.equal(resumed.x, res.x) and torch.equal(resumed.iters, res.iters)
+    with pytest.raises(ValueError, match="backend='xla'"):
+        solve_lasso_batch(A, b, a1, 0.0, cfg=cfg, interpret=True, state0=mid, backend="xla")
+
+
+def test_resident_state_on_a_sentinel_gram_needs_est_l():
+    """The reference's guard: a ResidentSolveState resumed on an
+    estimate_l=False Gram without est_l_iters raises (τ would be t_init/1);
+    with est_l_iters it resumes to the routed run's x."""
+    from fastoptsolver_tpu_torch.batch import api, solve_gram_batch
+
+    A, b, a1 = _window_inputs(112)
+    cfg = BatchFISTAConfig(**WINDOW_CFG)
+    gb = make_gram_batch(A, b, a1, 0.0, estimate_l=False)
+    _, mid = solve_gram_batch(gb, BatchFISTAConfig(**{**WINDOW_CFG, "max_iter": 50}),
+                              interpret=True, return_state=True, est_l_iters=96)
+    with pytest.raises(ValueError, match="estimate_l=False sentinel"):
+        solve_gram_batch(gb, cfg, interpret=True, state0=mid)
+    got = solve_gram_batch(gb, cfg, interpret=True, state0=mid, est_l_iters=96)
+    want = api._solve_resident_routed(A, b, a1, 0.0, cfg, False, None, True)
+    assert torch.equal(got.x, want.x)
+
+
+def test_est_l_iters_on_a_fresh_solve():
+    """A fault of the reference (ROADMAP Queue 3): its solve_gram_batch
+    drops est_l_iters on a fresh solve, so a sentinel-L Gram runs with
+    τ = t_init and fails every lane. The port forwards it to the resident
+    engine and refuses it on any other route."""
+    from fastoptsolver_tpu.batch import solve_gram_batch as jax_sgb
+    from fastoptsolver_tpu.batch.fista_gram import GramBatch as JaxGramBatch
+    from fastoptsolver_tpu_torch.batch import solve_gram_batch
+
+    A, b, a1 = _window_inputs(112)
+    gb = make_gram_batch(A, b, a1, 0.0, estimate_l=False)
+    cfg = BatchFISTAConfig(**WINDOW_CFG)
+    gbj = JaxGramBatch(*(jnp.asarray(v.numpy()) for v in (
+        gb.Q, gb.c, gb.btb, gb.alpha1, gb.alpha2, gb.L)))
+    rj = jax_sgb(gbj, JaxConfig(**WINDOW_CFG), interpret=True, est_l_iters=96)
+    assert not np.asarray(rj.converged).any()
+    rt = solve_gram_batch(gb, cfg, interpret=True, est_l_iters=96)
+    assert rt.converged.all()
+    with pytest.raises(ValueError, match="est_l_iters configures the resident"):
+        solve_gram_batch(gb, cfg, est_l_iters=96)  # a CPU tensor: the driver route
