@@ -18,14 +18,22 @@ Phases, one line each (``--`` lines are detail):
    2e-4/atol 2e-5; certified runs at rel_gap_tol=1e-5: ``converged``
    identical, ``iters`` within ``check_every``; Armijo in the decisive regime: x to rtol 1e-4/atol
    1e-5), a 40 + 60 resume bit-exact against 100 straight iterations, and
-   fixed Nesterov at the wide-n shape; the resident kernel at n ∈ {112, 168},
-   B = 300, every mode with L estimated in-kernel (certified runs at
-   rel_gap_tol 1e-5: ``converged`` identical, ``iters`` within a burst, x to
-   rtol 2e-4/atol 2e-5) and Armijo in the decisive regime (x to rtol
-   1e-4/atol 1e-5), against its twin at the kernel's lane grouping; the
-   adaptive entry onto it at n = 96; the Q-streaming kernel at
-   n ∈ {200, 256}, B = 300, one burst per mode (state to rtol 2e-4/atol
-   2e-5) and a certified run; a 40 + 60 resume bit-exact for each engine;
+   fixed Nesterov at the wide-n shape; the resident kernel at
+   n ∈ {112, 128, 168} (groups of 8, 6 and 3 lanes; 128 is the resident
+   path's width), B = 300, every mode with L estimated in-kernel (certified
+   runs at rel_gap_tol 1e-5: ``converged`` identical, ``iters`` within a
+   burst, x to rtol 2e-4/atol 2e-5) and Armijo in the decisive regime (x to
+   rtol 1e-4/atol 1e-5), against its twin at the kernel's lane grouping,
+   once more at n = 128 on a Gram that is not bit-symmetric (both read the
+   upper triangle), and the library's grouping equal to the twin's for every
+   n of the window; the adaptive entry onto it at n = 96; the Q-streaming
+   kernel at n ∈ {200, 256}, B = 300, one burst per mode (state to rtol
+   2e-4/atol 2e-5) and a certified run, then one burst per mode at
+   n ∈ {120, 400, 600, 900}, B = 100 (each of the kernel's other
+   instantiations the router reaches: 8, 32 and 64 features a thread at 32
+   lanes a CTA, and 16 lanes a CTA past n = 868) and a fixed run with
+   ``check_every=0`` at n = 120 (the window's route to this kernel); a
+   40 + 60 resume bit-exact for each engine;
 4. main path — ``solve_lasso_batch`` at the bench configuration (n=5,
    m=1000, float32, fixed Nesterov momentum, check_every=25, rel_gap_tol=1e-6,
    max_iter=1000) on data the ported generator makes on the card; every lane
@@ -55,12 +63,20 @@ Phases, one line each (``--`` lines are detail):
    on the ``estimate_l=False`` Gram must give the same x; then medians of 3:
    the routed call, the kernel solve alone, a one-step launch (the copy-in
    of the Gram and two matvecs), the twin and the kernel on the first 3840
-   lanes (the twin is per-plane torch ops), and the torch driver;
+   lanes (the twin is per-plane torch ops), and the torch driver; the
+   kernel and the twin on those lanes are held as in phase 6 (below);
 8. Q-streaming path — n=256, m=512, B=7552: the einsum build with its power
    loop and one Q-streaming launch per burst, nothing else; at least 75%
    certified (the JAX driver: 82%); then the routed call, the kernel solve
    alone with its Q read rate against a plain ``Q.sum()``, the twin and the
-   kernel on the first 1920 lanes, and the torch driver.
+   kernel on the first 1920 lanes, held as in phase 6, and the torch driver.
+
+Phases 6-8 hold each engine against its twin on the path's own Grams, where
+lanes near the f32 floor certify or not by the gap's last bits, which kernel
+and twin reduce in other orders: some lanes certify on both sides, x agrees
+there to rtol 2e-4/atol 2e-5, and where one side alone certifies, both gaps
+are within 1e-5. ``converged`` and ``iters`` are reported there, not held:
+they are held at B = 300 and rel_gap_tol 1e-5 in phase 3.
 
 Launch counts are set to 0 just before each main-path call (phase 4's solve,
 phase 4's ceiling measurement, phases 6, 7 and 8's solves) and read just
@@ -432,6 +448,32 @@ def compare_certified(rk, rt, label: str, check_every: int = 25) -> float:
     return dx
 
 
+def compare_full_width(rk, rt, label: str) -> float:
+    """A kernel against its twin on a path's own Grams (rel_gap_tol 1e-6):
+    some lanes certify on both sides and x agrees there to rtol 2e-4/atol
+    2e-5; where one side alone certifies, both gaps are within 1e-5 (the f32
+    floor: the gap's last bits decide). ``iters`` on the lanes both certify
+    is reported. Returns max|dx| on those lanes."""
+    import torch
+
+    both = rk.converged & rt.converged
+    split = rk.converged ^ rt.converged
+    split_gap = float(torch.maximum(rk.rel_gap, rt.rel_gap)[split].max()) if bool(
+        split.any()) else 0.0
+    dx = float((rk.x - rt.x)[both].abs().max()) if bool(both.any()) else float("inf")
+    d_it = (rk.iters.long() - rt.iters.long())[both].abs()
+    print(f"-- {label}, kernel vs twin: certified {int(rk.converged.sum())} vs "
+          f"{int(rt.converged.sum())}, max|dx| on lanes both certified {dx:.3e}, max|d_iters| "
+          f"there {int(d_it.max()) if d_it.numel() else 0} (lanes apart by more than a burst "
+          f"{int((d_it > 25).sum())}), lanes certified by one only {int(split.sum())} "
+          f"(max gap there {split_gap:.3e})")
+    require(bool(both.any())
+            and bool(torch.allclose(rk.x[both], rt.x[both], rtol=2e-4, atol=2e-5))
+            and split_gap <= 1e-5,
+            f"{label}: the kernel and its twin disagree")
+    return dx
+
+
 def check_resident(dev) -> float:
     """The resident kernel against its twin at the kernel's grouping, n ∈
     {112, 168}, every mode with L estimated in-kernel, Armijo decisive; a
@@ -445,7 +487,12 @@ def check_resident(dev) -> float:
     from fastoptsolver_tpu_torch.kernels import fista_vmem, gram_build, resident
 
     worst = 0.0
-    for n in (112, 168):
+    groups = {n: resident.kernel_group(n, dev) for n in range(1, resident.MAX_N + 1)}
+    off = {n: g for n, g in groups.items() if g != resident.group_lanes(n)}
+    print(f"-- resident grouping from the card at n = 112, 128, 168: "
+          f"{[groups[n] for n in (112, 128, 168)]}")
+    require(not off, f"the library groups other lanes than group_lanes at {off}")
+    for n in (112, 128, 168):
         for name, (kw, a2) in {**WIDE_MODES, "armijo": (dict(backtracking=True), 0.0)}.items():
             armijo = name == "armijo"
             gb = wide_gram(n, 300, a2, seed=30 + n, dev=dev, decisive=armijo)
@@ -474,6 +521,17 @@ def check_resident(dev) -> float:
             resumed = resident.fista_gram_resident(gb, full, est_l_iters=est, state0=mid)
             require(bool(torch.equal(resumed.x, straight.x)),
                     f"{label}: resume 40 + 60 is not bit-exact")
+    # a Gram that is not bit-symmetric: kernel and twin read its upper triangle
+    gb = wide_gram(128, 300, 0.0, seed=45, dev=dev)
+    g = torch.Generator(device=dev).manual_seed(46)
+    Q = (gb.Q * (1.0 + 1e-3 * torch.rand(gb.Q.shape, generator=g, device=dev))).contiguous()
+    require(not bool(torch.equal(Q, Q.transpose(0, 1))), "the perturbed Gram is symmetric")
+    gb = dataclasses.replace(gb, Q=Q)
+    cfg = BatchFISTAConfig(max_iter=1000, check_every=25, rel_gap_tol=1e-5)
+    rk = resident.fista_gram_resident(gb, cfg, est_l_iters=96)
+    torch.cuda.synchronize()
+    rt = resident.fista_gram_resident_reference(gb, cfg, est_l_iters=96)
+    worst = max(worst, compare_certified(rk, rt, "resident n=128 asymmetric Gram"))
     A, b, a1 = small_problem(96, 192, 300, seed=41, device=dev)
     gb = gram_build.make_gram_batch_fused(A, b, a1, 0.0)
     for name in ("restart", "greedy"):
@@ -483,42 +541,71 @@ def check_resident(dev) -> float:
         torch.cuda.synchronize()
         rt = resident.fista_gram_resident_reference(gb, cfg)
         worst = max(worst, compare_certified(rk, rt, f"adaptive entry n=96 {name}"))
-    print(f"-- resident resume 40 + 60 == 100: bit-exact (every mode, n = 112 and 168); "
+    print(f"-- resident resume 40 + 60 == 100: bit-exact (every mode, n = 112, 128, 168); "
           f"launches so far {resident.LAUNCHES}")
     return worst
 
 
+def qstream_burst_vs_twin(gb, kw, label: str) -> float:
+    """One Q-streaming burst of 25 from a non-trivial state, with the gap,
+    against its twin: every output to rtol 2e-4/atol 2e-5. Returns max|dX|."""
+    import torch
+
+    from fastoptsolver_tpu_torch.batch import BatchFISTAConfig
+    from fastoptsolver_tpu_torch.kernels import fista_vmem, qstream
+
+    dev = gb.c.device
+    cfg = BatchFISTAConfig(max_iter=100, check_every=25, **kw)
+    rows, X, Y, t, ps = burst_inputs(gb, cfg)
+    static = dict(n_steps=25, with_gap=True,
+                  restart_threshold=cfg.restart_threshold if cfg.adaptive_restart else None,
+                  greedy=(cfg.greedy_S, cfg.greedy_shrink) if cfg.momentum == "greedy" else None)
+    args = (fista_vmem._beta_table(100, cfg).to(dev), 25, gb.Q, gb.c, rows["tau"],
+            rows["thr"], rows["a2"], rows["a1"], rows["btb"], X, Y, t, ps,
+            rows["taumin"], rows["tau"])
+    got = qstream._launch_qstream(*args, **static)
+    torch.cuda.synchronize()
+    want = qstream._qstream_burst_reference(*args, **static)
+    for name, g, w in zip(("X", "Y", "t", "ps", "tau", "gap"), got, want):
+        require(torch.allclose(g, w, rtol=2e-4, atol=2e-5),
+                f"{label}: {name} differs from the twin by {float((g - w).abs().max()):.3e}")
+    return float((got[0] - want[0]).abs().max())
+
+
+def random_gram(n: int, B: int, a2: float, seed: int, dev):
+    """A GramBatch of i.i.d. Gaussian instances (m = 2n, α₁ a tenth of
+    ‖Aᵀb‖∞) made on the card, for widths where numpy would be slow."""
+    import torch
+
+    from fastoptsolver_tpu_torch.batch.fista_gram import make_gram_batch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    A = torch.randn((B, 2 * n, n), generator=g, device=dev)
+    b = torch.randn((B, 2 * n), generator=g, device=dev)
+    a1 = 0.1 * torch.einsum("bmn,bm->bn", A, b).abs().amax(1)
+    gb = make_gram_batch(A, b, a1, a2)
+    return type(gb)(*(v.contiguous() for v in (gb.Q, gb.c, gb.btb, gb.alpha1,
+                                                gb.alpha2, gb.L)))
+
+
 def check_qstream(dev) -> float:
     """The Q-streaming kernel against its twin at n ∈ {200, 256}: one burst
-    per mode, a certified run, a 40 + 60 resume bit-exact. Returns the
+    per mode, a certified run, a 40 + 60 resume bit-exact; then one burst per
+    mode at n ∈ {120, 400, 600, 900} (8, 32, 64 features a thread, and 16
+    lanes a CTA) and a fixed ``check_every=0`` run at n = 120. Returns the
     largest |dx|."""
     import dataclasses
 
     import torch
 
     from fastoptsolver_tpu_torch.batch import BatchFISTAConfig
-    from fastoptsolver_tpu_torch.kernels import fista_vmem, qstream
+    from fastoptsolver_tpu_torch.kernels import fista_vmem, qstream, resident
 
     worst = 0.0
     for n in (200, 256):
         for name, (kw, a2) in WIDE_MODES.items():
             gb = wide_gram(n, 300, a2, seed=50 + n, dev=dev)
-            cfg = BatchFISTAConfig(max_iter=100, check_every=25, **kw)
-            rows, X, Y, t, ps = burst_inputs(gb, cfg)
-            static = dict(n_steps=25, with_gap=True,
-                          restart_threshold=cfg.restart_threshold if cfg.adaptive_restart else None,
-                          greedy=(cfg.greedy_S, cfg.greedy_shrink) if cfg.momentum == "greedy" else None)
-            args = (fista_vmem._beta_table(100, cfg).to(dev), 25, gb.Q, gb.c, rows["tau"],
-                    rows["thr"], rows["a2"], rows["a1"], rows["btb"], X, Y, t, ps,
-                    rows["taumin"], rows["tau"])
-            got = qstream._launch_qstream(*args, **static)
-            torch.cuda.synchronize()
-            want = qstream._qstream_burst_reference(*args, **static)
-            for label, g, w in zip(("X", "Y", "t", "ps", "tau", "gap"), got, want):
-                require(torch.allclose(g, w, rtol=2e-4, atol=2e-5),
-                        f"qstream n={n} {name}: {label} differs from the twin by "
-                        f"{float((g - w).abs().max()):.3e}")
-            worst = max(worst, float((got[0] - want[0]).abs().max()))
+            worst = max(worst, qstream_burst_vs_twin(gb, kw, f"qstream n={n} {name}"))
             cert = BatchFISTAConfig(max_iter=1000, check_every=25, rel_gap_tol=1e-5, **kw)
             rk = fista_vmem.fista_gram_vmem(gb, cert)
             torch.cuda.synchronize()
@@ -531,8 +618,26 @@ def check_qstream(dev) -> float:
             require(bool(torch.equal(fista_vmem.fista_gram_vmem(gb, full, state0=mid).x,
                                      straight.x)),
                     f"qstream n={n} {name}: resume 40 + 60 is not bit-exact")
+    for n in (120, 400, 600, 900):
+        for name, (kw, a2) in WIDE_MODES.items():
+            gb = random_gram(n, 100, a2, seed=60 + n, dev=dev)
+            worst = max(worst, qstream_burst_vs_twin(gb, kw, f"qstream n={n} {name}"))
+        if n == 120:  # check_every=0 in the resident window streams Q
+            fixed = BatchFISTAConfig(max_iter=100, check_every=0)
+            before = (qstream.LAUNCHES, resident.LAUNCHES)
+            rk = fista_vmem.fista_gram_vmem(gb, fixed)
+            torch.cuda.synchronize()
+            launched = (qstream.LAUNCHES - before[0], resident.LAUNCHES - before[1])
+            rt = fista_vmem.fista_gram_vmem_reference(gb, fixed)
+            dx = float((rk.x - rt.x).abs().max())
+            print(f"-- qstream n=120 check_every=0 nesterov: launches (qstream, resident) "
+                  f"{launched}, max|dx|={dx:.3e}")
+            require(launched[0] > 0 and launched[1] == 0
+                    and bool(torch.allclose(rk.x, rt.x, rtol=2e-4, atol=2e-5)),
+                    "qstream n=120 check_every=0: not the qstream kernel, or off its twin")
+            worst = max(worst, dx)
     print(f"-- qstream resume 40 + 60 == 100: bit-exact (every mode, n = 200 and 256); "
-          f"launches so far {qstream.LAUNCHES}")
+          f"bursts at n = 120, 400, 600, 900 match; launches so far {qstream.LAUNCHES}")
     return worst
 
 
@@ -634,11 +739,7 @@ def resident_path(dev, cfg, mods) -> dict:
     k_small_ms, _, rk = med3(lambda: resident.fista_gram_resident(small, cfg, est_l_iters=96))
     plain_ms, _, rt = med3(lambda: resident.fista_gram_resident_reference(
         small, cfg, est_l_iters=96))
-    both = rk.converged & rt.converged
-    dx = float((rk.x - rt.x)[both].abs().max())
-    print(f"-- resident kernel vs twin on the first 3840 lanes: certified "
-          f"{int(rk.converged.sum())} vs {int(rt.converged.sum())}, max|dx| on lanes both "
-          f"certified {dx:.3e}")
+    dx = compare_full_width(rk, rt, "resident path, the first 3840 lanes")
     gen = torch.Generator(device=dev).manual_seed(0)
     v0 = torch.randn((n, B), generator=gen, device=dev)
     gbL = type(gb)(gb.Q, gb.c, gb.btb, gb.alpha1, gb.alpha2,
@@ -699,11 +800,7 @@ def qstream_path(dev, cfg, mods) -> dict:
     small = lanes(gb, 1920)
     k_small_ms, _, rk = med3(lambda: fista_vmem.fista_gram_vmem(small, cfg))
     plain_ms, _, rt = med3(lambda: fista_vmem.fista_gram_vmem_reference(small, cfg))
-    both = rk.converged & rt.converged
-    dx = float((rk.x - rt.x)[both].abs().max())
-    print(f"-- qstream kernel vs twin on the first 1920 lanes: certified "
-          f"{int(rk.converged.sum())} vs {int(rt.converged.sum())}, max|dx| on lanes both "
-          f"certified {dx:.3e}")
+    dx = compare_full_width(rk, rt, "qstream path, the first 1920 lanes")
     driver_ms, _, res_d = med3(lambda: fista_gram_batch(gb, cfg))
     print(f"[8 times] routed solve_lasso_batch {routed_ms:.3f} ms ({chk['certified'] / routed_ms * 1e3:.4g} "
           f"certified instances/s) | qstream solve {kernel_ms:.3f} ms ({iters // cfg.check_every} "
@@ -956,21 +1053,7 @@ def main() -> int:
         return X
     launches_ms, _, _ = med3(bursts_only)
     del rows, Xb, Yb
-    # Lanes near the f32 floor certify or not by the gap's last bits, which
-    # the kernel and the twin reduce in other orders: held are x on the lanes
-    # both certify, and a gap within 1e-5 on both sides where they disagree.
-    conv_k, conv_t = int(res_k.converged.sum()), int(res_t.converged.sum())
-    both = res_k.converged & res_t.converged
-    split = res_k.converged ^ res_t.converged
-    split_gap = float(torch.maximum(res_k.rel_gap, res_t.rel_gap)[split].max()) if bool(
-        split.any()) else 0.0
-    print(f"-- burst wide-n certified run, kernel vs twin: certified {conv_k} vs "
-          f"{conv_t}, max|dx| on lanes both certified "
-          f"{float((res_k.x - res_t.x)[both].abs().max()):.3e}, lanes certified by one "
-          f"only {int(split.sum())} (max gap there {split_gap:.3e})")
-    require(bool(torch.allclose(res_k.x[both], res_t.x[both], rtol=2e-4, atol=2e-5))
-            and split_gap <= 1e-5,
-            "burst kernel and twin disagree on the wide-n certified run")
+    compare_full_width(res_k, res_t, "burst wide-n certified run")
     del res_k, res_t
     wide_ms, wide_trials, _ = med3(lambda: solve_lasso_batch(Aw, bw, a1w, 0.0, cfg=cfg,
                                                              feature_major=True))

@@ -40,6 +40,8 @@ not ported yet, and ``mesh=`` is not ported.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from .fista_gram import (
@@ -213,8 +215,8 @@ def _build_gram_routed(A, b, alpha1, alpha2, feature_major, key, interpret,
     dispatch: the build kernels (their twin on a CPU tensor) inside their
     window (n ≤ 118) on the kernel route, otherwise the torch precompute
     ``make_gram_batch`` with its power iteration started from ``key``;
-    ``estimate_l=False`` skips that power iteration (L = 1 sentinel), for
-    the resident engine's in-kernel estimate."""
+    ``estimate_l=False`` skips the power iteration of either build (L = 1
+    sentinel), for the resident engine's in-kernel estimate."""
     n = A.shape[0] if feature_major else A.shape[-1]
     fused_build = False
     if use_kernel:
@@ -229,8 +231,10 @@ def _build_gram_routed(A, b, alpha1, alpha2, feature_major, key, interpret,
         from ..kernels.gram_build import make_gram_batch_fused
 
         A_fm, b_fm = _feature_major(A, b, feature_major)
-        return make_gram_batch_fused(A_fm.contiguous(), b_fm.contiguous(),
-                                     alpha1, alpha2, interpret=interpret)
+        gb = make_gram_batch_fused(A_fm.contiguous(), b_fm.contiguous(),
+                                   alpha1, alpha2, interpret=interpret,
+                                   pl_iters=None if estimate_l else 0)
+        return gb if estimate_l else dataclasses.replace(gb, L=torch.ones_like(gb.L))
     A_im = A.permute(2, 1, 0) if feature_major else A
     b_im = b.T if feature_major else b
     return make_gram_batch(A_im, b_im, alpha1, alpha2, generator=key,
@@ -244,8 +248,8 @@ def _solve_resident_routed(A, b, alpha1, alpha2, cfg, feature_major, key,
     without the power loop, then the resident engine with L estimated
     in-kernel against the Gram it holds (``_RESIDENT_EST_L_ITERS`` steps).
     Past n = 118 the build is the einsum precompute, as in the reference;
-    at 104 < n ≤ 118 the port's build kernels take it, and the L their
-    power steps estimate goes unused."""
+    at 104 < n ≤ 118 the port's build kernels take it, without their power
+    steps."""
     from ..kernels.resident import fista_gram_resident
 
     gb = _build_gram_routed(A, b, alpha1, alpha2, feature_major, key,

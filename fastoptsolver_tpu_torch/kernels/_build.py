@@ -74,6 +74,8 @@ _SIGNATURES = {
     # pso, gap, n, B, n_steps, k0, mode, with_gap, restart_threshold,
     # greedy_S, greedy_shrink, stream
     "qstream_burst": [_vp] * 18 + [_i, _ll, _i, _i, _i, _i, _f, _f, _f, _vp],
+    # n: the resident kernel's lanes per CTA on the current device
+    "resident_group": [_i],
     "fos_cuda_error_string": [_i],
 }
 _RESTYPES = {"fos_cuda_error_string": ctypes.c_char_p}  # the rest return int

@@ -300,9 +300,11 @@ int launch_j(const Params& p, cudaStream_t stream) {
   return launch<64, 32, 16>(p, stream);
 }
 
-// Lanes per CTA at feature count n: 32 while X and Y of 32 lanes fit a block's shared
-// memory, else 16.
-int lanes_per_cta(int n) { return smem_bytes<32, 16>(n) <= 232448 ? 32 : 16; }
+// Lanes per CTA at feature count n: 32 while X and Y of 32 lanes fit the card's opt-in
+// shared memory per block (227 KB on the H100: n <= 868), else 16.
+int lanes_per_cta(int n, int optin) {
+  return smem_bytes<32, 16>(n) <= static_cast<size_t>(optin) ? 32 : 16;
+}
 
 }  // namespace
 
@@ -323,13 +325,13 @@ extern "C" int qstream_burst(const float* Q, const float* c, const float* tau, c
   if (n < 1 || n > kMaxN || B < 1 || n_steps < 0 || mode < kFixed || mode > kGreedy ||
       (mode == kGreedy && !taumin))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int lt = lanes_per_cta(n);
-  const size_t smem = lt == 32 ? smem_bytes<32, 16>(n) : smem_bytes<16, 32>(n);
   int dev = 0, optin = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const int lt = lanes_per_cta(n, optin);
+  const size_t smem = lt == 32 ? smem_bytes<32, 16>(n) : smem_bytes<16, 32>(n);
   if (smem > static_cast<size_t>(optin)) return static_cast<int>(cudaErrorInvalidValue);
   const Params p{Q,  c,   tau, thr, a2,  a1,  btb, X,       Y,       t,
                  ps, taumin, betas, Xo, Yo, to, pso, gap, n, B, n_steps, k0, mode,

@@ -9,8 +9,9 @@
 // power_lambda_max, gram_rel_gap); the plain twin is
 // fastoptsolver_tpu_torch/kernels/resident.py:fista_gram_resident_reference.
 //
-// Per CTA, G lanes (a group; resident.group_lanes): the upper triangles of their Grams are
-// copied into shared memory once (n(n+1)/2 floats a lane: 33 KB at n = 128, 56.8 KB at
+// Per CTA, G lanes (a group; resident_group below, whose rule resident.group_lanes repeats
+// for the twin on the CPU): the upper triangles of their Grams are copied into shared
+// memory once (n(n+1)/2 floats a lane: 33 KB at n = 128, 56.8 KB at
 // n = 168, so G = 6 and 3 there), then optionally est_l_iters power steps from c estimate
 // L (L = 1.02*lambda, 1 where lambda = 0, + a2; tau = t_init/L), then the certified loop
 // runs: bursts of `chunk` FISTA steps in any mode (fixed table beta at the absolute
@@ -28,7 +29,10 @@
 // add: this file is built with --fmad=false, as the twin's make_matvec rounds), read from
 // the triangle: entry (k, i) for k <= i, whose index advances by n-1-k (consecutive
 // threads read consecutive words), then (i, k), which advances by 1 (threads of a warp read
-// words n-i-1 apart, so these reads meet bank conflicts).
+// words n-i-1 apart, so these reads meet bank conflicts). The upper triangle is
+// authoritative: Q[k][i] for k > i is read as Q[i][k], where the reference reads the full
+// Q. The two agree on a bit-symmetric Gram, which the port's builds give; the twin reads
+// the same triangle, so kernel and twin agree on any Q.
 //
 // Bound: the matvec's shared-memory reads. Each step reads n^2 words a lane from shared
 // memory (5.0e8 words a step at n = 128, B = 30464), about 65 us at one 32-word wavefront a
@@ -393,7 +397,29 @@ size_t smem_bytes(int n, int G) {
          G * sizeof(float);
 }
 
+int optin_smem(int* optin) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return static_cast<int>(err);
+}
+
 }  // namespace
+
+// The kernel's group at feature count n on the current device: as many lanes as the card's
+// opt-in shared memory per block and 1024 threads (round_up(n, 32) per lane) hold, at most
+// kMaxGroup. 0 for n outside 1..168, minus a cudaError_t if the device query fails.
+extern "C" int resident_group(int n) {
+  if (n < 1 || n > kMaxN) return 0;
+  int optin = 0;
+  const int err = optin_smem(&optin);
+  if (err) return -err;
+  const int nt = (n + 31) / 32 * 32;
+  const size_t by_smem = static_cast<size_t>(optin) / smem_bytes(n, 1);
+  const int by_threads = kMaxThreads / nt < kMaxGroup ? kMaxThreads / nt : kMaxGroup;
+  return by_smem < static_cast<size_t>(by_threads) ? static_cast<int>(by_smem) : by_threads;
+}
 
 // The whole certified solve. mode: 0 fixed (table beta), 1 nesterov + adaptive restart,
 // 2 greedy; armijo != 0 adds the per-lane Armijo search (mode 0 or 1). Rows tau, thr, a2,
@@ -421,10 +447,8 @@ extern "C" int resident_solve(const float* Q, const float* c, const float* tau, 
       (X0 && !(Y0 && t0 && ps0 && tv0 && k0 && done0 && iters0 && gap0)))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(n, G);
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  int optin = 0;
+  cudaError_t err = static_cast<cudaError_t>(optin_smem(&optin));
   if (err != cudaSuccess) return static_cast<int>(err);
   if (smem > static_cast<size_t>(optin)) return static_cast<int>(cudaErrorInvalidValue);
   err = cudaFuncSetAttribute(resident_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

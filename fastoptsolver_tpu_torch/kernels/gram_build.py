@@ -81,8 +81,8 @@ def gram_build_reference(A: torch.Tensor, b: torch.Tensor, pl_iters: int):
 
 
 def _launch(A: torch.Tensor, b: torch.Tensor, pl_iters: int):
-    """Launch ``gram_pairs`` then ``gram_power`` on the current stream; the
-    same outputs as :func:`gram_build_reference`. Raises on any input the
+    """Launch ``gram_pairs`` then, unless ``pl_iters`` is 0, ``gram_power``
+    on the current stream; the same outputs as :func:`gram_build_reference`. Raises on any input the
     kernels do not take and on a launch error."""
     global LAUNCHES
     n, m, B = A.shape
@@ -104,6 +104,9 @@ def _launch(A: torch.Tensor, b: torch.Tensor, pl_iters: int):
                              c.data_ptr(), btb.data_ptr(), n, m, B, stream)
         _build.check(err, "gram_pairs")
         LAUNCHES += 1
+        if pl_iters == 0:  # no power steps: λ = 0, as the twin's
+            lam.zero_()
+            return Q, c, btb, lam
         err = lib.gram_power(Q.data_ptr(), c.data_ptr(), lam.data_ptr(), n, B,
                              pl_iters, stream)
         _build.check(err, "gram_power")

@@ -23,6 +23,10 @@ Differences from the reference, forced by the card:
 - The reference pads lanes to a whole tile; here the last group is ragged
   and its missing lanes count as certified, as the reference's zero lanes
   certify at once.
+- The kernel holds only the upper triangle of each Gram, so ``Q[k][i]`` for
+  k > i is read as ``Q[i][k]``; the reference reads the full Q. They agree
+  on a bit-symmetric Gram (the port's builds give one); the twin reads the
+  same triangle, so kernel and twin agree on any Q.
 
 :func:`auto_b_tile_resident` keeps the reference's plan (128 lanes, raising
 past n_pad = 168) so that ``fista_vmem.plan_gram_solve`` picks the same
@@ -53,9 +57,11 @@ from .fista_vmem import (
 
 # The window of the engine: the reference's single-buffered VMEM bound.
 MAX_N = 168
-# Shared memory a Hopper block may opt into (H100: 227 KB), threads per block,
-# the largest group the kernel takes, and the per-lane partial sums of its
-# reductions (csrc/resident.cu kMaxGroup, kSums).
+# Shared memory an H100 block may opt into (227 KB): the grouping of the twin
+# on a CPU tensor. On a CUDA tensor the library asks the card
+# (csrc/resident.cu resident_group). Threads per block, the largest group the
+# kernel takes, and the per-lane partial sums of its reductions
+# (csrc/resident.cu kMaxGroup, kSums).
 SMEM_PER_BLOCK = 232448
 MAX_THREADS = 1024
 MAX_GROUP = 32
@@ -92,13 +98,29 @@ def _smem_per_lane(n: int) -> int:
 
 
 def group_lanes(n: int) -> int:
-    """Lanes per CTA of the kernel at feature count n: as many as 227 KB of
-    shared memory and 1024 threads (``round_up(n, 32)`` per lane) hold, at
-    most 32 — 6 at n = 128, 3 at n = 168. The twin's default grouping."""
+    """Lanes per CTA of the kernel on an H100 at feature count n: as many as
+    227 KB of shared memory and 1024 threads (``round_up(n, 32)`` per lane)
+    hold, at most 32 — 6 at n = 128, 3 at n = 168. The twin's default
+    grouping on a CPU tensor; the card's own rule is :func:`kernel_group`."""
     if not 1 <= n <= MAX_N:
         raise ValueError(f"the resident kernel takes n = 1..{MAX_N}, got n={n}")
     return min(MAX_GROUP, MAX_THREADS // _round_up(n, 32),
                SMEM_PER_BLOCK // _smem_per_lane(n))
+
+
+def kernel_group(n: int, device: torch.device) -> int:
+    """The grouping of a solve on ``device``: on a CUDA device the kernel's
+    own, which the library derives from the card's opt-in shared memory
+    (``resident_group``); elsewhere :func:`group_lanes`."""
+    if device.type != "cuda":
+        return group_lanes(n)
+    if not 1 <= n <= MAX_N:
+        raise ValueError(f"the resident kernel takes n = 1..{MAX_N}, got n={n}")
+    with torch.cuda.device(device):
+        g = _build.library().resident_group(n)
+    if g <= 0:
+        _build.check(-g, "resident_group")
+    return g
 
 
 class ResidentSolveState(NamedTuple):
@@ -130,12 +152,22 @@ def _estimate_rows(matvec, c, a1, a2, est_l_iters, l_safety, t_init):
     return tau, tau * a1, 1.0 / L
 
 
+def upper_symmetric(Q: torch.Tensor) -> torch.Tensor:
+    """Q (n, n, B) with each entry below the diagonal replaced by its mirror
+    above it: the Gram the kernel reads from its upper triangles. Equal to Q,
+    bit for bit, when Q is symmetric."""
+    n = Q.shape[0]
+    upper = torch.ones((n, n), dtype=torch.bool, device=Q.device).triu()
+    return torch.where(upper[:, :, None], Q, Q.transpose(0, 1)).contiguous()
+
+
 def _plain_run(betas, gb, tau, thr, taumin, state0, *, b_tile, chunk, k_end,
                tol, restart_threshold, greedy, armijo, est_l_iters, l_safety,
                t_init):
-    """The twin's arithmetic: the 9-tuple of ``certified_solve_body``."""
+    """The twin's arithmetic: the 9-tuple of ``certified_solve_body``,
+    against the upper triangles the kernel holds."""
     n = gb.c.shape[0]
-    matvec = make_matvec(gb.Q, n)
+    matvec = make_matvec(upper_symmetric(gb.Q), n)
     a1, a2, btb = gb.alpha1[None, :], gb.alpha2[None, :], gb.btb[None, :]
     if est_l_iters is not None:
         tau, thr, taumin = _estimate_rows(matvec, gb.c, a1, a2, est_l_iters,
@@ -220,7 +252,7 @@ def _solve(run, gb: GramBatch, cfg: BatchFISTAConfig, state0, return_state,
             "wider problems"
         )
     if b_tile is None:
-        b_tile = group_lanes(n)
+        b_tile = kernel_group(n, gb.c.device)
     # contiguous fields: the twin's sums follow the layout, and a resumed run
     # must add in the order of the run it continues
     gb = GramBatch(*(v.contiguous() for v in (gb.Q, gb.c, gb.btb, gb.alpha1,
@@ -271,8 +303,9 @@ def fista_gram_resident_reference(gb: GramBatch, cfg: BatchFISTAConfig = _DEFAUL
                                   l_safety: float = 1.02,
                                   b_tile: int | None = None):
     """The plain twin of :func:`fista_gram_resident` on a tensor of any
-    device, with ``b_tile`` lanes per group (default: the kernel's,
-    :func:`group_lanes`; the reference groups 128)."""
+    device, with ``b_tile`` lanes per group (default: the kernel's on that
+    device, :func:`kernel_group`; the reference groups 128). It reads each
+    Gram's upper triangle, as the kernel does."""
     return _solve(_plain_run, gb, cfg, state0, return_state, est_l_iters,
                   l_safety, b_tile)
 
@@ -290,7 +323,9 @@ def fista_gram_resident(
     solve: one launch of the resident kernel on a CUDA tensor, the plain
     twin on a CPU tensor (``interpret=True`` asks for the twin and raises
     with a CUDA tensor). Every momentum mode runs, Armijo included;
-    ``check_every > 0`` is required.
+    ``check_every > 0`` is required. The upper triangle of each Gram is
+    authoritative (``Q[k][i]``, k > i, is read as ``Q[i][k]``); the
+    reference reads the full Q, so the two agree on a symmetric Gram.
 
     ``est_l_iters``: estimate L in-kernel (power steps from c, L = 1.02·λ +
     α₂, τ = t_init/L) and ignore ``gb.L``, so the Gram may be built with

@@ -91,12 +91,13 @@ def test_router_takes_the_kernel_on_cuda(cuda):
     assert fista_vmem.LAUNCHES == bursts + int(res.n_iters_total) // 25
     assert res.converged.all()
     # and past the burst window: n = 110 to one resident launch (the build
-    # kernels take n <= 118), Armijo at n = 200 to the torch driver
+    # kernels take n <= 118; L is estimated in-kernel, so gram_power does not
+    # launch), Armijo at n = 200 to the torch driver
     A, b, a1 = _problem(110, 220, 64, seed=5, device=cuda)
     launches, bursts = resident.LAUNCHES, fista_vmem.LAUNCHES
     res = solve_lasso_batch(A, b, a1, feature_major=True)
     assert resident.LAUNCHES == launches + 1 and res.x.is_cuda
-    assert gram_build.LAUNCHES == builds + 4 and fista_vmem.LAUNCHES == bursts
+    assert gram_build.LAUNCHES == builds + 3 and fista_vmem.LAUNCHES == bursts
     A, b, a1 = _problem(200, 400, 64, seed=5, device=cuda)
     res = solve_lasso_batch(A, b, a1, cfg=BatchFISTAConfig(max_iter=50, check_every=25,
                                                            backtracking=True),
@@ -117,6 +118,18 @@ def test_build_kernels_match_twin(cuda, shape):
         assert bool(((g - w).abs() <= 1e-5 * scale).all())
     torch.testing.assert_close(got[3], want[3], rtol=1e-5, atol=0)
     assert torch.equal(got[0], got[0].transpose(0, 1))
+
+
+def test_build_without_power_steps_launches_once(cuda):
+    """pl_iters=0 (the resident route's build) skips gram_power: λ = 0, as
+    the twin's, and the Gram as with the power steps."""
+    A, b, _ = _problem(20, 70, 200, seed=6, device=cuda)
+    before = gram_build.LAUNCHES
+    got = gram_build._launch(A, b, 0)
+    torch.cuda.synchronize()
+    assert gram_build.LAUNCHES == before + 1
+    assert not bool(got[3].any())
+    assert torch.equal(got[0], gram_build._launch(A, b, 96)[0])
 
 
 BURST_MODES = {
@@ -207,7 +220,7 @@ RESIDENT_MODES = dict(BURST_MODES, armijo=(dict(backtracking=True), 0.0))
 
 
 @pytest.mark.parametrize("mode", list(RESIDENT_MODES))
-@pytest.mark.parametrize("n", [112, 168])
+@pytest.mark.parametrize("n", [112, 128, 168])
 def test_resident_kernel_matches_twin(cuda, n, mode):
     """One launch, L estimated in-kernel, against the twin at the kernel's
     grouping: certified runs (rel_gap_tol 1e-5) converged identical, iters
@@ -238,6 +251,29 @@ def test_resident_kernel_matches_twin(cuda, n, mode):
                                                     state0=mid).x, straight.x)
 
 
+def test_resident_group_is_the_twins(cuda):
+    """The library's grouping (from the card's opt-in shared memory) equals
+    group_lanes, the twin's rule on the CPU, across the window."""
+    got = [resident.kernel_group(n, cuda) for n in range(1, resident.MAX_N + 1)]
+    assert got == [resident.group_lanes(n) for n in range(1, resident.MAX_N + 1)]
+
+
+def test_resident_kernel_reads_the_upper_triangle(cuda):
+    """On a Gram that is not bit-symmetric, kernel and twin read the same
+    upper triangle and agree as on a symmetric one."""
+    gb = _wide_gram(128, 0.0, cuda, seed=12)
+    g = torch.Generator(device=cuda).manual_seed(13)
+    Q = (gb.Q * (1.0 + 1e-3 * torch.rand(gb.Q.shape, generator=g, device=cuda))).contiguous()
+    assert not torch.equal(Q, Q.transpose(0, 1))
+    gb = dataclasses.replace(gb, Q=Q)
+    cfg = BatchFISTAConfig(max_iter=1000, check_every=25, rel_gap_tol=1e-5)
+    got = resident.fista_gram_resident(gb, cfg, est_l_iters=96)
+    want = resident.fista_gram_resident_reference(gb, cfg, est_l_iters=96)
+    assert torch.equal(got.converged, want.converged) and got.converged.all()
+    assert int((got.iters - want.iters).abs().max()) <= 25
+    torch.testing.assert_close(got.x, want.x, rtol=2e-4, atol=2e-5)
+
+
 @pytest.mark.parametrize("mode", ["restart", "greedy"])
 def test_adaptive_entry_matches_twin(cuda, mode):
     kw, a2 = BURST_MODES[mode]
@@ -254,14 +290,9 @@ def test_adaptive_entry_matches_twin(cuda, mode):
     torch.testing.assert_close(got.x.cpu(), want.x, rtol=2e-4, atol=2e-5)
 
 
-@pytest.mark.parametrize("mode", list(BURST_MODES))
-@pytest.mark.parametrize("n", [200, 256])
-def test_qstream_kernel_matches_twin(cuda, n, mode):
-    """One burst of 25 from a non-trivial state, every output to rtol
-    2e-4/atol 2e-5; a certified run (rel_gap_tol 1e-5) converged identical
-    and iters within a burst; 40 + 60 resumes bit-exactly."""
-    kw, a2 = BURST_MODES[mode]
-    gb = _wide_gram(n, a2, cuda)
+def _qstream_one_burst(gb, kw, cuda):
+    """One burst of 25 from a non-trivial state, with the gap: every output
+    of the kernel to rtol 2e-4/atol 2e-5 of the twin's."""
     cfg = BatchFISTAConfig(max_iter=100, check_every=25, **kw)
     greedy = cfg.momentum == "greedy"
     tau = ((cfg.greedy_xi if greedy else 1.0) / gb.L)[None, :].contiguous()
@@ -283,6 +314,17 @@ def test_qstream_kernel_matches_twin(cuda, n, mode):
     want = qstream._qstream_burst_reference(*args, **static)
     for gv, wv in zip(got, want):
         torch.testing.assert_close(gv, wv, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.parametrize("mode", list(BURST_MODES))
+@pytest.mark.parametrize("n", [200, 256])
+def test_qstream_kernel_matches_twin(cuda, n, mode):
+    """One burst (:func:`_qstream_one_burst`); a certified run (rel_gap_tol
+    1e-5) converged identical and iters within a burst; 40 + 60 resumes
+    bit-exactly."""
+    kw, a2 = BURST_MODES[mode]
+    gb = _wide_gram(n, a2, cuda)
+    _qstream_one_burst(gb, kw, cuda)
     cert = BatchFISTAConfig(max_iter=1000, check_every=25, rel_gap_tol=1e-5, **kw)
     got = fista_vmem.fista_gram_vmem(gb, cert)
     want = fista_vmem.fista_gram_vmem_reference(gb, cert)
@@ -293,3 +335,31 @@ def test_qstream_kernel_matches_twin(cuda, n, mode):
     _, mid = fista_vmem.fista_gram_vmem(gb, dataclasses.replace(full, max_iter=40),
                                         return_state=True)
     assert torch.equal(fista_vmem.fista_gram_vmem(gb, full, state0=mid).x, straight.x)
+
+
+def _random_gram(n, a2, cuda, B=100, seed=14):
+    """i.i.d. Gaussian instances (m = 2n) made on the card."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    A = torch.randn((B, 2 * n, n), generator=g, device=cuda)
+    b = torch.randn((B, 2 * n), generator=g, device=cuda)
+    a1 = 0.1 * torch.einsum("bmn,bm->bn", A, b).abs().amax(1)
+    gb = make_gram_batch(A, b, a1, a2)
+    return dataclasses.replace(gb, Q=gb.Q.contiguous(), c=gb.c.contiguous())
+
+
+@pytest.mark.parametrize("mode", list(BURST_MODES))
+@pytest.mark.parametrize("n", [120, 400, 600, 900])
+def test_qstream_kernel_matches_twin_at_each_instantiation(cuda, n, mode):
+    """One burst at the kernel's other instantiations the router reaches: 8,
+    32 and 64 features a thread at 32 lanes a CTA, and 16 lanes a CTA past
+    n = 868 (B = 100, ragged). At n = 120, check_every=0 streams Q."""
+    kw, a2 = BURST_MODES[mode]
+    gb = _random_gram(n, a2, cuda)
+    _qstream_one_burst(gb, kw, cuda)
+    if n == 120:
+        fixed = BatchFISTAConfig(max_iter=100, check_every=0, **kw)
+        before = (qstream.LAUNCHES, resident.LAUNCHES)
+        got = fista_vmem.fista_gram_vmem(gb, fixed)
+        assert qstream.LAUNCHES > before[0] and resident.LAUNCHES == before[1]
+        want = fista_vmem.fista_gram_vmem_reference(gb, fixed)
+        torch.testing.assert_close(got.x, want.x, rtol=2e-4, atol=2e-5)

@@ -257,6 +257,30 @@ def test_resident_guards():
     assert resident.LAUNCHES == 0
 
 
+def test_twin_reads_the_upper_triangle(grams):
+    """The twin reads each Gram's upper triangle, as the kernel holds it: on
+    a Gram that is not bit-symmetric it gives, bit for bit, the solve of the
+    Gram mirrored from its upper triangle; on a symmetric Gram the mirror is
+    the Gram itself. On a CPU tensor the grouping is group_lanes."""
+    _, gbt = grams[12, 0.0]
+    g = torch.Generator().manual_seed(0)
+    Q = gbt.Q * (1.0 + 1e-3 * torch.rand(gbt.Q.shape, generator=g))
+    assert not torch.equal(Q, Q.transpose(0, 1))
+    mirrored = resident.upper_symmetric(Q)
+    n = Q.shape[0]
+    for i in range(n):
+        for k in range(n):
+            assert torch.equal(mirrored[k, i], Q[min(k, i), max(k, i)])
+    cfg = resident.BatchFISTAConfig(**CERT)
+    got = resident.fista_gram_resident(dataclasses.replace(gbt, Q=Q), cfg, est_l_iters=96)
+    want = resident.fista_gram_resident(dataclasses.replace(gbt, Q=mirrored), cfg,
+                                        est_l_iters=96)
+    assert torch.equal(got.x, want.x) and torch.equal(got.iters, want.iters)
+    sym = 0.5 * (gbt.Q + gbt.Q.transpose(0, 1))
+    assert torch.equal(resident.upper_symmetric(sym), sym)
+    assert resident.kernel_group(112, torch.device("cpu")) == resident.group_lanes(112)
+
+
 @pytest.mark.parametrize("kw", [dict(adaptive_restart=True), dict(momentum="greedy")],
                          ids=["restart", "greedy"])
 def test_adaptive_entry_matches_jax(kw):

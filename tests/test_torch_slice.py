@@ -494,6 +494,26 @@ def test_resident_route_is_the_shared_recipe():
         solve_lasso_batch(A, b, a1, 0.0, cfg=cfg, interpret=True, state0=mid, backend="xla")
 
 
+def test_resident_build_skips_the_power_steps(monkeypatch):
+    """At 104 < n ≤ 118 the resident route's Gram comes from the build
+    kernels (their twin here) without their power steps: the L = 1 sentinel,
+    and the Gram of the build with them."""
+    from fastoptsolver_tpu_torch.batch import api
+    from fastoptsolver_tpu_torch.kernels import gram_build
+
+    calls = []
+    ref = gram_build.gram_build_reference
+    monkeypatch.setattr(gram_build, "gram_build_reference",
+                        lambda A, b, pl_iters: calls.append(pl_iters) or ref(A, b, pl_iters))
+    A, b, a1 = _window_inputs(112)
+    gb = api._build_gram_routed(A, b, a1, 0.0, False, None, True, use_kernel=True,
+                                estimate_l=False)
+    full = api._build_gram_routed(A, b, a1, 0.0, False, None, True, use_kernel=True)
+    assert calls == [0, 96]
+    assert bool((gb.L == 1.0).all()) and not bool((full.L == 1.0).all())
+    assert torch.equal(gb.Q, full.Q) and torch.equal(gb.c, full.c)
+
+
 def test_resident_state_on_a_sentinel_gram_needs_est_l():
     """The reference's guard: a ResidentSolveState resumed on an
     estimate_l=False Gram without est_l_iters raises (τ would be t_init/1);
