@@ -14,7 +14,8 @@ Routing follows the reference's "guards decide" rule, in its order:
    CUDA tensor raises.
 2. On the kernel route, **the fused kernel** first (``kernels.fused_solve``:
    one launch, the Gram never in device memory) when its own guards pass:
-   fixed momentum, ``check_every > 0``, n ≤ 8.
+   ``check_every > 0`` and n ≤ 8, in every mode (fixed, adaptive restart,
+   greedy, Armijo) and with ``return_state``.
 3. Then, in the **resident window** (104 < n ≤ 168, ``check_every > 0``,
    every mode including Armijo): the Gram built without the power loop
    (``make_gram_batch(..., estimate_l=False)``: the port's build kernels
@@ -34,9 +35,9 @@ Routing follows the reference's "guards decide" rule, in its order:
 ``backend="kernel"`` raises with the guard's message when the kernel route
 cannot serve the call, including a CPU tensor without ``interpret``.
 ``state0`` pins the route to the engine whose state it is
-(``ResidentSolveState`` → resident engine, ``VmemSolveState`` → burst or
-Q-streaming engine, ``BatchState`` → driver); the fused engine's state is
-not ported yet, and ``mesh=`` is not ported.
+(``ResidentSolveState`` → resident engine, ``FusedSolveState`` → fused
+kernel, ``VmemSolveState`` → burst or Q-streaming engine, ``BatchState`` →
+driver); ``mesh=`` is not ported.
 """
 from __future__ import annotations
 
@@ -51,11 +52,6 @@ from .fista_gram import (
     make_gram_batch,
 )
 
-# State types of engines that are not ported yet, by class name (a state of the
-# reference package may arrive here by mistake): the ROADMAP item for each.
-_UNPORTED_STATES = {
-    "FusedSolveState": "ROADMAP Queue 1 item 4: the fused engine's resume",
-}
 # In-kernel Lipschitz depth of the resident route, used by the fresh solve and
 # the resume alike: a resumed trajectory's τ derives from this estimate, so it
 # must be the same at checkpoint and at resume.
@@ -102,15 +98,6 @@ def _kernel_route(n: int, cfg, backend: str, interpret: bool, on_cuda: bool):
     return False, reason
 
 
-def _unported_state(state0) -> None:
-    item = _UNPORTED_STATES.get(type(state0).__name__)
-    if item is not None:
-        raise NotImplementedError(
-            f"state0 is a {type(state0).__name__}, which this package does not "
-            f"resume yet ({item})"
-        )
-
-
 def solve_gram_batch(gb, cfg=None, backend: str = "auto",
                      interpret: bool = False, state0=None,
                      return_state: bool = False,
@@ -125,7 +112,8 @@ def solve_gram_batch(gb, cfg=None, backend: str = "auto",
     A non-None ``state0`` pins the route to the engine that produced it: a
     ``ResidentSolveState`` resumes on the resident engine, a
     ``VmemSolveState`` on the burst-driven engines, a ``BatchState`` on the
-    driver; anything else raises ``TypeError``.
+    driver; anything else raises ``TypeError``, a ``FusedSolveState`` too
+    (a Gram cannot resume the fused engine, which builds its own).
 
     ``est_l_iters``: the resident engine's in-kernel L estimate, for a Gram
     built with ``estimate_l=False``; required to resume a
@@ -140,7 +128,6 @@ def solve_gram_batch(gb, cfg=None, backend: str = "auto",
         cfg = _default_cfg()
     on_cuda = gb.Q.is_cuda
     if state0 is not None:
-        _unported_state(state0)
         if isinstance(state0, ResidentSolveState):
             if backend == "xla":
                 raise ValueError("state0 is a ResidentSolveState; it cannot "
@@ -340,10 +327,10 @@ def _resume_lasso_batch(A, b, alpha1, alpha2, cfg, backend, feature_major,
     engine. The Gram is rebuilt from the same ``(A, b)`` by the same route,
     so only the solver rows round-trip."""
     from ..kernels.fista_vmem import VmemSolveState, fista_gram_vmem
+    from ..kernels.fused_solve import FusedSolveState, solve_lasso_fused
     from ..kernels.resident import ResidentSolveState
 
     n = A.shape[0] if feature_major else A.shape[-1]
-    _unported_state(state0)
     if isinstance(state0, ResidentSolveState):
         if backend == "xla":
             raise ValueError("state0 is a ResidentSolveState; it cannot "
@@ -352,6 +339,19 @@ def _resume_lasso_batch(A, b, alpha1, alpha2, cfg, backend, feature_major,
         return _solve_resident_routed(A, b, alpha1, alpha2, cfg, feature_major,
                                       key, interpret, state0=state0,
                                       return_state=return_state)
+    if isinstance(state0, FusedSolveState):
+        if backend == "xla":
+            raise ValueError(
+                "state0 is a FusedSolveState; it cannot resume on "
+                "backend='xla' (the driver's trajectory differs)"
+            )
+        # the fused engine's own guards decide; a fused checkpoint on any
+        # other engine would change the trajectory, so they raise
+        _kernel_route(n, cfg, "kernel", interpret, A.is_cuda)
+        A_fm, b_fm = _feature_major(A, b, feature_major)
+        return solve_lasso_fused(A_fm.contiguous(), b_fm.contiguous(), alpha1,
+                                 alpha2, cfg=cfg, interpret=interpret,
+                                 state0=state0, return_state=return_state)
     if isinstance(state0, VmemSolveState):
         if backend == "xla":
             raise ValueError(

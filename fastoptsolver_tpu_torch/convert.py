@@ -14,6 +14,7 @@ import torch
 
 from .batch.fista_gram import BatchFISTAConfig, BatchState, GramBatch
 from .kernels.fista_vmem import VmemSolveState
+from .kernels.fused_solve import FusedSolveState
 from .kernels.resident import ResidentSolveState
 
 
@@ -56,24 +57,40 @@ def vmem_state_from_numpy(X, Y, t, ps, tau, k, done, iters, gap) -> VmemSolveSta
     )
 
 
-def resident_state_from_numpy(X, Y, t, ps, tau, k, done, iters, gap,
-                              n: int | None = None,
-                              B: int | None = None) -> ResidentSolveState:
-    """A CPU ``ResidentSolveState`` from the reference's fields, in its
-    field order (``resident_state_from_numpy(*jax_state)``): ``k`` and
-    ``iters`` int32, ``done`` bool, the rows ``(1, B)``. ``n``/``B`` strip
-    the feature and lane padding of raw kernel outputs (the reference's
-    returned state is already stripped)."""
+def _per_lane_state(cls, X, Y, t, ps, tau, k, done, iters, gap, n, B):
+    """A per-lane-k engine's state (``cls``) from the reference's fields:
+    ``k`` and ``iters`` int32, ``done`` bool, the rows ``(1, B)``; ``n``/``B``
+    strip feature and lane padding."""
     rows = slice(None, n)
     lanes = slice(None, B)
     row = lambda v: _tensor(np.asarray(v).reshape(1, -1)[:, lanes])
     lane = lambda v, dt: _tensor(np.asarray(v, dt).reshape(-1)[lanes])
-    return ResidentSolveState(
+    return cls(
         X=_tensor(np.asarray(X)[rows, lanes]), Y=_tensor(np.asarray(Y)[rows, lanes]),
         t=row(t), ps=row(ps), tau=row(tau), k=lane(k, np.int32),
         done=lane(done, bool), iters=lane(iters, np.int32),
         gap=_tensor(np.asarray(gap).reshape(-1)[lanes]),
     )
+
+
+def resident_state_from_numpy(X, Y, t, ps, tau, k, done, iters, gap,
+                              n: int | None = None,
+                              B: int | None = None) -> ResidentSolveState:
+    """A CPU ``ResidentSolveState`` from the reference's fields, in its
+    field order (``resident_state_from_numpy(*jax_state)``). ``n``/``B``
+    strip the feature and lane padding of raw kernel outputs (the
+    reference's returned state is already stripped)."""
+    return _per_lane_state(ResidentSolveState, X, Y, t, ps, tau, k, done,
+                           iters, gap, n, B)
+
+
+def fused_state_from_numpy(X, Y, t, ps, tau, k, done, iters, gap) -> FusedSolveState:
+    """A CPU ``FusedSolveState`` from the reference's fields, in its field
+    order (``fused_state_from_numpy(*jax_state)``), so that a checkpoint of
+    the reference's fused engine resumes in the port (under the ``b_tile``
+    that cut it)."""
+    return _per_lane_state(FusedSolveState, X, Y, t, ps, tau, k, done, iters,
+                           gap, None, None)
 
 
 def config_from_jax(cfg) -> BatchFISTAConfig:

@@ -1,7 +1,7 @@
 """Hand-written Hopper kernels and their plain PyTorch twins.
 
 - ``fused_solve`` (CUDA ``csrc/fused_solve.cu``): the single-launch
-  build+solve of the main path;
+  build+solve of the main path, every mode, resumable (``FusedSolveState``);
 - ``gram_build`` (CUDA ``csrc/gram_build.cu``) and ``fista_vmem`` (CUDA
   ``csrc/fista_burst.cu``): the two-kernel path, the Gram build and the
   certified burst engine;
@@ -22,6 +22,7 @@ from .fista_vmem import (
     plan_gram_solve,
 )
 from .fused_solve import (
+    FusedSolveState,
     auto_tiles_fused,
     fused_solve_reference,
     solve_lasso_fused,
@@ -36,6 +37,7 @@ from .resident import (
 )
 
 __all__ = [
+    "FusedSolveState",
     "ResidentSolveState",
     "VmemSolveState",
     "auto_b_tile",

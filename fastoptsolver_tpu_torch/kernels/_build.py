@@ -47,10 +47,12 @@ NVCC_FLAGS = (
 
 _vp, _i, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _SIGNATURES = {
-    # A, b, alpha1, alpha2, betas, X, iters, gap, done, n, m, B, b_tile,
-    # pl_iters, l_safety, t_init, chunk, k_end, tol, stream
-    "fused_lasso_solve": [_vp] * 9 + [_i, _ll, _ll, _i, _i, _f, _f, _i, _i,
-                                      _f, _vp],
+    # A, b, alpha1, alpha2, betas, X0, Y0, t0, ps0, tv0, k0, done0, iters0,
+    # gap0, X, iters, gap, done, Y, t, ps, tv, k, n, m, B, b_tile, pl_iters,
+    # l_safety, t_init, chunk, k_end, tol, mode, armijo, restart_threshold,
+    # greedy_S, greedy_shrink, armijo_c, armijo_eta, max_backtracks, stream
+    "fused_lasso_solve": [_vp] * 23 + [_i, _ll, _ll, _i, _i, _f, _f, _i, _i,
+                                       _f, _i, _i, _f, _f, _f, _f, _f, _i, _vp],
     # A, b, out, n, m, B, b_tile, stream
     "stream_ceiling": [_vp, _vp, _vp, _i, _ll, _ll, _i, _vp],
     # A, b, Q, c, btb, n, m, B, stream

@@ -14,9 +14,8 @@ table-β, adaptive restart, greedy) and :func:`fista_armijo_chunk` carry the
 burst engine (``fista_vmem``, CUDA ``csrc/fista_burst.cu``) and the
 Q-streaming engine (``qstream``, ``csrc/qstream.cu``);
 :func:`certified_solve_body` runs the whole certified solve of the fused
-twin (fixed mode only so far: the fused kernel's other modes are still to
-port, ROADMAP Queue 1 item 4) and of the resident engine (``resident``,
-``csrc/resident.cu``) in every mode, with resume.
+twin (``fused_solve``, CUDA ``csrc/fused_solve.cu``) and of the resident
+engine (``resident``, ``csrc/resident.cu``), in every mode, with resume.
 """
 from __future__ import annotations
 

@@ -9,28 +9,32 @@ instances; see the source's note for its design and bound). On a CPU tensor
 it runs the plain PyTorch twin :func:`fused_solve_reference`, built from
 ``kernels/_common.py`` — the same arithmetic, tile by tile.
 
-Scope of this port: fixed (table-β) momentum, ``nesterov`` or ``delta``.
-Adaptive restart, greedy momentum, Armijo backtracking and checkpoint/resume
-(``FusedSolveState``) are still to port (ROADMAP Queue 1 item 4); the guards
-refuse them, and the router sends them to the two-kernel path
-(``gram_build`` + ``fista_vmem``). Both ``overlap``
-values run the same kernel: on an SM, resident CTAs overlap one CTA's solve
-with another's loads in hardware, which the TPU's ``_overlap_kernel`` had to
-pipeline by hand.
+Every in-kernel mode of the reference runs: fixed (table-β) momentum,
+``nesterov`` or ``delta``; adaptive restart; greedy momentum; the masked
+per-lane Armijo search with table-β or restart momentum. A run checkpoints
+to a :class:`FusedSolveState` (``return_state=True``) and resumes from it
+(``state0=``) bit-exactly. Both ``overlap`` values run the same kernel: on
+an SM, resident CTAs overlap one CTA's solve with another's loads in
+hardware, which the TPU's ``_overlap_kernel`` had to pipeline by hand; an
+explicit ``overlap=True`` still refuses what the reference's overlap variant
+refuses (restart, greedy, Armijo, state).
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
 from ..batch.fista_gram import BatchFISTAConfig, BatchResult, _lane_vector
 from . import _build
 from ._common import (
+    assert_tile_k_uniform,
     augmented_gram,
     certified_solve_body,
     make_matvec,
     power_lambda_max,
 )
-from .fista_vmem import _beta_table, _check_kernel_cfg
+from .fista_vmem import _armijo_static, _beta_table, _check_kernel_cfg
 from .gram_build import _round_up
 
 # Feature counts the CUDA template is instantiated for (csrc/fused_solve.cu).
@@ -41,17 +45,36 @@ B_TILE = 128
 LAUNCHES = 0
 
 
+class FusedSolveState(NamedTuple):
+    """Checkpointable state of the fused engine, field for field the
+    reference's (``solve_lasso_fused(..., return_state=True)`` →
+    ``state0=``): the per-lane rows of the solve and a per-lane ``k``
+    (iterations completed, uniform within each lane tile, since each tile
+    exits at its own burst boundary). Resume rebuilds the Gram from the same
+    ``(A, b)``, reinjects the rows and continues the β table from ``k``:
+    bit-identical to an uninterrupted run under the same ``b_tile``."""
+
+    X: torch.Tensor  # (n, B)
+    Y: torch.Tensor  # (n, B)
+    t: torch.Tensor  # (1, B) Nesterov scalar / greedy τ row
+    ps: torch.Tensor  # (1, B) previous step norm / greedy first-step row
+    tau: torch.Tensor  # (1, B) per-lane Armijo step row
+    k: torch.Tensor  # (B,) int32 per-lane iterations completed
+    done: torch.Tensor  # (B,) bool
+    iters: torch.Tensor  # (B,) int32
+    gap: torch.Tensor  # (B,)
+
+
 def _check_fused_cfg(cfg: BatchFISTAConfig, overlap: bool = False) -> None:
-    """Refuse what the fused kernel does not implement. ``overlap`` is
-    accepted for the reference signature; both variants are one kernel."""
-    del overlap
-    _check_kernel_cfg(cfg, backtracking_ok=False)
-    if cfg.adaptive_restart or cfg.momentum == "greedy":
+    """The reference's guard: every in-kernel mode runs, Armijo included;
+    the overlap variant refuses restart, greedy and Armijo."""
+    _check_kernel_cfg(cfg, backtracking_ok=not overlap)
+    if overlap and (cfg.adaptive_restart or cfg.momentum == "greedy"):
         raise NotImplementedError(
-            "the fused CUDA kernel implements fixed (table-β) momentum only; "
-            "adaptive restart and greedy momentum run on the two-kernel path "
-            "(gram_build + fista_vmem) until they are ported here (ROADMAP "
-            "Queue 1 item 4)"
+            "the software-pipelined (overlap) variant implements fixed "
+            "momentum only; adaptive restart, greedy momentum, and Armijo "
+            "backtracking run on the plain single-launch kernel "
+            "(overlap=False)"
         )
     if cfg.check_every <= 0:
         raise ValueError(
@@ -64,10 +87,10 @@ def _check_fused_cfg(cfg: BatchFISTAConfig, overlap: bool = False) -> None:
 def auto_tiles_fused(n: int, m: int):
     """``(b_tile, m_tile)`` for the fused kernel. The Hopper envelope is the
     template range: Q (n²), c, X, Y and the pair sums live in one thread's
-    registers, and ptxas gives the n = 8 instance 126 of the 255 a thread
-    may hold (128 at n = 7; chip_smoke's ``-- ptxas`` lines); wider problems
-    go to the two-kernel path. ``m_tile`` is always ``m``: each thread
-    walks all its rows, so there is no row tiling to choose."""
+    registers, and ptxas gives the n = 8 fixed instance 126 of the 255 a
+    thread may hold (chip_smoke's ``-- ptxas`` lines name each mode's); wider
+    problems go to the two-kernel path. ``m_tile`` is always ``m``: each
+    thread walks all its rows, so there is no row tiling to choose."""
     if not 1 <= n <= MAX_N:
         raise ValueError(
             f"fused build+solve kernel: n={n} is outside the instantiated "
@@ -78,13 +101,28 @@ def auto_tiles_fused(n: int, m: int):
     return B_TILE, m
 
 
-def _plain_run(A, b, a1, a2, betas, *, b_tile: int, pl_iters: int,
-               l_safety: float, t_init: float, chunk: int, k_end: int,
-               tol: float):
-    """The twin's arithmetic, with the kernel's raw outputs ``(X (n, B),
-    iters (B,) int32, gap (B,), done (B,) int32)``. Lanes are zero-padded to
-    a whole number of tiles with α = 0, so padded lanes certify at once, as
-    in the reference."""
+def _pad_lanes(state0, pB: int):
+    """The state rows padded by ``pB`` lanes, as the reference pads them:
+    zero planes, t = τ = 1, done; ``k`` repeats the last lane's, so that the
+    padded tile stays uniform."""
+    def pad(v, fill):
+        return torch.cat([v, torch.full((v.shape[0], pB), fill, dtype=v.dtype,
+                                        device=v.device)], dim=1)
+
+    X, Y, t, ps, tv, k, done, iters, gap = state0
+    return (pad(X, 0.0), pad(Y, 0.0), pad(t, 1.0), pad(ps, 0.0), pad(tv, 1.0),
+            pad(k, int(k[0, -1])), pad(done, True), pad(iters, 0), pad(gap, 0.0))
+
+
+def _plain_run(A, b, a1, a2, betas, state0=None, *, b_tile: int,
+               pl_iters: int, l_safety: float, t_init: float, chunk: int,
+               k_end: int, tol: float, restart_threshold=None, greedy=None,
+               armijo=None, with_state: bool = False):
+    """The twin's arithmetic: the state 9-tuple ``(X (n, B), Y, t, ps, tv,
+    k, done, iters, gap)`` of ``certified_solve_body`` (rows ``(1, B)``).
+    Lanes are zero-padded to a whole number of tiles with α = 0, so padded
+    lanes certify at once, as in the reference."""
+    del with_state  # the twin always has the whole state
     n, m, B = A.shape
     pB = _round_up(B, b_tile) - B
     if pB:
@@ -92,74 +130,91 @@ def _plain_run(A, b, a1, a2, betas, *, b_tile: int, pl_iters: int,
         b = torch.nn.functional.pad(b, (0, pB))
         a1 = torch.nn.functional.pad(a1, (0, pB))
         a2 = torch.nn.functional.pad(a2, (0, pB))
+        if state0 is not None:
+            state0 = _pad_lanes(state0, pB)
     a1 = a1[None, :]
     a2 = a2[None, :]
     Q, c_vec, btb = augmented_gram(A, b)
+    if state0 is not None:
+        # lane-major planes, as the iterates of the run being continued are
+        # (the einsum's Gram is lane-major, and the twin's sums follow the
+        # layout of their operands)
+        state0 = tuple(v.T.contiguous().T for v in state0)
     matvec = make_matvec(Q, n)
     lam = power_lambda_max(matvec, c_vec, pl_iters)
     L = torch.where(lam > 0.0, l_safety * lam, torch.ones_like(lam)) + a2
     tau = t_init / L
-    thr = tau * a1
-    X, *_, done, iters, gap = certified_solve_body(
-        matvec, betas, c_vec, tau, thr, a1, a2, btb, b_tile=b_tile,
-        chunk=chunk, k_end=k_end, tol=tol,
+    out = certified_solve_body(
+        matvec, betas, c_vec, tau, tau * a1, a1, a2, btb, 1.0 / L, state0,
+        b_tile=b_tile, chunk=chunk, k_end=k_end, tol=tol,
+        restart_threshold=restart_threshold, greedy=greedy, armijo=armijo,
     )
-    return (X[:, :B], iters[0, :B], gap[0, :B],
-            done[0, :B].to(torch.int32))
+    return tuple(v[:, :B] for v in out)
 
 
-def _launch(A, b, a1, a2, betas, *, b_tile: int, pl_iters: int,
+def _launch(A, b, a1, a2, betas, state0=None, *, b_tile: int, pl_iters: int,
             l_safety: float, t_init: float, chunk: int, k_end: int,
-            tol: float):
-    """Launch ``fused_lasso_solve`` on the current stream; same outputs as
-    :func:`fused_solve_reference`. Raises on any input the kernel does not
-    take and on a launch error."""
+            tol: float, restart_threshold=None, greedy=None, armijo=None,
+            with_state: bool = False):
+    """Launch ``fused_lasso_solve`` on the current stream; the same 9-tuple
+    as :func:`_plain_run` (rows ``(B,)``; ``Y, t, ps, tv, k`` None unless
+    ``with_state``). Raises on any input the kernel does not take and on a
+    launch error."""
     global LAUNCHES
     n, m, B = A.shape
-    for name, t in (("A", A), ("b", b), ("alpha1", a1), ("alpha2", a2),
-                    ("betas", betas)):
-        if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous float32 CUDA tensor")
+    f32 = [("A", A), ("b", b), ("alpha1", a1), ("alpha2", a2), ("betas", betas)]
+    ints = []
+    if state0 is not None:
+        X0, Y0, t0, ps0, tv0, k0, d0, it0, g0 = state0
+        d0 = d0.to(torch.int32)  # the kernel reads the done row as int32
+        state0 = (X0, Y0, t0, ps0, tv0, k0, d0, it0, g0)
+        f32 += list(zip(("X0", "Y0", "t0", "ps0", "tau0", "gap0"),
+                        (X0, Y0, t0, ps0, tv0, g0)))
+        ints = list(zip(("k0", "done0", "iters0"), (k0, d0, it0)))
+    for name, t, dtype in ([(a, v, torch.float32) for a, v in f32]
+                           + [(a, v, torch.int32) for a, v in ints]):
+        if not t.is_cuda or t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dtype} CUDA tensor")
         if t.device != A.device:
             raise ValueError(f"{name} is on {t.device}, A on {A.device}")
     if b.shape != (m, B) or a1.shape != (B,) or a2.shape != (B,):
         raise ValueError(f"shapes do not match A {tuple(A.shape)}: b "
                          f"{tuple(b.shape)}, alpha {tuple(a1.shape)}")
+    if state0 is not None and (state0[0].shape != (n, B) or state0[1].shape != (n, B)
+                               or any(v.numel() != B for v in state0[2:])):
+        raise ValueError(f"the state's shapes do not match A {tuple(A.shape)}")
     if not 1 <= n <= MAX_N:
         raise ValueError(f"the fused CUDA kernel is instantiated for "
                          f"n = 1..{MAX_N}, got n={n}")
     if b_tile % 32 or not 32 <= b_tile <= 256:
         raise ValueError(f"b_tile must be a multiple of 32 in 32..256, got {b_tile}")
-    if betas.numel() < k_end:
-        raise ValueError("the β table is shorter than k_end")
+    if betas.numel() < k_end + chunk:
+        raise ValueError("the β table is shorter than k_end + chunk")
+    if greedy is not None and armijo is not None:
+        raise ValueError("the fused kernel has no greedy mode with Armijo")
+    mode = 2 if greedy is not None else (0 if restart_threshold is None else 1)
+    S, shrink = greedy if greedy is not None else (0.0, 0.0)
+    C, eta, max_bt = armijo if armijo is not None else (0.0, 0.0, 0)
     lib = _build.library()
-    X = torch.empty((n, B), dtype=A.dtype, device=A.device)
-    iters = torch.empty((B,), dtype=torch.int32, device=A.device)
-    gap = torch.empty((B,), dtype=A.dtype, device=A.device)
-    done = torch.empty((B,), dtype=torch.int32, device=A.device)
+    f = lambda *s: torch.empty(s, dtype=torch.float32, device=A.device)
+    i32 = lambda: torch.empty((B,), dtype=torch.int32, device=A.device)
+    X, iters, gap, done = f(n, B), i32(), f(B), i32()
+    out = (f(n, B), f(B), f(B), f(B), i32()) if with_state else (None,) * 5
+    ins = (None,) * 9 if state0 is None else state0
+    ptr = lambda v: None if v is None else v.data_ptr()
     stream = torch.cuda.current_stream(A.device).cuda_stream
     with torch.cuda.device(A.device):
         err = lib.fused_lasso_solve(
-            A.data_ptr(), b.data_ptr(), a1.data_ptr(), a2.data_ptr(),
-            betas.data_ptr(), X.data_ptr(), iters.data_ptr(), gap.data_ptr(),
-            done.data_ptr(), n, m, B, b_tile, pl_iters, l_safety, t_init,
-            chunk, k_end, tol, stream,
+            *(ptr(v) for v in (A, b, a1, a2, betas, *ins, X, iters, gap, done,
+                               *out)),
+            n, m, B, b_tile, pl_iters, l_safety, t_init, chunk, k_end, tol,
+            mode, int(armijo is not None), float(restart_threshold or 0.0),
+            S, shrink, C, eta, max_bt, stream,
         )
     _build.check(err, "fused_lasso_solve")
     LAUNCHES += 1
-    return X, iters, gap, done
-
-
-def _result(X, iters, gap, done, tol: float) -> BatchResult:
-    failed = ~torch.all(torch.isfinite(X), dim=0)
-    return BatchResult(
-        x=X.T,
-        iters=iters,
-        rel_gap=gap,
-        n_iters_total=torch.max(iters),
-        converged=(done > 0) & (gap <= tol) & ~failed,
-        failed=failed,
-    )
+    Y, t, ps, tv, k = out
+    return X, Y, t, ps, tv, k, done, iters, gap
 
 
 def _plan(A, alpha1, alpha2, cfg, pl_iters, l_safety, b_tile) -> dict:
@@ -170,17 +225,72 @@ def _plan(A, alpha1, alpha2, cfg, pl_iters, l_safety, b_tile) -> dict:
     n, m, B = A.shape
     auto_bt, _ = auto_tiles_fused(n, m)
     chunk = cfg.check_every
-    # k_end is the absolute iteration ceiling (max_iter rounded up to a burst)
+    # k_end is the absolute iteration ceiling (max_iter rounded up to a
+    # burst); a resumed tile continues from its own k, which may lie off
+    # this run's burst grid: one chunk of slack in the β table
     k_end = -(-cfg.max_iter // chunk) * chunk
+    greedy = ((cfg.greedy_S, cfg.greedy_shrink) if cfg.momentum == "greedy"
+              else None)
     return dict(
         a1=_lane_vector(alpha1, B, A), a2=_lane_vector(alpha2, B, A),
-        betas=_beta_table(max(k_end, 1), cfg).to(A.device),
+        betas=_beta_table(k_end + chunk, cfg).to(A.device),
         # a tile never spans more than the batch, rounded as the reference rounds
         b_tile=min(auto_bt if b_tile is None else b_tile, _round_up(B, 128)),
         pl_iters=(32 if n <= 7 else 96) if pl_iters is None else pl_iters,
-        l_safety=l_safety, t_init=cfg.t_init_factor, chunk=chunk,
-        k_end=k_end, tol=cfg.rel_gap_tol,
+        l_safety=l_safety,
+        # greedy starts from the overshoot ξ/L (the reference's step_factor)
+        t_init=cfg.greedy_xi if greedy is not None else cfg.t_init_factor,
+        chunk=chunk, k_end=k_end, tol=cfg.rel_gap_tol,
+        restart_threshold=cfg.restart_threshold if cfg.adaptive_restart else None,
+        greedy=greedy, armijo=_armijo_static(cfg),
     )
+
+
+def _state_rows(state0, A):
+    """A :class:`FusedSolveState` as the runs' 9-tuple: planes ``(n, B)``
+    and rows ``(1, B)`` on A's device, contiguous (the twin's sums follow the
+    layout, and a resumed run must add in the order of the run it
+    continues)."""
+    if not isinstance(state0, FusedSolveState):
+        raise TypeError(f"state0 must be a FusedSolveState, got "
+                        f"{type(state0).__name__} (convert.fused_state_from_numpy "
+                        "takes the reference's)")
+    B = A.shape[2]
+    mv = lambda v, dt=A.dtype: v.to(device=A.device, dtype=dt).reshape(-1, B).contiguous()
+    return (mv(state0.X), mv(state0.Y), mv(state0.t), mv(state0.ps),
+            mv(state0.tau), mv(state0.k, torch.int32), mv(state0.done, torch.bool),
+            mv(state0.iters, torch.int32), mv(state0.gap))
+
+
+def _solve(run, A, b, alpha1, alpha2, cfg, pl_iters, l_safety, b_tile,
+           state0, return_state):
+    """The plan, the state's layout and the result around one run (the
+    kernel's or the twin's)."""
+    plan = _plan(A, alpha1, alpha2, cfg, pl_iters, l_safety, b_tile)
+    rows = None
+    if state0 is not None:
+        rows = _state_rows(state0, A)
+        # k is read once per lane tile: a checkpoint cut under another
+        # grouping would resume a whole tile from its first lane's k
+        assert_tile_k_uniform(rows[5], A.shape[2], plan["b_tile"])
+    X, Y, t, ps, tv, k, done, iters, gap = run(A, b, state0=rows,
+                                               with_state=return_state, **plan)
+    done, iters, gap = done.reshape(-1) > 0, iters.reshape(-1), gap.reshape(-1)
+    failed = ~torch.all(torch.isfinite(X), dim=0)
+    result = BatchResult(
+        x=X.T,
+        iters=iters,
+        rel_gap=gap,
+        n_iters_total=torch.max(iters),
+        converged=done & (gap <= cfg.rel_gap_tol) & ~failed,
+        failed=failed,
+    )
+    if not return_state:
+        return result
+    row = lambda v: v.reshape(1, -1)
+    return result, FusedSolveState(
+        X=X, Y=Y, t=row(t), ps=row(ps), tau=row(tv),
+        k=k.reshape(-1).to(torch.int32), done=done, iters=iters, gap=gap)
 
 
 _DEFAULT_CFG = BatchFISTAConfig(max_iter=1000, check_every=25, rel_gap_tol=1e-6)
@@ -195,14 +305,16 @@ def fused_solve_reference(
     pl_iters: int | None = None,
     l_safety: float = 1.02,
     b_tile: int | None = None,
-) -> BatchResult:
+    state0: FusedSolveState | None = None,
+    return_state: bool = False,
+):
     """The plain PyTorch twin of the fused kernel on a tensor of any device:
-    the same ``BatchResult`` for the same inputs and lane grouping
-    ``b_tile``. Certified lanes keep iterating until their tile exits, so a
-    different ``b_tile`` gives a different ``x``."""
+    the same ``BatchResult`` (and state) for the same inputs and lane
+    grouping ``b_tile``. Certified lanes keep iterating until their tile
+    exits, so a different ``b_tile`` gives a different ``x``."""
     _check_fused_cfg(cfg)
-    plan = _plan(A, alpha1, alpha2, cfg, pl_iters, l_safety, b_tile)
-    return _result(*_plain_run(A, b, **plan), cfg.rel_gap_tol)
+    return _solve(_plain_run, A, b, alpha1, alpha2, cfg, pl_iters, l_safety,
+                  b_tile, state0, return_state)
 
 
 def solve_lasso_fused(
@@ -216,26 +328,33 @@ def solve_lasso_fused(
     b_tile: int | None = None,
     interpret: bool = False,
     overlap: bool | None = None,
-    state0=None,
+    state0: FusedSolveState | None = None,
     return_state: bool = False,
-) -> BatchResult:
+):
     """Certified batched lasso, raw ``(A, b, α)`` to solutions: one kernel
-    launch on a CUDA tensor, the plain twin on a CPU tensor.
+    launch on a CUDA tensor, the plain twin on a CPU tensor. Every in-kernel
+    mode runs, Armijo included; ``check_every > 0`` is required.
 
     ``interpret=True`` asks for the plain twin, which is what a CPU tensor
     gets; with a CUDA tensor it raises. ``overlap`` selects nothing (one
-    kernel serves both reference variants). ``b_tile`` is the CTA size and
-    the twin's lane grouping (default 128). The reference's TPU tiling knobs
-    ``m_tile`` and ``split_k`` have no counterpart."""
+    kernel serves both reference variants), but ``overlap=True`` refuses
+    what the reference's overlap variant refuses. ``b_tile`` is the CTA size
+    and the twin's lane grouping (default 128). The reference's TPU tiling
+    knobs ``m_tile`` and ``split_k`` have no counterpart.
+
+    ``return_state=True`` returns ``(result, FusedSolveState)``; ``state0``
+    resumes such a state bit-exactly under the same ``b_tile`` (``max_iter``
+    counts every iteration, the resumed ones included)."""
     _check_fused_cfg(cfg, overlap=bool(overlap))
-    if state0 is not None or return_state:
+    if (state0 is not None or return_state) and overlap:
         raise NotImplementedError(
-            "checkpoint/resume of the fused engine (FusedSolveState) is not "
-            "ported yet (ROADMAP Queue 1 item 4)"
+            "checkpoint/resume runs on the plain single-launch kernel; "
+            "the overlap variant's solver state lives in per-column "
+            "scratch and cannot round-trip (pass overlap=False/None)"
         )
     if A.is_cuda and interpret:
         raise ValueError("interpret=True runs the plain twin on a CPU tensor; "
                          "A is a CUDA tensor")
-    plan = _plan(A, alpha1, alpha2, cfg, pl_iters, l_safety, b_tile)
     run = _launch if A.is_cuda else _plain_run
-    return _result(*run(A, b, **plan), cfg.rel_gap_tol)
+    return _solve(run, A, b, alpha1, alpha2, cfg, pl_iters, l_safety, b_tile,
+                  state0, return_state)

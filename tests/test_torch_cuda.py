@@ -64,6 +64,93 @@ def test_fused_kernel_matches_twin(cuda, shape, mode, a2):
     assert got.converged.all()
 
 
+FUSED_MODES = {"restart": dict(adaptive_restart=True), "greedy": dict(momentum="greedy")}
+
+
+@pytest.mark.parametrize("mode", list(FUSED_MODES))
+@pytest.mark.parametrize("shape", SHAPES)
+def test_fused_kernel_matches_twin_in_every_mode(cuda, shape, mode):
+    """Restart and greedy, certified at rel_gap_tol 1e-5: converged
+    identical, iters within a burst, x to rtol 2e-4/atol 2e-5."""
+    A, b, a1 = _problem(*shape, seed=SHAPES.index(shape), device=cuda)
+    cfg = BatchFISTAConfig(max_iter=1000, check_every=25, rel_gap_tol=1e-5, **FUSED_MODES[mode])
+    before = fused_solve.LAUNCHES
+    got = fused_solve.solve_lasso_fused(A, b, a1, 0.0, cfg=cfg)
+    torch.cuda.synchronize()
+    assert fused_solve.LAUNCHES == before + 1
+    want = fused_solve.fused_solve_reference(A, b, a1, 0.0, cfg=cfg)
+    assert torch.equal(got.converged, want.converged) and got.converged.all()
+    assert int((got.iters - want.iters).abs().max()) <= cfg.check_every
+    torch.testing.assert_close(got.x, want.x, rtol=2e-4, atol=2e-5)
+
+
+def _noise_free(n, m, B, seed, device, alpha1=None):
+    """The reference's resume recipe (tests/test_fused_resume.py): i.i.d.
+    features, a 2-sparse x_true, b without noise, α₁ = 0.1·‖Aᵀb‖∞ or the
+    given constant."""
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(n, m, B)).astype(np.float32)
+    xt = np.zeros((n, B), np.float32)
+    xt[:2] = rng.normal(size=(2, B))
+    b = np.einsum("nmb,nb->mb", A, xt).astype(np.float32)
+    a1 = 0.1 * np.abs(np.einsum("nmb,mb->nb", A, b)).max(axis=0)
+    if alpha1 is not None:
+        a1 = np.full(B, alpha1)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.float32)).to(device)
+    return t(A), t(b), t(a1)
+
+
+@pytest.mark.parametrize("restart", [False, True])
+def test_fused_kernel_armijo_decisive(cuda, restart):
+    """Armijo with table-β and with restart momentum in the decisive regime
+    (α₁ = 0.5, L understated 4×, 6 iterations): x to rtol 1e-4/atol 1e-5."""
+    A, b, a1 = _noise_free(5, 96, 300, seed=1, device=cuda, alpha1=0.5)
+    cfg = BatchFISTAConfig(max_iter=6, check_every=6, backtracking=True, t_init_factor=4.0,
+                           adaptive_restart=restart)
+    got = fused_solve.solve_lasso_fused(A, b, a1, 0.0, cfg=cfg)
+    want = fused_solve.fused_solve_reference(A, b, a1, 0.0, cfg=cfg)
+    torch.testing.assert_close(got.x, want.x, rtol=1e-4, atol=1e-5)
+    assert torch.equal(got.iters, want.iters)
+
+
+RESUME_MODES = {
+    "nesterov": {}, "restart": dict(adaptive_restart=True), "greedy": dict(momentum="greedy"),
+    "armijo": dict(backtracking=True), "armijo_restart": dict(backtracking=True,
+                                                              adaptive_restart=True),
+}
+
+
+@pytest.mark.parametrize("mode", list(RESUME_MODES))
+def test_fused_kernel_resume_is_bit_exact(cuda, mode):
+    """75 iterations, the state, then 125 more equal 200 straight ones bit
+    for bit on the kernel, its final state included."""
+    A, b, a1 = _noise_free(5, 96, 300, seed=1, device=cuda)
+    full = BatchFISTAConfig(max_iter=200, check_every=25, **RESUME_MODES[mode])
+    half = dataclasses.replace(full, max_iter=75)
+    straight, end = fused_solve.solve_lasso_fused(A, b, a1, 0.0, cfg=full, return_state=True)
+    _, mid = fused_solve.solve_lasso_fused(A, b, a1, 0.0, cfg=half, return_state=True)
+    resumed, end2 = fused_solve.solve_lasso_fused(A, b, a1, 0.0, cfg=full, state0=mid,
+                                                  return_state=True)
+    for field in ("x", "iters", "rel_gap", "converged"):
+        assert torch.equal(getattr(resumed, field), getattr(straight, field)), field
+    for name, u, v in zip(end._fields, end, end2):
+        assert torch.equal(u, v), name
+
+
+def test_fused_kernel_resume_with_tiles_at_different_k(cuda):
+    """The first tile trivially easy, so the checkpoint holds two k: each
+    CTA resumes from its own (tests/test_fused_resume.py:70-102)."""
+    A, b, a1 = _noise_free(5, 96, 300, seed=4, device=cuda)
+    a1 = torch.where(torch.arange(300, device=cuda) < 128,
+                     10.0 * torch.einsum("nmb,mb->nb", A, b).abs().amax(0), a1)
+    cfg = lambda it: BatchFISTAConfig(max_iter=it, check_every=25)
+    straight = fused_solve.solve_lasso_fused(A, b, a1, 0.0, cfg=cfg(400))
+    _, mid = fused_solve.solve_lasso_fused(A, b, a1, 0.0, cfg=cfg(150), return_state=True)
+    assert len(set(mid.k.tolist())) > 1
+    resumed = fused_solve.solve_lasso_fused(A, b, a1, 0.0, cfg=cfg(400), state0=mid)
+    assert torch.equal(resumed.x, straight.x) and torch.equal(resumed.iters, straight.iters)
+
+
 @pytest.mark.parametrize("shape", SHAPES)
 def test_stream_kernel_matches_twin(cuda, shape):
     A, b, _ = _problem(*shape, seed=0, device=cuda)
@@ -82,11 +169,17 @@ def test_router_takes_the_kernel_on_cuda(cuda):
     res = solve_lasso_batch(A, b, a1, feature_major=True)
     assert fused_solve.LAUNCHES == before + 1 and res.converged.all()
     assert gram_build.LAUNCHES == builds and fista_vmem.LAUNCHES == bursts
-    # what the fused kernel refuses goes to the two-kernel path: two build
-    # launches and one burst launch per check_every iterations
+    # every mode at n <= 8 runs on the fused kernel, with the state
     cfg = BatchFISTAConfig(max_iter=1000, check_every=25, adaptive_restart=True)
-    res = solve_lasso_batch(A, b, a1, cfg=cfg, feature_major=True)
-    assert fused_solve.LAUNCHES == before + 1 and res.x.is_cuda
+    res, st = solve_lasso_batch(A, b, a1, cfg=cfg, feature_major=True, return_state=True)
+    assert fused_solve.LAUNCHES == before + 2 and isinstance(st, fused_solve.FusedSolveState)
+    assert gram_build.LAUNCHES == builds and fista_vmem.LAUNCHES == bursts
+    assert res.converged.all() and st.X.is_cuda
+    # what the fused kernel refuses (n = 9) goes to the two-kernel path: two
+    # build launches and one burst launch per check_every iterations
+    A9, b9, a19 = _problem(9, 100, 256, seed=4, device=cuda)
+    res = solve_lasso_batch(A9, b9, a19, cfg=cfg, feature_major=True)
+    assert fused_solve.LAUNCHES == before + 2 and res.x.is_cuda
     assert gram_build.LAUNCHES == builds + 2
     assert fista_vmem.LAUNCHES == bursts + int(res.n_iters_total) // 25
     assert res.converged.all()

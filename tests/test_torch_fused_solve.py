@@ -8,6 +8,8 @@ so another grouping gives another x. Tolerances are the JAX package's own
 cross-engine ones (tests/test_kernels.py:671-681): x to rtol 1e-5/atol 1e-6,
 ``converged`` identical, ``iters`` within one ``check_every`` burst.
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -103,30 +105,62 @@ def _cfg(**kw):
     return BatchFISTAConfig(**{**dict(max_iter=10, check_every=5), **kw})
 
 
+# (config, call options, exception). Restart, greedy and Armijo run on the
+# plain kernel and are refused only under an explicit overlap=True, as the
+# reference's overlap variant refuses them
 GUARDS = {
-    "check_every_0": (dict(check_every=0), ValueError),
-    "adaptive_restart": (dict(adaptive_restart=True), NotImplementedError),
-    "greedy": (dict(momentum="greedy"), NotImplementedError),
-    "backtracking": (dict(backtracking=True), NotImplementedError),
-    "restart_non_nesterov": (dict(momentum="delta", adaptive_restart=True), ValueError),
+    "check_every_0": (dict(check_every=0), {}, ValueError),
+    "adaptive_restart": (dict(adaptive_restart=True), dict(overlap=True), NotImplementedError),
+    "greedy": (dict(momentum="greedy"), dict(overlap=True), NotImplementedError),
+    "backtracking": (dict(backtracking=True), dict(overlap=True), NotImplementedError),
+    "restart_non_nesterov": (dict(momentum="delta", adaptive_restart=True), {}, ValueError),
 }
 
 
 @pytest.mark.parametrize("name", list(GUARDS))
 def test_fused_guards(name):
-    kw, exc = GUARDS[name]
+    kw, opts, exc = GUARDS[name]
     A = torch.ones((5, 16, 128))
     b = torch.ones((16, 128))
     with pytest.raises(exc):
-        fused_solve.solve_lasso_fused(A, b, 0.1, cfg=_cfg(**kw), interpret=True)
+        fused_solve.solve_lasso_fused(A, b, 0.1, cfg=_cfg(**kw), interpret=True, **opts)
+    with pytest.raises(exc):
+        jax_fused(jnp.ones((5, 16, 128)), jnp.ones((16, 128)), 0.1,
+                  cfg=JaxConfig(**{**dict(max_iter=10, check_every=5), **kw}),
+                  interpret=True, **opts)
+    if opts:  # the plain kernel takes the mode
+        res = fused_solve.solve_lasso_fused(A, b, 0.1, cfg=_cfg(**kw), interpret=True)
+        assert res.x.shape == (128, 5) and not res.failed.any()
 
 
 @pytest.mark.parametrize("kw", [dict(state0=object()), dict(return_state=True)])
 def test_fused_state_not_ported(kw):
-    A = torch.ones((5, 16, 128))
-    with pytest.raises(NotImplementedError, match="FusedSolveState"):
-        fused_solve.solve_lasso_fused(A, torch.ones((16, 128)), 0.1,
-                                      cfg=_cfg(), interpret=True, **kw)
+    """The fused engine's state surface (a refusal before it was ported):
+    ``return_state`` gives a ``FusedSolveState`` of the reference's fields
+    and shapes, ``state0`` takes one back and nothing else, and an explicit
+    ``overlap=True`` refuses both, as in the reference."""
+    A, b, a1 = (torch.from_numpy(x) for x in _problem(5, 16, 130, seed=9))
+    cfg = _cfg()
+    with pytest.raises(NotImplementedError, match="overlap"):
+        fused_solve.solve_lasso_fused(A, b, a1, cfg=cfg, interpret=True,
+                                      overlap=True, **kw)
+    res, st = fused_solve.solve_lasso_fused(A, b, a1, cfg=cfg, interpret=True,
+                                            return_state=True)
+    if "return_state" in kw:
+        assert isinstance(st, fused_solve.FusedSolveState)
+        assert st._fields == ("X", "Y", "t", "ps", "tau", "k", "done", "iters", "gap")
+        assert st.X.shape == st.Y.shape == (5, 130)
+        assert st.t.shape == st.ps.shape == st.tau.shape == (1, 130)
+        assert st.k.dtype == st.iters.dtype == torch.int32 and st.done.dtype == torch.bool
+        assert torch.equal(st.X.T, res.x) and torch.equal(st.iters, res.iters)
+        assert set(st.k.tolist()) <= {5, 10}
+        return
+    with pytest.raises(TypeError, match="FusedSolveState"):
+        fused_solve.solve_lasso_fused(A, b, a1, cfg=cfg, interpret=True, **kw)
+    again = fused_solve.solve_lasso_fused(A, b, a1, cfg=_cfg(max_iter=20),
+                                          interpret=True, state0=st)
+    assert torch.equal(again.x, fused_solve.solve_lasso_fused(
+        A, b, a1, cfg=_cfg(max_iter=20), interpret=True).x)
 
 
 def test_envelope_and_launch_checks():
@@ -212,3 +246,168 @@ def test_stream_twin_is_full_sum():
     assert stream.LAUNCHES == 0  # the CPU route never launches the kernel
     with pytest.raises(ValueError, match="CUDA"):
         stream.measure_stream_ceiling(At, bt)
+
+
+# ---- every mode of the fused engine, and its checkpoint/resume ----
+
+def _noise_free(seed, B=300, m=96, n=5, alpha1=None):
+    """The reference's resume recipe (tests/test_fused_resume.py): i.i.d.
+    features, a 2-sparse x_true, b without noise, α₁ = 0.1·‖Aᵀb‖∞ or the
+    given constant."""
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(n, m, B)).astype(np.float32)
+    xt = np.zeros((n, B), np.float32)
+    xt[:2] = rng.normal(size=(2, B))
+    b = np.einsum("nmb,nb->mb", A, xt).astype(np.float32)
+    a1 = 0.1 * np.abs(np.einsum("nmb,mb->nb", A, b)).max(axis=0)
+    if alpha1 is not None:
+        a1 = np.full(B, alpha1)
+    return A, b, a1.astype(np.float32)
+
+
+MODES = {"restart": dict(adaptive_restart=True), "greedy": dict(momentum="greedy")}
+
+
+@pytest.fixture(scope="module")
+def modes_solved():
+    """Restart and greedy through both packages' fused engines at the
+    reference's cross-engine recipe (tests/test_kernels.py:740-746): n=5,
+    m=250, B=300 over 128-lane tiles, rel_gap_tol 5e-6, max_iter 2000."""
+    A, b, a1 = _problem(5, 250, 300, seed=17)
+    out = {}
+    for name, kw in MODES.items():
+        cfg = JaxConfig(max_iter=2000, check_every=25, rel_gap_tol=5e-6, **kw)
+        rj = jax_fused(jnp.asarray(A), jnp.asarray(b), jnp.asarray(a1), 0.0, cfg=cfg,
+                       b_tile=128, interpret=True)
+        rt = fused_solve.solve_lasso_fused(
+            torch.from_numpy(A), torch.from_numpy(b), torch.from_numpy(a1), 0.0,
+            cfg=convert.config_from_jax(cfg), b_tile=128, interpret=True)
+        out[name] = (rj, rt, cfg)
+    return out
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_twin_matches_jax_fused_in_every_mode(modes_solved, mode):
+    rj, rt, cfg = modes_solved[mode]
+    np.testing.assert_allclose(rt.x.numpy(), np.asarray(rj.x), rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(rt.converged.numpy(), np.asarray(rj.converged))
+    d_iters = np.abs(rt.iters.numpy().astype(np.int64) - np.asarray(rj.iters, np.int64))
+    assert d_iters.max() <= cfg.check_every
+    assert rt.converged.all() and not rt.failed.any()
+
+
+@pytest.mark.parametrize("mode", ["fixed", "restart"])
+def test_twin_matches_jax_fused_armijo_decisive(mode):
+    """Armijo with table-β and with restart momentum, in the decisive regime
+    (L understated 4×, 6 iterations, tests/test_kernel_armijo.py:125-159, with
+    that file's α₁ = 0.5): every accept/reject call has margin, so the
+    trajectories agree. At α₁ = 0.1·‖Aᵀb‖∞ a few lanes meet a borderline
+    accept within 3 iterations, and one flipped call halves τ for good."""
+    A, b, a1 = _noise_free(seed=1, alpha1=0.5)
+    cfg = JaxConfig(max_iter=6, check_every=6, rel_gap_tol=1e-6, backtracking=True,
+                    t_init_factor=4.0, adaptive_restart=mode == "restart")
+    rj = jax_fused(jnp.asarray(A), jnp.asarray(b), jnp.asarray(a1), 0.0, cfg=cfg,
+                   b_tile=128, interpret=True)
+    rt = fused_solve.solve_lasso_fused(
+        torch.from_numpy(A), torch.from_numpy(b), torch.from_numpy(a1), 0.0,
+        cfg=convert.config_from_jax(cfg), b_tile=128, interpret=True)
+    np.testing.assert_allclose(rt.x.numpy(), np.asarray(rj.x), rtol=1e-4, atol=1e-5)
+    np.testing.assert_array_equal(rt.iters.numpy(), np.asarray(rj.iters))
+
+
+RESUME_MODES = {
+    "nesterov": {}, "restart": dict(adaptive_restart=True), "greedy": dict(momentum="greedy"),
+    "armijo": dict(backtracking=True), "armijo_restart": dict(backtracking=True,
+                                                              adaptive_restart=True),
+}
+
+
+@pytest.mark.parametrize("mode", list(RESUME_MODES))
+def test_twin_resume_is_bit_exact(mode):
+    """tests/test_fused_resume.py:36-67 on the twin: 75 iterations, a
+    FusedSolveState, then 125 more equal 200 straight ones bit for bit, the
+    final state included."""
+    A, b, a1 = (torch.from_numpy(v) for v in _noise_free(seed=1))
+    full = BatchFISTAConfig(max_iter=200, check_every=25, rel_gap_tol=1e-6,
+                            **RESUME_MODES[mode])
+    half = dataclasses.replace(full, max_iter=75)
+    run = lambda cfg, **kw: fused_solve.solve_lasso_fused(A, b, a1, 0.0, cfg=cfg, b_tile=128,
+                                                          interpret=True, **kw)
+    straight, end = run(full, return_state=True)
+    _, mid = run(half, return_state=True)
+    assert set(mid.k.tolist()) <= {25, 50, 75}
+    resumed, end2 = run(full, state0=mid, return_state=True)
+    for field in ("x", "iters", "rel_gap", "converged"):
+        assert torch.equal(getattr(resumed, field), getattr(straight, field)), field
+    for name, u, v in zip(end._fields, end, end2):
+        assert torch.equal(u, v), name
+
+
+def test_twin_resume_with_tiles_at_different_k():
+    """tests/test_fused_resume.py:70-102: the first tile made trivially easy
+    certifies and stops while the others run, so the checkpoint holds two k;
+    each tile resumes from its own. A coarser grouping refuses the state."""
+    A, b, a1 = (torch.from_numpy(v) for v in _noise_free(seed=4))
+    big = 10.0 * torch.einsum("nmb,mb->nb", A, b).abs().amax(0)
+    a1 = torch.where(torch.arange(300) < 128, big, a1)
+    run = lambda max_iter, **kw: fused_solve.solve_lasso_fused(
+        A, b, a1, 0.0, cfg=BatchFISTAConfig(max_iter=max_iter, check_every=25,
+                                            rel_gap_tol=1e-6),
+        interpret=True, **{"b_tile": 128, **kw})
+    straight = run(400)
+    _, mid = run(150, return_state=True)
+    assert len(set(mid.k.tolist())) > 1
+    resumed = run(400, state0=mid)
+    assert torch.equal(resumed.x, straight.x) and torch.equal(resumed.iters, straight.iters)
+    with pytest.raises(ValueError, match="not uniform"):
+        run(400, state0=mid, b_tile=256)
+
+
+CHECKPOINT_MODES = {"nesterov": {}, "restart": dict(adaptive_restart=True),
+                    "greedy": dict(momentum="greedy")}
+
+
+@pytest.fixture(scope="module")
+def jax_checkpoints():
+    """The reference's fused engine cut at 75 iterations (its
+    FusedSolveState) and resumed to the end, per mode, at the cross-engine
+    recipe of :func:`modes_solved` (at 1e-6 a few lanes sit at the f32 floor
+    and certify by the gap's last bits)."""
+    A, b, a1 = _problem(5, 250, 300, seed=17)
+    out = {}
+    for name, kw in CHECKPOINT_MODES.items():
+        full = JaxConfig(max_iter=2000, check_every=25, rel_gap_tol=5e-6, **kw)
+        half = dataclasses.replace(full, max_iter=75)
+        args = (jnp.asarray(A), jnp.asarray(b), jnp.asarray(a1), 0.0)
+        _, mid = jax_fused(*args, cfg=half, b_tile=128, interpret=True, return_state=True)
+        resumed = jax_fused(*args, cfg=full, b_tile=128, interpret=True, state0=mid)
+        out[name] = (mid, resumed, full)
+    return out
+
+
+@pytest.mark.parametrize("mode", list(CHECKPOINT_MODES))
+def test_jax_checkpoint_resumes_in_the_port(jax_checkpoints, mode):
+    """A JAX FusedSolveState, carried by convert.fused_state_from_numpy,
+    resumes in the port to the reference's resumed run (x to rtol 1e-5/atol
+    1e-6, converged identical, iters within a burst); the port's own
+    checkpoint holds the same k and the same iterates to that tolerance (not
+    the same t and ps: a restart decided by the last bits of a step norm
+    falls at another iteration, and the rows differ from there while x
+    agrees)."""
+    mid_j, res_j, cfg = jax_checkpoints[mode]
+    A, b, a1 = (torch.from_numpy(v) for v in _problem(5, 250, 300, seed=17))
+    st = convert.fused_state_from_numpy(*(np.asarray(v) for v in mid_j))
+    assert isinstance(st, fused_solve.FusedSolveState) and st.t.shape == (1, 300)
+    res_t = fused_solve.solve_lasso_fused(A, b, a1, 0.0, cfg=convert.config_from_jax(cfg),
+                                          b_tile=128, interpret=True, state0=st)
+    np.testing.assert_allclose(res_t.x.numpy(), np.asarray(res_j.x), rtol=1e-5, atol=1e-6)
+    np.testing.assert_array_equal(res_t.converged.numpy(), np.asarray(res_j.converged))
+    d_iters = np.abs(res_t.iters.numpy().astype(np.int64) - np.asarray(res_j.iters, np.int64))
+    assert d_iters.max() <= cfg.check_every
+    _, mid_t = fused_solve.solve_lasso_fused(
+        A, b, a1, 0.0, cfg=convert.config_from_jax(dataclasses.replace(cfg, max_iter=75)),
+        b_tile=128, interpret=True, return_state=True)
+    np.testing.assert_array_equal(mid_t.k.numpy(), np.asarray(mid_j.k))
+    for name in ("X", "Y"):
+        np.testing.assert_allclose(getattr(mid_t, name).numpy(), np.asarray(getattr(mid_j, name)),
+                                   rtol=1e-5, atol=1e-6, err_msg=name)

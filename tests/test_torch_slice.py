@@ -145,17 +145,21 @@ def test_router_cpu_auto_runs_driver():
 
 @pytest.mark.parametrize("case", ["restart", "greedy", "backtracking", "wide_n"])
 def test_router_auto_falls_back_to_driver(case):
-    """What the fused guards refuse goes to the two-kernel path (the build
-    and burst twins) under interpret=True, and backend='kernel' runs it too;
-    without a CUDA tensor or interpret, auto falls back to the driver."""
+    """Under interpret=True restart, greedy and Armijo at n = 5 run on the
+    fused twin, as the reference routes them (every mode at n <= 8); what
+    the fused guards refuse, n = 9, goes to the two-kernel path (the build
+    and burst twins). backend='kernel' runs the same; without a CUDA tensor
+    or interpret, auto falls back to the driver."""
     kw = {"restart": dict(adaptive_restart=True), "greedy": dict(momentum="greedy"),
           "backtracking": dict(backtracking=True), "wide_n": {}}[case]
     A, b = _small(n=fused_solve.MAX_N + 1 if case == "wide_n" else 5)
     cfg = BatchFISTAConfig(max_iter=200, check_every=10, **kw)
     got = solve_lasso_batch(A, b, 0.5, 0.0, cfg=cfg, interpret=True)
-    gb = make_gram_batch_fused(A.permute(2, 1, 0).contiguous(), b.T.contiguous(),
-                               0.5, 0.0)
-    want = fista_gram_vmem(gb, cfg)
+    A_fm, b_fm = A.permute(2, 1, 0).contiguous(), b.T.contiguous()
+    if case == "wide_n":
+        want = fista_gram_vmem(make_gram_batch_fused(A_fm, b_fm, 0.5, 0.0), cfg)
+    else:
+        want = fused_solve.fused_solve_reference(A_fm, b_fm, 0.5, 0.0, cfg=cfg)
     assert torch.equal(got.x, want.x) and torch.equal(got.iters, want.iters)
     forced = solve_lasso_batch(A, b, 0.5, 0.0, cfg=cfg, backend="kernel", interpret=True)
     assert torch.equal(forced.x, want.x)
@@ -184,12 +188,16 @@ def test_router_kernel_route_and_errors():
     pytest.param(dict(mesh=object()), NotImplementedError, "mesh", id="kw0-mesh"),
     # a state of no known engine raises TypeError, as in the reference
     pytest.param(dict(state0=object()), TypeError, "state0 must be", id="kw1-resume"),
-    # the fused engine's state is not ported yet (n = 5, fixed momentum)
-    pytest.param(dict(return_state=True, interpret=True), NotImplementedError,
+    # the fused engine's state (n = 5): returned now, once a refusal
+    pytest.param(dict(return_state=True, interpret=True), None,
                  "FusedSolveState", id="kw2-resume"),
 ])
 def test_router_unported_options_raise(kw, exc, match):
     A, b = _small()
+    if exc is None:
+        res, state = solve_lasso_batch(A, b, 0.5, **kw)
+        assert type(state).__name__ == match and torch.equal(state.X.T, res.x)
+        return
     with pytest.raises(exc, match=match):
         solve_lasso_batch(A, b, 0.5, **kw)
 
@@ -339,9 +347,10 @@ def test_state0_pins_the_route_like_jax():
     from fastoptsolver_tpu.batch import solve_gram_batch as jax_sgb
     from fastoptsolver_tpu.batch.fista_gram import BatchState as JaxBatchState
     from fastoptsolver_tpu.batch.fista_gram import GramBatch as JaxGramBatch
+    from fastoptsolver_tpu.kernels import FusedSolveState as JaxFusedState
     from fastoptsolver_tpu.kernels import VmemSolveState as JaxVmemState
     from fastoptsolver_tpu_torch.batch import BatchState, GramBatch, solve_gram_batch
-    from fastoptsolver_tpu_torch.kernels import VmemSolveState
+    from fastoptsolver_tpu_torch.kernels import FusedSolveState, VmemSolveState
 
     n, B = 5, 4
     z = lambda *s: np.zeros(s, np.float32)
@@ -351,9 +360,13 @@ def test_state0_pins_the_route_like_jax():
     vt = VmemSolveState(*([torch.zeros(1)] * 9))
     bj = JaxBatchState(*([jnp.asarray(z(1))] * 10))
     bt = BatchState(*([torch.zeros(1)] * 10))
+    fj = JaxFusedState(*([jnp.asarray(z(1))] * 9))
+    ft = FusedSolveState(*([torch.zeros(1)] * 9))
     cases = [(vj, vt, dict(backend="xla", interpret=True), ValueError, "backend='xla'"),
              (vj, vt, dict(), ValueError, "VmemSolveState"),
              (bj, bt, dict(backend="kernel", interpret=True), ValueError, "backend='kernel'"),
+             # a Gram cannot resume the fused engine, which builds its own
+             (fj, ft, dict(interpret=True), TypeError, "state0 must be a Resident"),
              (object(), object(), dict(), TypeError, "state0 must be")]
     for sj, st, kw, exc, match in cases:
         with pytest.raises(exc, match=match):
@@ -366,13 +379,15 @@ def test_state0_pins_the_route_like_jax():
 def test_routed_resume_is_bit_exact(kw):
     """A certified run cut at 40 iterations and resumed through
     solve_lasso_batch's state0 equals the straight run bit for bit, on the
-    burst engine (a VmemSolveState) and on the driver (a BatchState); each
-    state refuses the other engine's backend."""
-    A, b = _small(n=9)
+    burst engine (n = 9, a VmemSolveState), on the fused kernel (n = 5, a
+    FusedSolveState) and on the driver (a BatchState); each state refuses
+    the other engine's backend."""
     full = BatchFISTAConfig(max_iter=300, check_every=10, **kw)
     half = BatchFISTAConfig(max_iter=40, check_every=10, **kw)
-    for interpret, engine, other in ((True, "VmemSolveState", "xla"),
-                                     (False, "BatchState", "kernel")):
+    for n, interpret, engine, other in ((9, True, "VmemSolveState", "xla"),
+                                        (9, False, "BatchState", "kernel"),
+                                        (5, True, "FusedSolveState", "xla")):
+        A, b = _small(n=n)
         straight = solve_lasso_batch(A, b, 0.5, 0.0, cfg=full, interpret=interpret)
         _, mid = solve_lasso_batch(A, b, 0.5, 0.0, cfg=half, interpret=interpret,
                                    return_state=True)
