@@ -144,7 +144,7 @@ FUSED_MODES = {"restart": dict(adaptive_restart=True), "greedy": dict(momentum="
 # phase 9 holds restart and greedy at it less one point. Armijo certifies no
 # lane there in 1000 iterations, in the reference too: printed, not held
 REFERENCE_SHARE = {"restart": 1.0, "greedy": 1.0}
-# the H100 SXM's data-sheet peaks (the on-chip-measurement guide's table): the
+# the H100 SXM's data-sheet peaks: the
 # bound of a kernel is the larger of its bytes over the memory rate and its
 # float32 operations over the rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
