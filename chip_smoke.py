@@ -17,10 +17,11 @@ Phases, one line each (``--`` lines are detail):
    2e-5), Armijo with table-β and with restart in the decisive regime (x to
    rtol 1e-4/atol 1e-5), a 75 + 125 resume bit-exact in every mode and with
    tiles at different k; the stream pass (to 1e-5 of each lane's absolute
-   sum), then both at the bench shape; the Gram build at n ∈ {9, 20, 64} and
-   at the wide-n shape (Q, c, bᵀb to 1e-5 of each lane's largest entry, λ to
-   1e-5 relative); the burst kernel at n = 20 in every mode (one burst:
-   state to rtol 2e-4/atol 2e-5; fixed runs, ``check_every=0``: x to rtol
+   sum), then both at the bench shape; the Gram build at n ∈ {9, 20, 64}
+   with B % 4 == 0 and at n = 9 with B = 301 (``gram_pairs``' 16-byte and
+   4-byte copies, both required) and at the wide-n shape (Q, c, bᵀb to 1e-5
+   of each lane's largest entry, λ to 1e-5 relative); the burst kernel at
+   n = 20 in every mode (one burst: state to rtol 2e-4/atol 2e-5; fixed runs, ``check_every=0``: x to rtol
    2e-4/atol 2e-5; certified runs at rel_gap_tol=1e-5: ``converged``
    identical, ``iters`` within ``check_every``; Armijo in the decisive regime: x to rtol 1e-4/atol
    1e-5), a 40 + 60 resume bit-exact against 100 straight iterations, and
@@ -58,9 +59,10 @@ Phases, one line each (``--`` lines are detail):
    on its own recipe): none may fail, every certified lane is ≤ 1e-6, every
    lane ≤ 1e-5, at least 80% certify, 4096 sampled lanes are rechecked in
    float64 (≤ 1e-4), and ``solve_gram_batch`` on the built Gram must give
-   the same x; then CUDA event medians of 3: the build kernels vs their
-   twin, the burst solve vs its twin, the routed call (ms, certified
-   instances/s) and the torch driver on the same Gram (the route this path
+   the same x; then CUDA event medians of 3: the build kernels, and
+   ``gram_pairs`` and ``gram_power`` each alone, vs their twins (the pairs'
+   L2 read rate beside one ``torch.einsum`` of the same pair sums), the
+   burst solve vs its twin, the routed call (ms, certified instances/s) and the torch driver on the same Gram (the route this path
    replaces);
 7. resident path — the same recipe at n=128, m=256, B=30464 (a 2 GB Gram):
    the einsum build without the power loop and one launch of the resident
@@ -106,10 +108,11 @@ burst, resident and Q-streaming engines; ``e2e_ms`` is the routed call;
 operations of this run's data over 67 TFLOP/s, ``bound_by`` which;
 ``library_ms`` one torch call for the same function where there is one: the
 sums of A and b for the stream pass, the pair sums as one ``torch.einsum``
-for the build; the fused entry's ``modes`` holds phase 9's times), the
-card's name and power limit, and, last,
-``{"ok": true, "device": {...}}``. It exits non-zero,
-printing no result, when there is no CUDA device or any phase fails.
+for the build; the build's entry also gives ``gram_pairs`` and
+``gram_power`` apart (``pairs_*``, ``power_*``); the fused entry's
+``modes`` holds phase 9's times), the card's name and power limit, and,
+last, ``{"ok": true, "device": {...}}``. It exits non-zero, printing no
+result, when there is no CUDA device or any phase fails.
 """
 from __future__ import annotations
 
@@ -126,7 +129,8 @@ RESIDENT_SRC = "fastoptsolver_tpu_torch/kernels/csrc/resident.cu"
 QSTREAM_SRC = "fastoptsolver_tpu_torch/kernels/csrc/qstream.cu"
 SMALL_SHAPES = ((5, 250, 390), (1, 64, 128), (8, 333, 300))
 BATCH = 262144  # the bench configuration's instances (bench.py:88)
-BUILD_SHAPES = ((9, 33, 300), (20, 70, 200), (64, 128, 256))
+# the last has B % 4 != 0: gram_pairs' 4-byte copies beside its 16-byte ones
+BUILD_SHAPES = ((9, 33, 300), (20, 70, 200), (64, 128, 256), (9, 33, 301))
 # bench/wide_n.py's first width: n = 96, m = 2n, B sized to a 2 GB Gram
 WIDE_N = 96
 WIDE_B = int(2e9 / (WIDE_N * WIDE_N * 4)) // 128 * 128  # 54144
@@ -1152,6 +1156,8 @@ def main() -> int:
     from fastoptsolver_tpu_torch.bench.wide_n import build_problems
     from fastoptsolver_tpu_torch.kernels import (
         _build, fista_vmem, fused_solve, gram_build, qstream, resident)
+    from fastoptsolver_tpu_torch.kernels._common import (
+        augmented_gram, make_matvec, power_lambda_max)
     from fastoptsolver_tpu_torch.kernels.fused_solve import (
         fused_solve_reference, solve_lasso_fused)
 
@@ -1171,8 +1177,12 @@ def main() -> int:
         elif "bytes spill stores" in ln and not ln.split("bytes spill stores")[0].split(",")[
                 -1].strip() == "0":
             regs.append(f"{entry}: SPILLS {ln.strip()}")
+    pairs_smem = _build.library().gram_pairs_smem_bytes()
+    require(pairs_smem == gram_build._pairs_smem_bytes(),
+            f"gram_pairs' ring is {pairs_smem} bytes, its Python mirror "
+            f"{gram_build._pairs_smem_bytes()}")
     print(f"[2 build] {time.perf_counter() - t0:.2f} s (nvcc {_build.build_seconds:.2f} s); "
-          f"{len(regs)} kernels")
+          f"{len(regs)} kernels; gram_pairs ring {pairs_smem} bytes")
     for ln in regs:
         print(f"-- ptxas {ln}")
 
@@ -1190,8 +1200,13 @@ def main() -> int:
                 res_k, res_t, cfg.check_every, f"{(n, m, B)} {mode}"))
         errs["stream"] = max(errs["stream"], compare_stream(A, b, str((n, m, B))))
     errs["fused"] = max(errs["fused"], check_fused_modes(dev))
-    errs["gram"] = max(compare_build(*small_problem(n, m, B, seed=20 + i, device=dev)[:2],
-                                     str((n, m, B))) for i, (n, m, B) in enumerate(BUILD_SHAPES))
+    errs["gram"], widths = 0.0, set()
+    for i, (n, m, B) in enumerate(BUILD_SHAPES):
+        Ag, bg = small_problem(n, m, B, seed=20 + i, device=dev)[:2]
+        width = gram_build._pairs_copy_bytes(B, Ag.data_ptr(), bg.data_ptr())
+        widths.add(width)
+        errs["gram"] = max(errs["gram"], compare_build(Ag, bg, f"{(n, m, B)} {width}-byte copies"))
+    require(widths == {4, 16}, f"BUILD_SHAPES reach gram_pairs' copy widths {widths}, not both")
     errs["burst"] = check_bursts(dev)
     errs["resident"] = check_resident(dev)
     errs["qstream"] = check_qstream(dev)
@@ -1362,8 +1377,12 @@ def main() -> int:
     del res_g
 
     build_ms, build_trials, _ = med3(lambda: gram_build._launch(Aw, bw, 96))
-    pairs_ms, _, _ = med3(lambda: gram_build._launch(Aw, bw, 0))  # no power steps
+    pairs_ms, pairs_trials, (Qw, cw, _, _) = med3(lambda: gram_build._launch(Aw, bw, 0))
+    power_ms, _, _ = med3(lambda: gram_build._launch_power(Qw, cw, 96))
     build_plain_ms, _, _ = med3(lambda: gram_build.gram_build_reference(Aw, bw, 96))
+    pairs_plain_ms, _, _ = med3(lambda: augmented_gram(Aw, bw))
+    power_plain_ms, _, _ = med3(lambda: power_lambda_max(make_matvec(Qw, WIDE_N), cw, 96))
+    del Qw, cw
     torch.cuda.empty_cache()
     burst_ms, burst_trials, res_k = med3(lambda: fista_vmem.fista_gram_vmem(gbw, cfg))
     burst_plain_ms, _, res_t = med3(lambda: fista_vmem.fista_gram_vmem_reference(gbw, cfg))
@@ -1391,8 +1410,10 @@ def main() -> int:
           f"/{WIDE_B}")
     q_gb = gbw.Q.numel() * 4 / 1e9
     q_reads = int(res.n_iters_total) + bursts  # one per iteration, one per gap
-    print(f"[6 times] build kernels {build_ms:.3f} ms (without the power steps "
-          f"{pairs_ms:.3f} ms) vs twin {build_plain_ms:.3f} ms | "
+    print(f"[6 times] build kernels {build_ms:.3f} ms (gram_pairs alone "
+          f"{pairs_ms:.3f} ms, trials {[round(x, 3) for x in pairs_trials]}; gram_power "
+          f"alone {power_ms:.3f} ms) vs twin {build_plain_ms:.3f} ms (pairs "
+          f"{pairs_plain_ms:.3f}, power {power_plain_ms:.3f}) | "
           f"burst solve {burst_ms:.3f} ms ({bursts} bursts, {q_reads} Q reads = "
           f"{q_reads * q_gb / burst_ms * 1e3:.1f} GB/s; the {bursts} launches back to "
           f"back {launches_ms:.3f} ms, so the host loop costs "
@@ -1406,6 +1427,14 @@ def main() -> int:
     bounds["gram"] = bound(4 * (nw * mw * WIDE_B + mw * WIDE_B + nw * nw * WIDE_B
                                 + nw * WIDE_B + 2 * WIDE_B),
                            WIDE_B * (mw * (nw + 1) * (nw + 2) + 96 * 2 * nw * nw))
+    # gram_pairs alone: A and b read once, Q, c and bᵀb written once, its pair
+    # sums; and what its CTAs stage from L2. gram_power: Q and c read once, λ
+    # written, 96 matvecs
+    pairs_work = gram_build._pairs_work(nw, mw, WIDE_B)
+    bounds["pairs"] = bound(pairs_work["bytes"], pairs_work["flops"])
+    bounds["power"] = bound(4 * (nw * nw * WIDE_B + nw * WIDE_B + WIDE_B),
+                            WIDE_B * 96 * 2 * nw * nw)
+    pairs_l2_gbps = pairs_work["l2_bytes"] / pairs_ms / 1e6
     bounds["burst"] = bound(4 * (nw * nw * WIDE_B + nw * WIDE_B + 6 * WIDE_B + nw * WIDE_B),
                             solve_ops(nw, WIDE_B * int(res.n_iters_total), cfg.check_every))
     del gbw, res, res_d
@@ -1415,9 +1444,12 @@ def main() -> int:
     gram_lib_ms, _, _ = med3(lambda: torch.einsum("imb,jmb->ijb", Ab, Ab))
     del Ab
     torch.cuda.empty_cache()
-    print(f"-- bounds: build {bounds['gram'][0]:.3f} ms by {bounds['gram'][1]} (the pair sums "
-          f"as one torch.einsum {gram_lib_ms:.3f} ms), burst solve {bounds['burst'][0]:.3f} "
-          f"ms by {bounds['burst'][1]}")
+    print(f"-- bounds: build {bounds['gram'][0]:.3f} ms by {bounds['gram'][1]}; gram_pairs "
+          f"{bounds['pairs'][0]:.3f} ms by {bounds['pairs'][1]} against its {pairs_ms:.3f} ms "
+          f"and the pair sums as one torch.einsum {gram_lib_ms:.3f} ms, its L2 reads "
+          f"{pairs_work['l2_bytes'] / 1e9:.1f} GB at {pairs_l2_gbps:.1f} GB/s; gram_power "
+          f"{bounds['power'][0]:.3f} ms by {bounds['power'][1]} against its {power_ms:.3f} ms; "
+          f"burst solve {bounds['burst'][0]:.3f} ms by {bounds['burst'][1]}")
 
     # ---- 7 and 8: the resident and Q-streaming paths, counted, then timed ----
     w1 = resident_path(dev, cfg, mods)
@@ -1444,7 +1476,12 @@ def main() -> int:
          "replaces": "fastoptsolver_tpu/kernels/gram_build.py:120",
          "launches": launches["gram"], "max_abs_err": errs["gram"],
          "ms": build_ms, "plain_ms": build_plain_ms, "bound_ms": bounds["gram"][0],
-         "bound_by": bounds["gram"][1], "library_ms": gram_lib_ms},
+         "bound_by": bounds["gram"][1], "library_ms": gram_lib_ms,
+         "pairs_ms": pairs_ms, "pairs_plain_ms": pairs_plain_ms,
+         "pairs_bound_ms": bounds["pairs"][0], "pairs_bound_by": bounds["pairs"][1],
+         "pairs_l2_gbps": pairs_l2_gbps, "pairs_library_ms": gram_lib_ms,
+         "power_ms": power_ms, "power_plain_ms": power_plain_ms,
+         "power_bound_ms": bounds["power"][0], "power_bound_by": bounds["power"][1]},
         {"name": "fista_burst", "route": "cuda", "source": BURST_SRC,
          "replaces": "fastoptsolver_tpu/kernels/fista_vmem.py:92",
          "launches": launches["burst"], "max_abs_err": errs["burst"],

@@ -5,11 +5,12 @@ here keeps its JAX counterpart's name and surface, and the tests feed both
 packages the same inputs. The slice ported so far is the certified
 batched-lasso surface (``batch.solve_lasso_batch``, ``batch.solve_gram_batch``):
 the torch Gram-form FISTA driver (``batch.fista_gram``) runs on any device; on
-a CUDA tensor the router sends fixed-momentum configurations with n ≤ 8 to one
-launch of the hand-written Hopper fused build+solve kernel
-(``kernels.fused_solve``), every other configuration with n ≤ 104 to the
-two-kernel path (the Gram build kernels, ``kernels.gram_build``, and the
-certified burst kernel, ``kernels.fista_vmem``), certified configurations
+a CUDA tensor the router sends certified configurations with n ≤ 8, in every
+momentum mode (fixed, adaptive restart, greedy, Armijo), to one launch of the
+hand-written Hopper fused build+solve kernel (``kernels.fused_solve``), every
+other configuration with n ≤ 104 to the two-kernel path (the Gram build
+kernels, ``kernels.gram_build``, and the burst kernel,
+``kernels.fista_vmem``), certified configurations
 with 104 < n ≤ 168 to one launch of the resident kernel
 (``kernels.resident``), and wider ones to the Q-streaming kernel
 (``kernels.qstream``), one launch per burst.

@@ -270,10 +270,10 @@ def solve_lasso_batch(
     reference takes a ``jax.random`` key there). Returns a ``BatchResult``,
     or ``(result, state)`` with ``return_state``; ``state0`` resumes on the
     engine whose state it is."""
-    if mesh is not None or mesh_axis is not None:
+    if mesh is not None:  # mesh_axis alone is ignored, as the reference does
         raise NotImplementedError(
             "solve_lasso_batch(mesh=) is not ported yet (ROADMAP Queue 1 "
-            "item 9: torch.distributed)"
+            "item 7: torch.distributed)"
         )
     if cfg is None:
         cfg = _default_cfg()

@@ -78,9 +78,11 @@ _SIGNATURES = {
     "qstream_burst": [_vp] * 18 + [_i, _ll, _i, _i, _i, _i, _f, _f, _f, _vp],
     # n: the resident kernel's lanes per CTA on the current device
     "resident_group": [_i],
+    "gram_pairs_smem_bytes": [],
     "fos_cuda_error_string": [_i],
 }
-_RESTYPES = {"fos_cuda_error_string": ctypes.c_char_p}  # the rest return int
+_RESTYPES = {"fos_cuda_error_string": ctypes.c_char_p,
+             "gram_pairs_smem_bytes": _ll}  # the rest return int
 
 _lib: ctypes.CDLL | None = None
 build_log = ""  # nvcc's output for the library this process built or loaded

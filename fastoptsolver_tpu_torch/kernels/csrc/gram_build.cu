@@ -14,21 +14,34 @@
 // gram_pairs — grid (block of the augmented upper triangle, tile of 32 lanes). The
 //   augmented matrix [A|b] has na = n+1 columns, cut into blocks of 16 features; a
 //   CTA owns one pair of feature blocks (I <= K) of one lane tile and walks all m
-//   rows, staging 8 rows x 32 features x 32 lanes of [A|b] in shared memory (one
-//   128-byte line per feature and row) and keeping a 4 x 8 tile of pair sums per
-//   thread in registers, summed in blocks of 32 rows (like fused_solve.cu) so the
-//   f32 error stays near the twin's blocked sums. A lane tile's data is read once
-//   per feature-block row of the triangle (nb = ceil(na/16) times per block of I);
-//   the CTAs of one lane tile run side by side (the pair index is the fast grid
-//   axis), so most of those reads are served by the 50 MB L2.
-//   Bound at the full-width shape (n=96, m=192, B=54144): 4753 pair sums per lane,
-//   4.9e10 FMAs, computed as 28 blocks of 256 (7168 per lane, 1.5x the triangle):
-//   ~7.4e10 FMAs, ~2.2 ms at the card's 67 TFLOP/s f32 peak, against 4.0 GB of A read
-//   once (~1.2 ms at 3.35 TB/s) plus 2.0 GB of Q written. Measured on an H100 80GB
-//   HBM3 (700 W) it takes ~48 ms with the Q copy-in of gram_power: neither bound is
-//   reached, because a stage is loaded and then computed with only 2 CTAs per SM
-//   (128 registers) to hide the load latency. Double-buffered stages (cp.async)
-//   are the next step; TF32 tensor cores are ruled out (the certificate needs f32).
+//   rows in stages of 8 rows x 32 features x 32 lanes (one 128-byte line per feature
+//   and row, 32 KB), keeping a 4 x 8 tile of pair sums per thread in registers,
+//   summed in blocks of 32 rows (like fused_solve.cu) so the f32 error stays near
+//   the twin's blocked sums. A lane tile's data is read once per feature-block row
+//   of the triangle (nb = ceil(na/16) times per block of I); the CTAs of one lane
+//   tile run side by side (the pair index is the fast grid axis), so most of those
+//   reads are served by the 50 MB L2.
+//   The stages go through a ring of kStages = 3 slots of dynamic shared memory (96
+//   KB, so 2 CTAs of 256 threads share an SM) filled by cp.async: while stage s is
+//   summed, the copies of s+1 and s+2 are in flight, and one __syncthreads() per
+//   stage guards a slot's reuse. Copies are 16 bytes (cp.async.cg, 8 per line) when
+//   B % 4 == 0 and A, b are 16-byte aligned, else 4 bytes (cp.async.ca); the
+//   ragged edges (rows >= m, features >= na, lanes >= B) are zero-filled by a
+//   src-size of 0. The per-pair arithmetic (thread -> tile map, row order, fmaf
+//   chain, 32-row partial sums) is that of the one-stage kernel it replaces, so Q,
+//   c and b^T b are bit-identical to it at every copy width.
+//   Bounds at the full-width shape (n=96, m=192, B=54144): 6.05 GB of device
+//   traffic (A and b read once, Q, c and b^T b written once; 1.81 ms at 3.35 TB/s);
+//   4753 pair sums per lane, computed as 28 blocks of 256 (1.5x the triangle),
+//   ~7.4e10 FMAs (~2.2 ms at 67 TFLOP/s); and 37.3 GB staged from L2 (28 block
+//   pairs x 1692 lane tiles x 24 stages x 32 KB). Measured on an H100 80GB HBM3
+//   (700 W, bench/gram_pairs_ab.py): 6.39 ms, L2 -> SM reads at 5.8 TB/s, against
+//   42.9 ms for the one-stage kernel (loads, then sums, 24 times a CTA with nothing
+//   in flight) and 37.9 ms for one torch.einsum of the same pair sums; ptxas: 124
+//   registers (16-byte copies), 120 (4-byte), no spill. The L2 reads bound it
+//   now: larger feature blocks (fewer re-reads) and no padded pairs in diagonal
+//   blocks are the next steps; TF32 tensor cores are ruled out (the certificate
+//   needs f32).
 //
 // gram_power — grid (tile of 8 lanes). pl_iters power steps per lane from
 //   v0 = c/max(|c|, 1e-30): w = Qv, lam = |w|, v = w/max(lam, 1e-30). Reading Q
@@ -58,16 +71,44 @@ namespace {
 // ---- gram_pairs ----
 constexpr int kLanes = 32;       // lanes per CTA (threadIdx.x)
 constexpr int kFB = 16;          // features per block of the augmented triangle
-constexpr int kStageRows = 8;    // rows staged in shared memory at a time
+constexpr int kStageRows = 8;    // rows per stage of the ring
+constexpr int kStages = 3;       // stages in the ring: copies of two ahead in flight
 constexpr int kBlockRows = 32;   // rows per partial sum
 constexpr int kTI = 4, kTK = 8;  // a thread's tile of pair sums
 constexpr int kPairThreads = kLanes * (kFB / kTI) * (kFB / kTK);  // 256
+constexpr int kStageFloats = kStageRows * 2 * kFB * kLanes;       // 8192: 32 KB
 
-__global__ void __launch_bounds__(kPairThreads)
+// One asynchronous copy of kVec floats (4 or 16 bytes) into shared memory;
+// src-size 0 (valid false) reads nothing and fills the destination with +0.
+template <int kVec>
+__device__ __forceinline__ void copy_async(uint32_t dst, const float* src, bool valid) {
+  const int bytes = valid ? 4 * kVec : 0;
+  if constexpr (kVec == 4)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(bytes) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+                 "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void commit_copies() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most kPending of this thread's copy groups are in flight.
+template <int kPending>
+__device__ __forceinline__ void wait_copies() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// kVec: floats per copy, 4 (B % 4 == 0 and 16-byte aligned bases) or 1.
+template <int kVec>
+__global__ void __launch_bounds__(kPairThreads, 2)
     gram_pairs_kernel(const float* __restrict__ A, const float* __restrict__ b,
                       float* __restrict__ Q, float* __restrict__ c, float* __restrict__ btb,
                       int n, int64_t m, int64_t B, int nb) {
-  __shared__ float stage[kStageRows][2 * kFB][kLanes];
+  // kStages x [kStageRows][2 * kFB][kLanes]: one 128-byte line per feature and row
+  extern __shared__ __align__(16) float ring[];
   const int tid = threadIdx.x;
   const int tx = tid % kLanes;   // lane within the tile
   const int ty = tid / kLanes;   // 0..7: which 4 x 8 tile of the 16 x 16 block
@@ -84,41 +125,75 @@ __global__ void __launch_bounds__(kPairThreads)
   const int64_t lane0 = static_cast<int64_t>(blockIdx.y) * kLanes;
   const int64_t plane = m * B;
 
+  // This thread's copies: kCopyF features, one chunk of kVec lanes each, in
+  // every row of a stage. kChunks neighbouring threads copy one 128-byte line.
+  constexpr int kChunks = kLanes / kVec;
+  constexpr int kFStride = kPairThreads / kChunks;
+  constexpr int kCopyF = 2 * kFB / kFStride;  // 1 at 16 bytes, 4 at 4 bytes
+  const int cl = (tid % kChunks) * kVec;      // the chunk's first lane
+  const bool lane_ok = lane0 + cl < B;        // B % 4 == 0: all kVec lanes or none
+  const float* src[kCopyF];
+  bool feat_ok[kCopyF];
+  uint32_t dst[kCopyF];
+  const uint32_t ring_s = static_cast<uint32_t>(__cvta_generic_to_shared(ring));
+#pragma unroll
+  for (int q = 0; q < kCopyF; ++q) {
+    const int f = tid / kChunks + q * kFStride;
+    const int g = (f < kFB) ? I * kFB + f : K * kFB + (f - kFB);
+    feat_ok[q] = lane_ok && g < na;
+    src[q] = feat_ok[q] ? ((g < n) ? A + g * plane : b) + lane0 + cl : A;
+    dst[q] = ring_s + static_cast<uint32_t>((f * kLanes + cl) * 4);
+  }
+  // stage st -> slot st % kStages; rows past m, features past na and lanes
+  // past B are zero-filled, as the loads of the one-stage kernel were
+  auto issue = [&](int64_t st, int slot) {
+#pragma unroll
+    for (int r = 0; r < kStageRows; ++r) {
+      const int64_t row = st * kStageRows + r;
+      const uint32_t off =
+          static_cast<uint32_t>((slot * kStageFloats + r * 2 * kFB * kLanes) * 4);
+#pragma unroll
+      for (int q = 0; q < kCopyF; ++q) {
+        const bool ok = feat_ok[q] && row < m;
+        copy_async<kVec>(dst[q] + off, ok ? src[q] + row * B : A, ok);
+      }
+    }
+  };
+
   float acc[kTI][kTK], part[kTI][kTK];
 #pragma unroll
   for (int a = 0; a < kTI; ++a)
 #pragma unroll
     for (int q = 0; q < kTK; ++q) acc[a][q] = part[a][q] = 0.f;
 
-  for (int64_t r0 = 0; r0 < m; r0 += kStageRows) {
-    __syncthreads();  // the previous stage is consumed
-    // load kStageRows x 32 features x 32 lanes: 8 elements per thread
-    for (int e = tid; e < kStageRows * 2 * kFB * kLanes; e += kPairThreads) {
-      const int l = e % kLanes;
-      const int f = (e / kLanes) % (2 * kFB);
-      const int r = e / (kLanes * 2 * kFB);
-      const int g = (f < kFB) ? I * kFB + f : K * kFB + (f - kFB);
-      const int64_t row = r0 + r;
-      const int64_t lane = lane0 + l;
-      float v = 0.f;
-      if (row < m && lane < B && g < na)
-        v = (g < n) ? __ldg(A + g * plane + row * B + lane) : __ldg(b + row * B + lane);
-      stage[r][f][l] = v;
-    }
-    __syncthreads();
+  const int64_t n_stages = (m + kStageRows - 1) / kStageRows;
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < n_stages) issue(s, s);
+    commit_copies();  // one group per stage, empty past the last
+  }
+  int slot = 0;
+  for (int64_t st = 0; st < n_stages; ++st) {
+    wait_copies<kStages - 2>();  // this thread's copies of stage st have landed
+    __syncthreads();  // everyone's have, and stage st-1's slot is consumed
+    const int next = (slot + kStages - 1) % kStages;
+    if (st + kStages - 1 < n_stages) issue(st + kStages - 1, next);
+    commit_copies();
+    const float* stage = ring + slot * kStageFloats;
 #pragma unroll
     for (int r = 0; r < kStageRows; ++r) {
       float ai[kTI], ak[kTK];
 #pragma unroll
-      for (int a = 0; a < kTI; ++a) ai[a] = stage[r][i0 + a][tx];
+      for (int a = 0; a < kTI; ++a) ai[a] = stage[(r * 2 * kFB + i0 + a) * kLanes + tx];
 #pragma unroll
-      for (int q = 0; q < kTK; ++q) ak[q] = stage[r][kFB + k0 + q][tx];
+      for (int q = 0; q < kTK; ++q) ak[q] = stage[(r * 2 * kFB + kFB + k0 + q) * kLanes + tx];
 #pragma unroll
       for (int a = 0; a < kTI; ++a)
 #pragma unroll
         for (int q = 0; q < kTK; ++q) part[a][q] = fmaf(ai[a], ak[q], part[a][q]);
     }
-    if ((r0 + kStageRows) % kBlockRows == 0 || r0 + kStageRows >= m) {
+    const int64_t r1 = (st + 1) * kStageRows;
+    if (r1 % kBlockRows == 0 || r1 >= m) {
 #pragma unroll
       for (int a = 0; a < kTI; ++a)
 #pragma unroll
@@ -127,6 +202,7 @@ __global__ void __launch_bounds__(kPairThreads)
           part[a][q] = 0.f;
         }
     }
+    slot = (slot + 1) % kStages;
   }
 
   const int64_t lane = lane0 + tx;
@@ -255,23 +331,46 @@ __global__ void __launch_bounds__(kPThreads)
 
 }  // namespace
 
+// Shared memory of gram_pairs' ring, in bytes: 96 KB, two CTAs per SM.
+extern "C" long long gram_pairs_smem_bytes() {
+  return static_cast<long long>(kStages) * kStageFloats * 4;
+}
+
 // Shared memory of gram_power at feature count n, in bytes.
 extern "C" long long gram_power_smem_bytes(int n) {
   return (static_cast<long long>(n) * (n + 1) / 2 + n + kPWarps) * kPLanes * 4;
 }
 
-// Q (n, n, B), c (n, B), btb (B,) from A (n, m, B) and b (m, B). Returns a
-// cudaError_t as int: cudaErrorInvalidValue for an empty shape, else
-// cudaGetLastError() after the launch.
+namespace {
+
+template <int kVec>
+int launch_pairs(const float* A, const float* b, float* Q, float* c, float* btb, int n,
+                 long long m, long long B, int nb, dim3 grid, cudaStream_t stream) {
+  const int smem = static_cast<int>(gram_pairs_smem_bytes());
+  const cudaError_t err = cudaFuncSetAttribute(
+      gram_pairs_kernel<kVec>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  gram_pairs_kernel<kVec><<<grid, kPairThreads, smem, stream>>>(A, b, Q, c, btb, n, m, B, nb);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Q (n, n, B), c (n, B), btb (B,) from A (n, m, B) and b (m, B), with 16-byte
+// copies when B % 4 == 0 and A and b are 16-byte aligned, else 4-byte ones.
+// Returns a cudaError_t as int: cudaErrorInvalidValue for an empty shape, else
+// the attribute call's error or cudaGetLastError() after the launch.
 extern "C" int gram_pairs(const float* A, const float* b, float* Q, float* c, float* btb,
                           int n, long long m, long long B, void* stream) {
   if (n < 1 || m < 1 || B < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int nb = (n + 1 + kFB - 1) / kFB;
   const dim3 grid(nb * (nb + 1) / 2, static_cast<unsigned>((B + kLanes - 1) / kLanes));
   if (grid.y > 65535u) return static_cast<int>(cudaErrorInvalidValue);
-  gram_pairs_kernel<<<grid, kPairThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      A, b, Q, c, btb, n, m, B, nb);
-  return static_cast<int>(cudaGetLastError());
+  const bool wide = B % 4 == 0 && reinterpret_cast<uintptr_t>(A) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(b) % 16 == 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return wide ? launch_pairs<4>(A, b, Q, c, btb, n, m, B, nb, grid, st)
+              : launch_pairs<1>(A, b, Q, c, btb, n, m, B, nb, grid, st);
 }
 
 // lam (B,) = pl_iters power steps on Q (n, n, B) from v0 = c (n, B). Returns

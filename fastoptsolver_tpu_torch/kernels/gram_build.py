@@ -5,12 +5,13 @@
 ``b (m, B)`` and α into a :class:`GramBatch`: ``Q = AᵀA`` (both triangles),
 ``c = Aᵀb``, ``bᵀb`` and the per-lane Lipschitz bound ``L``. On a CUDA tensor
 it launches the hand-written Hopper kernels of ``csrc/gram_build.cu`` — two
-launches, ``gram_pairs`` (one pass over A and b) and ``gram_power`` (the power
-iteration against each lane's Gram held in shared memory); see the source's
-note for their design and bounds. On a CPU tensor it runs the plain twin
-:func:`gram_build_reference`, built from ``_common.augmented_gram`` and
-``_common.power_lambda_max``: v0 = c, 32 steps at n ≤ 7, else 96, and the
-host rule ``L = where(λ > 0, 1.02·λ, 1) + α₂``.
+launches, ``gram_pairs`` (one pass over A and b, staged through a ring of
+three shared-memory stages filled by ``cp.async`` so the loads overlap the
+sums) and ``gram_power`` (the power iteration against each lane's Gram held
+in shared memory); see the source's note for their design and bounds. On a
+CPU tensor it runs the plain twin :func:`gram_build_reference`, built from
+``_common.augmented_gram`` and ``_common.power_lambda_max``: v0 = c, 32
+steps at n ≤ 7, else 96, and the host rule ``L = where(λ > 0, 1.02·λ, 1) + α₂``.
 
 The reference's TPU tiling knobs ``b_tile``, ``m_tile`` and ``split_k`` have no
 counterpart: the kernels tile lanes themselves and each lane's sums do not
@@ -26,8 +27,13 @@ from ._common import augmented_gram, make_matvec, power_lambda_max
 
 # Shared memory a Hopper block may opt into (H100: 227 KB).
 SMEM_PER_BLOCK = 232448
-# Lanes per CTA of gram_pairs (csrc/gram_build.cu kLanes).
+# Lanes per CTA of gram_pairs (csrc/gram_build.cu kLanes): one 128-byte line
+# per feature and row, copied as eight 16-byte or thirty-two 4-byte pieces.
 LANE_TILE = 32
+# gram_pairs' ring of shared-memory stages (kStages), each 8 rows × 32
+# features × LANE_TILE lanes of f32 (32 KB): copies of two stages in flight
+# while the third is summed.
+PAIRS_STAGES = 3
 # Launches of the CUDA kernels by this process (gram_pairs and gram_power each
 # count one, so a build adds 2); incremented only where they launch.
 LAUNCHES = 0
@@ -41,6 +47,34 @@ def _pairs(na: int):
     """Upper-triangle index pairs of the (na, na) augmented Gram, row-major:
     the accumulator row of pair (i, k) is ``p = i·na − i(i−1)/2 + (k − i)``."""
     return [(i, k) for i in range(na) for k in range(i, na)]
+
+
+def _pairs_smem_bytes() -> int:
+    """Shared memory of ``gram_pairs``' ring (the C function
+    ``gram_pairs_smem_bytes``): 96 KB, so two CTAs fit on an SM."""
+    return PAIRS_STAGES * 8 * 32 * LANE_TILE * 4
+
+
+def _pairs_copy_bytes(B: int, *ptrs: int) -> int:
+    """The width of ``gram_pairs``' copies, as its C entry picks it: 16 bytes
+    when B % 4 == 0 and every base address is 16-byte aligned (then a
+    lane tile's 128-byte line is eight aligned pieces, each all inside B or
+    all past it), else 4."""
+    return 16 if B % 4 == 0 and all(p % 16 == 0 for p in ptrs) else 4
+
+
+def _pairs_work(n: int, m: int, B: int) -> dict:
+    """What ``gram_pairs`` must do at ``(n, m, B)``: ``bytes``, A and b read
+    once and Q, c and bᵀb written once; ``flops``, two per distinct pair sum
+    of the augmented Gram and row; and ``l2_bytes``, what its CTAs read from
+    L2 (each of the nb(nb+1)/2 block pairs of a lane tile stages all m rows
+    of its 32 features, in 32 KB stages of 8 rows): 37 GB at n=96, m=192,
+    B=54144."""
+    nb = -(-(n + 1) // 16)
+    tiles, stages = -(-B // LANE_TILE), -(-m // 8)
+    return {"bytes": 4 * (n * m * B + m * B + n * n * B + n * B + B),
+            "flops": B * m * (n + 1) * (n + 2),
+            "l2_bytes": nb * (nb + 1) // 2 * tiles * stages * 8 * 32 * LANE_TILE * 4}
 
 
 def _power_smem_bytes(n: int) -> int:
@@ -97,21 +131,30 @@ def _launch(A: torch.Tensor, b: torch.Tensor, pl_iters: int):
     Q = torch.empty((n, n, B), dtype=A.dtype, device=A.device)
     c = torch.empty((n, B), dtype=A.dtype, device=A.device)
     btb = torch.empty((B,), dtype=A.dtype, device=A.device)
-    lam = torch.empty((B,), dtype=A.dtype, device=A.device)
     stream = torch.cuda.current_stream(A.device).cuda_stream
     with torch.cuda.device(A.device):
         err = lib.gram_pairs(A.data_ptr(), b.data_ptr(), Q.data_ptr(),
                              c.data_ptr(), btb.data_ptr(), n, m, B, stream)
         _build.check(err, "gram_pairs")
         LAUNCHES += 1
-        if pl_iters == 0:  # no power steps: λ = 0, as the twin's
-            lam.zero_()
-            return Q, c, btb, lam
-        err = lib.gram_power(Q.data_ptr(), c.data_ptr(), lam.data_ptr(), n, B,
-                             pl_iters, stream)
+    if pl_iters == 0:  # no power steps: λ = 0, as the twin's
+        return Q, c, btb, torch.zeros((B,), dtype=A.dtype, device=A.device)
+    return Q, c, btb, _launch_power(Q, c, pl_iters)
+
+
+def _launch_power(Q: torch.Tensor, c: torch.Tensor, pl_iters: int) -> torch.Tensor:
+    """λ (B,) from ``gram_power`` on the (n, n, B) Gram and c (n, B) that
+    ``gram_pairs`` wrote, on the current stream."""
+    global LAUNCHES
+    n, _, B = Q.shape
+    lam = torch.empty((B,), dtype=Q.dtype, device=Q.device)
+    with torch.cuda.device(Q.device):
+        err = _build.library().gram_power(
+            Q.data_ptr(), c.data_ptr(), lam.data_ptr(), n, B, pl_iters,
+            torch.cuda.current_stream(Q.device).cuda_stream)
         _build.check(err, "gram_power")
         LAUNCHES += 1
-    return Q, c, btb, lam
+    return lam
 
 
 def make_gram_batch_fused(

@@ -198,7 +198,10 @@ def test_router_takes_the_kernel_on_cuda(cuda):
     assert isinstance(res.n_iters_total, int) and res.x.is_cuda
 
 
-@pytest.mark.parametrize("shape", [(9, 33, 300), (20, 70, 200), (64, 128, 256)])
+# B % 4 != 0 (4-byte copies) and m not a multiple of the 8-row stage or the
+# 32-row block beside the 16-byte shapes
+@pytest.mark.parametrize("shape", [(9, 33, 300), (20, 70, 200), (64, 128, 256),
+                                   (9, 33, 301), (20, 7, 203)])
 def test_build_kernels_match_twin(cuda, shape):
     A, b, _ = _problem(*shape, seed=6, device=cuda)
     before = gram_build.LAUNCHES
@@ -223,6 +226,21 @@ def test_build_without_power_steps_launches_once(cuda):
     assert gram_build.LAUNCHES == before + 1
     assert not bool(got[3].any())
     assert torch.equal(got[0], gram_build._launch(A, b, 96)[0])
+
+
+def test_pairs_copy_widths_agree(cuda):
+    """The pair sums do not depend on the copy width: a B=301 build (4-byte
+    copies) equals, on its first 300 lanes, a B=300 build of the same data
+    (16-byte copies), bit for bit."""
+    A, b, _ = _problem(20, 70, 301, seed=7, device=cuda)
+    A3, b3 = A[:, :, :300].contiguous(), b[:, :300].contiguous()
+    assert gram_build._pairs_copy_bytes(301, A.data_ptr(), b.data_ptr()) == 4
+    assert gram_build._pairs_copy_bytes(300, A3.data_ptr(), b3.data_ptr()) == 16
+    narrow = gram_build._launch(A, b, 0)
+    wide = gram_build._launch(A3, b3, 0)
+    torch.cuda.synchronize()
+    for g, w in zip(narrow[:3], wide[:3]):
+        assert torch.equal(g[..., :300], w)
 
 
 BURST_MODES = {

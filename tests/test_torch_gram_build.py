@@ -95,6 +95,7 @@ def test_window_and_guards():
         tgram.make_gram_batch_fused(torch.ones((130, 4, 8)), torch.ones((4, 8)), 0.1, 0.0)
     with pytest.raises(ValueError, match="CUDA"):  # the CUDA wrapper refuses a CPU tensor
         tgram._launch(A, torch.ones((16, 32)), 32)
+    assert tgram.LANE_TILE == 32
     # the reference's window is narrower (its VMEM budget ends at n = 80 for
     # m = 200): the port's covers it and the burst window past it
     for n in (5, 64, 80):
@@ -103,3 +104,40 @@ def test_window_and_guards():
     with pytest.raises(ValueError):
         jgram._auto_tiles(96, 200)
     assert tgram._auto_tiles(96, 200) == (32, 200)
+
+
+def test_pairs_ring_fits_two_ctas():
+    """gram_pairs' ring: at least three 32 KB stages (copies of two ahead in
+    flight while one is summed), and two CTAs' rings within the shared memory
+    a Hopper block may opt into, so 2 CTAs of 256 threads share an SM."""
+    assert tgram.PAIRS_STAGES >= 3
+    assert tgram._pairs_smem_bytes() == tgram.PAIRS_STAGES * 32 * 1024
+    assert 2 * tgram._pairs_smem_bytes() <= tgram.SMEM_PER_BLOCK
+
+
+@pytest.mark.parametrize("B, ptrs, want", [
+    (54144, (0, 1 << 20), 16), (300, (256, 512), 16), (4, (16,), 16),
+    (301, (0, 512), 4), (203, (0,), 4), (302, (0, 0), 4),
+    (300, (0, 8), 4), (300, (4, 0), 4),  # a base off 16 bytes: 4-byte copies
+])
+def test_pairs_copy_width(B, ptrs, want):
+    assert tgram._pairs_copy_bytes(B, *ptrs) == want
+
+
+def test_pairs_work_at_the_wide_shape():
+    """The wide-n cell's counts: 6.05 GB of device traffic, 9.9e10 flops of
+    distinct pair sums, and 37.3 GB staged from L2 (28 block pairs × 1692
+    lane tiles × 24 stages × 32 KB)."""
+    w = tgram._pairs_work(96, 192, 54144)
+    assert w["l2_bytes"] == 28 * 1692 * 24 * 32768
+    assert w["bytes"] == 4 * 54144 * (96 * 192 + 192 + 96 * 96 + 96 + 1)
+    assert w["flops"] == 54144 * 192 * 97 * 98
+
+
+def test_pairs_ab_needs_the_card():
+    """The A/B of gram_pairs builds are a card measurement: without a CUDA
+    device it raises before building anything."""
+    from fastoptsolver_tpu_torch.bench import gram_pairs_ab
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gram_pairs_ab.main(["--other", "gram_build.cu"])

@@ -202,6 +202,18 @@ def test_router_unported_options_raise(kw, exc, match):
         solve_lasso_batch(A, b, 0.5, **kw)
 
 
+def test_mesh_axis_without_mesh_is_ignored():
+    """The reference reads ``mesh_axis`` only with a mesh: without one the
+    call is the plain single-device solve, bit for bit."""
+    A, b = _small()
+    cfg = BatchFISTAConfig(max_iter=200, check_every=10)
+    runs = [solve_lasso_batch(A, b, 0.5, 0.0, cfg=cfg,
+                              key=torch.Generator().manual_seed(0), **kw)
+            for kw in ({}, dict(mesh_axis="batch"))]
+    for name in ("x", "converged", "rel_gap", "iters"):
+        assert torch.equal(getattr(runs[0], name), getattr(runs[1], name)), name
+
+
 def test_generator_shapes_and_block_correlations():
     B, m = 64, 4000
     g = torch.Generator().manual_seed(0)
