@@ -1203,7 +1203,7 @@ def main() -> int:
     errs["gram"], widths = 0.0, set()
     for i, (n, m, B) in enumerate(BUILD_SHAPES):
         Ag, bg = small_problem(n, m, B, seed=20 + i, device=dev)[:2]
-        width = gram_build._pairs_copy_bytes(B, Ag.data_ptr(), bg.data_ptr())
+        width = _build.library().gram_pairs_copy_bytes(B, Ag.data_ptr(), bg.data_ptr())
         widths.add(width)
         errs["gram"] = max(errs["gram"], compare_build(Ag, bg, f"{(n, m, B)} {width}-byte copies"))
     require(widths == {4, 16}, f"BUILD_SHAPES reach gram_pairs' copy widths {widths}, not both")

@@ -79,6 +79,8 @@ _SIGNATURES = {
     # n: the resident kernel's lanes per CTA on the current device
     "resident_group": [_i],
     "gram_pairs_smem_bytes": [],
+    # B, A, b
+    "gram_pairs_copy_bytes": [_ll, _vp, _vp],
     "fos_cuda_error_string": [_i],
 }
 _RESTYPES = {"fos_cuda_error_string": ctypes.c_char_p,

@@ -33,15 +33,18 @@
 //   Bounds at the full-width shape (n=96, m=192, B=54144): 6.05 GB of device
 //   traffic (A and b read once, Q, c and b^T b written once; 1.81 ms at 3.35 TB/s);
 //   4753 pair sums per lane, computed as 28 blocks of 256 (1.5x the triangle),
-//   ~7.4e10 FMAs (~2.2 ms at 67 TFLOP/s); and 37.3 GB staged from L2 (28 block
-//   pairs x 1692 lane tiles x 24 stages x 32 KB). Measured on an H100 80GB HBM3
-//   (700 W, bench/gram_pairs_ab.py): 6.39 ms, L2 -> SM reads at 5.8 TB/s, against
-//   42.9 ms for the one-stage kernel (loads, then sums, 24 times a CTA with nothing
-//   in flight) and 37.9 ms for one torch.einsum of the same pair sums; ptxas: 124
-//   registers (16-byte copies), 120 (4-byte), no spill. The L2 reads bound it
-//   now: larger feature blocks (fewer re-reads) and no padded pairs in diagonal
-//   blocks are the next steps; TF32 tensor cores are ruled out (the certificate
-//   needs f32).
+//   ~7.4e10 FMAs (~2.2 ms at 67 TFLOP/s); and 32.3 GB copied from L2 (each of the
+//   nb = 7 feature blocks is staged nb + 1 = 8 times a lane tile: 8 x 97 features x
+//   192 rows x 128 B x 1692 tiles; the copies of the 15 padded features of block 6
+//   read nothing). Measured by chip_smoke.py phase 6 on an H100 80GB HBM3 (700 W):
+//   ~6.5 ms, so ~5.0 TB/s of L2 -> SM reads, against 42.9 ms for the one-stage
+//   kernel (loads, then sums, 24 times a CTA with nothing in flight) and ~37 ms for
+//   one torch.einsum of the same pair sums; ptxas: 124 registers (16-byte copies),
+//   120 (4-byte), no spill. What bounds it now is not yet profiled: the L2 reads and
+//   the shared-memory pipe (12 reads a row per thread, ~112 GB, plus the ring's
+//   writes) are both near the measured time. Larger feature blocks (fewer
+//   re-reads) and no padded pairs in diagonal blocks are the next steps; TF32
+//   tensor cores are ruled out (the certificate needs f32).
 //
 // gram_power — grid (tile of 8 lanes). pl_iters power steps per lane from
 //   v0 = c/max(|c|, 1e-30): w = Qv, lam = |w|, v = w/max(lam, 1e-30). Reading Q
@@ -356,21 +359,29 @@ int launch_pairs(const float* A, const float* b, float* Q, float* c, float* btb,
 
 }  // namespace
 
-// Q (n, n, B), c (n, B), btb (B,) from A (n, m, B) and b (m, B), with 16-byte
-// copies when B % 4 == 0 and A and b are 16-byte aligned, else 4-byte ones.
-// Returns a cudaError_t as int: cudaErrorInvalidValue for an empty shape, else
-// the attribute call's error or cudaGetLastError() after the launch.
+// The width in bytes of gram_pairs' copies from A and b: 16 when B % 4 == 0 and
+// both bases are 16-byte aligned (then each 16-byte piece of a lane tile's line
+// lies wholly inside B or wholly past it), else 4.
+extern "C" int gram_pairs_copy_bytes(long long B, const void* A, const void* b) {
+  const bool wide = B % 4 == 0 && reinterpret_cast<uintptr_t>(A) % 16 == 0 &&
+                    reinterpret_cast<uintptr_t>(b) % 16 == 0;
+  return wide ? 16 : 4;
+}
+
+// Q (n, n, B), c (n, B), btb (B,) from A (n, m, B) and b (m, B), with the copies
+// gram_pairs_copy_bytes picks. Returns a cudaError_t as int: cudaErrorInvalidValue
+// for an empty shape, else the attribute call's error or cudaGetLastError() after
+// the launch.
 extern "C" int gram_pairs(const float* A, const float* b, float* Q, float* c, float* btb,
                           int n, long long m, long long B, void* stream) {
   if (n < 1 || m < 1 || B < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int nb = (n + 1 + kFB - 1) / kFB;
   const dim3 grid(nb * (nb + 1) / 2, static_cast<unsigned>((B + kLanes - 1) / kLanes));
   if (grid.y > 65535u) return static_cast<int>(cudaErrorInvalidValue);
-  const bool wide = B % 4 == 0 && reinterpret_cast<uintptr_t>(A) % 16 == 0 &&
-                    reinterpret_cast<uintptr_t>(b) % 16 == 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return wide ? launch_pairs<4>(A, b, Q, c, btb, n, m, B, nb, grid, st)
-              : launch_pairs<1>(A, b, Q, c, btb, n, m, B, nb, grid, st);
+  return gram_pairs_copy_bytes(B, A, b) == 16
+             ? launch_pairs<4>(A, b, Q, c, btb, n, m, B, nb, grid, st)
+             : launch_pairs<1>(A, b, Q, c, btb, n, m, B, nb, grid, st);
 }
 
 // lam (B,) = pl_iters power steps on Q (n, n, B) from v0 = c (n, B). Returns

@@ -55,26 +55,18 @@ def _pairs_smem_bytes() -> int:
     return PAIRS_STAGES * 8 * 32 * LANE_TILE * 4
 
 
-def _pairs_copy_bytes(B: int, *ptrs: int) -> int:
-    """The width of ``gram_pairs``' copies, as its C entry picks it: 16 bytes
-    when B % 4 == 0 and every base address is 16-byte aligned (then a
-    lane tile's 128-byte line is eight aligned pieces, each all inside B or
-    all past it), else 4."""
-    return 16 if B % 4 == 0 and all(p % 16 == 0 for p in ptrs) else 4
-
-
 def _pairs_work(n: int, m: int, B: int) -> dict:
     """What ``gram_pairs`` must do at ``(n, m, B)``: ``bytes``, A and b read
     once and Q, c and bᵀb written once; ``flops``, two per distinct pair sum
-    of the augmented Gram and row; and ``l2_bytes``, what its CTAs read from
-    L2 (each of the nb(nb+1)/2 block pairs of a lane tile stages all m rows
-    of its 32 features, in 32 KB stages of 8 rows): 37 GB at n=96, m=192,
-    B=54144."""
+    of the augmented Gram and row; and ``l2_bytes``, what its CTAs copy from
+    L2. Each of the nb(nb+1)/2 block pairs of a lane tile stages its two
+    16-feature blocks, so each block is staged nb + 1 times; copies of
+    padded features, rows past m and lanes past B read nothing. 32.3 GB at
+    n=96, m=192, B=54144."""
     nb = -(-(n + 1) // 16)
-    tiles, stages = -(-B // LANE_TILE), -(-m // 8)
     return {"bytes": 4 * (n * m * B + m * B + n * n * B + n * B + B),
             "flops": B * m * (n + 1) * (n + 2),
-            "l2_bytes": nb * (nb + 1) // 2 * tiles * stages * 8 * 32 * LANE_TILE * 4}
+            "l2_bytes": 4 * (nb + 1) * (n + 1) * m * B}
 
 
 def _power_smem_bytes(n: int) -> int:

@@ -19,7 +19,7 @@ import torch
 from fastoptsolver_tpu_torch.batch import BatchFISTAConfig, solve_lasso_batch
 from fastoptsolver_tpu_torch.bench import stream
 from fastoptsolver_tpu_torch.batch.fista_gram import make_gram_batch
-from fastoptsolver_tpu_torch.kernels import fista_vmem, fused_solve, gram_build, qstream, resident
+from fastoptsolver_tpu_torch.kernels import _build, fista_vmem, fused_solve, gram_build, qstream, resident
 
 pytestmark = pytest.mark.cuda
 
@@ -234,8 +234,9 @@ def test_pairs_copy_widths_agree(cuda):
     (16-byte copies), bit for bit."""
     A, b, _ = _problem(20, 70, 301, seed=7, device=cuda)
     A3, b3 = A[:, :, :300].contiguous(), b[:, :300].contiguous()
-    assert gram_build._pairs_copy_bytes(301, A.data_ptr(), b.data_ptr()) == 4
-    assert gram_build._pairs_copy_bytes(300, A3.data_ptr(), b3.data_ptr()) == 16
+    width = _build.library().gram_pairs_copy_bytes
+    assert width(301, A.data_ptr(), b.data_ptr()) == 4
+    assert width(300, A3.data_ptr(), b3.data_ptr()) == 16
     narrow = gram_build._launch(A, b, 0)
     wide = gram_build._launch(A3, b3, 0)
     torch.cuda.synchronize()

@@ -115,29 +115,28 @@ def test_pairs_ring_fits_two_ctas():
     assert 2 * tgram._pairs_smem_bytes() <= tgram.SMEM_PER_BLOCK
 
 
-@pytest.mark.parametrize("B, ptrs, want", [
-    (54144, (0, 1 << 20), 16), (300, (256, 512), 16), (4, (16,), 16),
-    (301, (0, 512), 4), (203, (0,), 4), (302, (0, 0), 4),
-    (300, (0, 8), 4), (300, (4, 0), 4),  # a base off 16 bytes: 4-byte copies
-])
-def test_pairs_copy_width(B, ptrs, want):
-    assert tgram._pairs_copy_bytes(B, *ptrs) == want
+@pytest.mark.parametrize("shape", [(9, 33, 301), (20, 7, 203), (64, 128, 256),
+                                   (15, 40, 64), (31, 9, 37)])
+def test_pairs_l2_bytes_count_the_kernels_copies(shape):
+    """``_pairs_work``'s L2 bytes equal the copies of csrc/gram_build.cu's
+    gram_pairs that read something: per block pair (I ≤ K) and lane tile, the
+    32 staged features of blocks I and K, for every row of every 8-row stage,
+    a copy reading only lanes < B of features < n + 1 and rows < m."""
+    n, m, B = shape
+    na, nb = n + 1, -(-(n + 1) // 16)
+    lanes = sum(min(32, B - t) for t in range(0, B, 32))
+    rows = sum(1 for r in range(-(-m // 8) * 8) if r < m)
+    feats = sum(1 for i in range(nb) for k in range(i, nb) for f in range(32)
+                if (i * 16 + f if f < 16 else k * 16 + f - 16) < na)
+    assert tgram._pairs_work(n, m, B)["l2_bytes"] == 4 * lanes * rows * feats
 
 
 def test_pairs_work_at_the_wide_shape():
     """The wide-n cell's counts: 6.05 GB of device traffic, 9.9e10 flops of
-    distinct pair sums, and 37.3 GB staged from L2 (28 block pairs × 1692
-    lane tiles × 24 stages × 32 KB)."""
+    distinct pair sums, and 32.3 GB copied from L2 (each of the 7 feature
+    blocks staged 8 times a lane tile: 8 × 97 features × 192 rows × 128 B ×
+    1692 lane tiles)."""
     w = tgram._pairs_work(96, 192, 54144)
-    assert w["l2_bytes"] == 28 * 1692 * 24 * 32768
+    assert w["l2_bytes"] == 8 * 97 * 192 * 128 * 1692
     assert w["bytes"] == 4 * 54144 * (96 * 192 + 192 + 96 * 96 + 96 + 1)
     assert w["flops"] == 54144 * 192 * 97 * 98
-
-
-def test_pairs_ab_needs_the_card():
-    """The A/B of gram_pairs builds are a card measurement: without a CUDA
-    device it raises before building anything."""
-    from fastoptsolver_tpu_torch.bench import gram_pairs_ab
-
-    with pytest.raises(RuntimeError, match="no CUDA device"):
-        gram_pairs_ab.main(["--other", "gram_build.cu"])
