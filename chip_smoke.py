@@ -17,15 +17,20 @@ Phases, one line each (``--`` lines are detail):
    2e-5), Armijo with table-β and with restart in the decisive regime (x to
    rtol 1e-4/atol 1e-5), a 75 + 125 resume bit-exact in every mode and with
    tiles at different k; the stream pass (to 1e-5 of each lane's absolute
-   sum), then both at the bench shape; the Gram build at n ∈ {9, 20, 64}
+   sum) with its 16-byte and 4-byte loads, both required, as the C export
+   ``stream_copy_bytes`` reports them, then both at the bench shape; the
+   Gram build at n ∈ {9, 20, 64}
    with B % 4 == 0 and at n = 9 with B = 301 (``gram_pairs``' 16-byte and
    4-byte copies, both required) and at the wide-n shape (Q, c, bᵀb to 1e-5
    of each lane's largest entry, λ to 1e-5 relative); the burst kernel at
    n = 20 in every mode (one burst: state to rtol 2e-4/atol 2e-5; fixed runs, ``check_every=0``: x to rtol
    2e-4/atol 2e-5; certified runs at rel_gap_tol=1e-5: ``converged``
    identical, ``iters`` within ``check_every``; Armijo in the decisive regime: x to rtol 1e-4/atol
-   1e-5), a 40 + 60 resume bit-exact against 100 straight iterations, and
-   fixed Nesterov at the wide-n shape; the resident kernel at
+   1e-5), a 40 + 60 resume bit-exact against 100 straight iterations, one
+   burst in fixed Nesterov and in restart at n ∈ {5, 9, 33, 64, 96, 104},
+   B = 301 (each lanes-a-CTA count of the window: 32, 16, 13, 6 and 5; the
+   C exports ``fista_burst_group`` and ``fista_burst_smem_bytes`` printed),
+   and fixed Nesterov at the wide-n shape; the resident kernel at
    n ∈ {112, 128, 168} (groups of 8, 6 and 3 lanes; 128 is the resident
    path's width), B = 300, every mode with L estimated in-kernel (certified
    runs at rel_gap_tol 1e-5: ``converged`` identical, ``iters`` within a
@@ -33,7 +38,8 @@ Phases, one line each (``--`` lines are detail):
    rtol 1e-4/atol 1e-5), against its twin at the kernel's lane grouping,
    once more at n = 128 on a Gram that is not bit-symmetric (both read the
    upper triangle), and the library's grouping equal to the twin's for every
-   n of the window; the adaptive entry onto it at n = 96; the Q-streaming
+   n of the window; the adaptive entry onto it at n = 96, B = 300 (restart
+   and greedy, each timed, median of 5, beside its bound); the Q-streaming
    kernel at n ∈ {200, 256}, B = 300, one burst per mode (state to rtol
    2e-4/atol 2e-5) and a certified run, then one burst per mode at
    n ∈ {120, 400, 600, 900}, B = 100 (each of the kernel's other
@@ -47,9 +53,10 @@ Phases, one line each (``--`` lines are detail):
    must certify, none may fail, and 4096 sampled lanes are rechecked in
    float64; then one read-ceiling measurement, the bench path's roofline;
 5. times — CUDA events, median of 5 solves interleaved with the stream
-   ceiling: solve ms and instances/s (every timed solve must certify every
-   lane), ceiling GB/s, pct_of_achievable, the twin's time, iteration median
-   and maximum;
+   ceiling and with one torch call for its sums (``A.sum((0, 1)) +
+   b.sum(0)``): solve ms and instances/s (every timed solve must certify
+   every lane), ceiling GB/s, pct_of_achievable, the twin's time, iteration
+   median and maximum, the torch sums against the ceiling;
 6. wide-n path — ``solve_lasso_batch`` at ``bench/wide_n.py``'s first width
    (n=96, m=192, B=54144: a 2 GB Gram; data from
    ``bench.wide_n.build_problems`` on the card; the default certified
@@ -62,8 +69,11 @@ Phases, one line each (``--`` lines are detail):
    the same x; then CUDA event medians of 3: the build kernels, and
    ``gram_pairs`` and ``gram_power`` each alone, vs their twins (the pairs'
    L2 read rate beside one ``torch.einsum`` of the same pair sums), the
-   burst solve vs its twin, the routed call (ms, certified instances/s) and the torch driver on the same Gram (the route this path
-   replaces);
+   burst solve (median of 5) vs its twin, its launches back to back and a
+   launch with no step (the Gram's copy-in; both medians of 5), the burst
+   kernel's lanes a CTA, shared bytes and Q bytes read from device memory
+   a launch, the routed call (median of 5; ms, certified instances/s) and
+   the torch driver on the same Gram (the route this path replaces);
 7. resident path — the same recipe at n=128, m=256, B=30464 (a 2 GB Gram):
    the einsum build without the power loop and one launch of the resident
    kernel, nothing else; the same checks with at least 80% certified (the
@@ -109,7 +119,10 @@ operations of this run's data over 67 TFLOP/s, ``bound_by`` which;
 ``library_ms`` one torch call for the same function where there is one: the
 sums of A and b for the stream pass, the pair sums as one ``torch.einsum``
 for the build; the build's entry also gives ``gram_pairs`` and
-``gram_power`` apart (``pairs_*``, ``power_*``); the fused entry's
+``gram_power`` apart (``pairs_*``, ``power_*``); the burst entry its
+``group_lanes``, ``smem_bytes``, ``q_bytes_per_launch`` and ``copy_in_ms``;
+the resident entry the adaptive entry's phase-3 times
+(``adaptive_entry``); the fused entry's
 ``modes`` holds phase 9's times), the card's name and power limit, and,
 last, ``{"ok": true, "device": {...}}``. It exits non-zero, printing no
 result, when there is no CUDA device or any phase fails.
@@ -131,6 +144,9 @@ SMALL_SHAPES = ((5, 250, 390), (1, 64, 128), (8, 333, 300))
 BATCH = 262144  # the bench configuration's instances (bench.py:88)
 # the last has B % 4 != 0: gram_pairs' 4-byte copies beside its 16-byte ones
 BUILD_SHAPES = ((9, 33, 300), (20, 70, 200), (64, 128, 256), (9, 33, 301))
+# with n = 20, a width for each lanes-a-CTA count of the burst kernel's window:
+# 32 lanes (n <= 32), 16 (n = 33), 13 (n = 64), 6 (n = 96), 5 (n = 104)
+BURST_WIDTHS = (5, 9, 33, 64, 96, 104)
 # bench/wide_n.py's first width: n = 96, m = 2n, B sized to a 2 GB Gram
 WIDE_N = 96
 WIDE_B = int(2e9 / (WIDE_N * WIDE_N * 4)) // 128 * 128  # 54144
@@ -572,6 +588,27 @@ def check_bursts(dev):
     return worst
 
 
+def check_burst_groups(dev) -> float:
+    """The burst kernel at the window's other group sizes (n = 20, every
+    mode, is ``check_bursts``): one burst per mode, fixed Nesterov and
+    adaptive restart, at B = 301 (a ragged last CTA at every group size),
+    held as :func:`burst_vs_twin` holds it. Returns the largest |dX|."""
+    from fastoptsolver_tpu_torch.kernels import _build, fista_vmem
+
+    lib = _build.library()
+    worst, groups = 0.0, {}
+    for n in BURST_WIDTHS:
+        groups[n] = (lib.fista_burst_group(n), lib.fista_burst_smem_bytes(n))
+        gb = random_gram(n, 301, 0.0, seed=70 + n, dev=dev)
+        for name in ("nesterov", "restart"):
+            worst = max(worst, burst_vs_twin(
+                fista_vmem._launch_burst, fista_vmem._burst_reference, gb,
+                WIDE_MODES[name][0], f"burst n={n} (group {groups[n][0]}) {name}"))
+    print(f"-- burst (lanes a CTA, shared bytes) by n: {groups}; one burst per mode matches, "
+          f"max|dX| {worst:.3e}")
+    return worst
+
+
 def wide_gram(n: int, B: int, a2: float, seed: int, dev, decisive: bool = False):
     """A GramBatch past the build kernels' window, by the torch precompute on
     the card: ``small_problem``'s AR(1) instances, or with ``decisive`` the
@@ -644,11 +681,11 @@ def compare_full_width(rk, rt, label: str) -> float:
     return dx
 
 
-def check_resident(dev) -> float:
+def check_resident(dev):
     """The resident kernel against its twin at the kernel's grouping, n ∈
-    {112, 168}, every mode with L estimated in-kernel, Armijo decisive; a
-    40 + 60 resume bit-exact; the adaptive entry at n = 96. Returns the
-    largest |dx|."""
+    {112, 128, 168}, every mode with L estimated in-kernel, Armijo decisive;
+    a 40 + 60 resume bit-exact; the adaptive entry at n = 96, also timed.
+    Returns the largest |dx| and the adaptive entry's times and bounds."""
     import dataclasses
 
     import torch
@@ -702,8 +739,10 @@ def check_resident(dev) -> float:
     torch.cuda.synchronize()
     rt = resident.fista_gram_resident_reference(gb, cfg, est_l_iters=96)
     worst = max(worst, compare_certified(rk, rt, "resident n=128 asymmetric Gram"))
-    A, b, a1 = small_problem(96, 192, 300, seed=41, device=dev)
+    n, B = 96, 300
+    A, b, a1 = small_problem(n, 2 * n, B, seed=41, device=dev)
     gb = gram_build.make_gram_batch_fused(A, b, a1, 0.0)
+    adaptive = {}
     for name in ("restart", "greedy"):
         cfg = BatchFISTAConfig(max_iter=1000, check_every=25, rel_gap_tol=1e-5,
                                **WIDE_MODES[name][0])
@@ -711,18 +750,28 @@ def check_resident(dev) -> float:
         torch.cuda.synchronize()
         rt = resident.fista_gram_resident_reference(gb, cfg)
         worst = max(worst, compare_certified(rk, rt, f"adaptive entry n=96 {name}"))
+        # its own time and bound: Q, c and the rows read once, x and the state
+        # written; each group of the kernel's lanes runs to its last lane's iters
+        ms, trials, _ = med_ms(lambda: fista_vmem.fista_gram_vmem_adaptive(gb, cfg), 5)
+        bnd = bound(4 * (n * n * B + n * B + 6 * B + 2 * n * B + 7 * B),
+                    solve_ops(n, group_steps(rk.iters, resident.kernel_group(n, dev)),
+                              cfg.check_every))
+        adaptive[name] = dict(ms=ms, bound_ms=bnd[0], bound_by=bnd[1], lanes=B)
+        print(f"-- adaptive entry n={n} B={B} {name}: {ms:.3f} ms (median of 5, trials "
+              f"{[round(x, 3) for x in trials]}), bound {bnd[0]:.4f} ms by {bnd[1]}")
     print(f"-- resident resume 40 + 60 == 100: bit-exact (every mode, n = 112, 128, 168); "
           f"launches so far {resident.LAUNCHES}")
-    return worst
+    return worst, adaptive
 
 
-def qstream_burst_vs_twin(gb, kw, label: str) -> float:
-    """One Q-streaming burst of 25 from a non-trivial state, with the gap,
-    against its twin: every output to rtol 2e-4/atol 2e-5. Returns max|dX|."""
+def burst_vs_twin(launch, twin, gb, kw, label: str) -> float:
+    """One burst of 25 from a non-trivial state, with the gap, of a burst
+    kernel (``launch``) against its twin: every output to rtol 2e-4/atol
+    2e-5. Returns max|dX|."""
     import torch
 
     from fastoptsolver_tpu_torch.batch import BatchFISTAConfig
-    from fastoptsolver_tpu_torch.kernels import fista_vmem, qstream
+    from fastoptsolver_tpu_torch.kernels import fista_vmem
 
     dev = gb.c.device
     cfg = BatchFISTAConfig(max_iter=100, check_every=25, **kw)
@@ -733,9 +782,9 @@ def qstream_burst_vs_twin(gb, kw, label: str) -> float:
     args = (fista_vmem._beta_table(100, cfg).to(dev), 25, gb.Q, gb.c, rows["tau"],
             rows["thr"], rows["a2"], rows["a1"], rows["btb"], X, Y, t, ps,
             rows["taumin"], rows["tau"])
-    got = qstream._launch_qstream(*args, **static)
+    got = launch(*args, **static)
     torch.cuda.synchronize()
-    want = qstream._qstream_burst_reference(*args, **static)
+    want = twin(*args, **static)
     for name, g, w in zip(("X", "Y", "t", "ps", "tau", "gap"), got, want):
         require(torch.allclose(g, w, rtol=2e-4, atol=2e-5),
                 f"{label}: {name} differs from the twin by {float((g - w).abs().max()):.3e}")
@@ -775,7 +824,9 @@ def check_qstream(dev) -> float:
     for n in (200, 256):
         for name, (kw, a2) in WIDE_MODES.items():
             gb = wide_gram(n, 300, a2, seed=50 + n, dev=dev)
-            worst = max(worst, qstream_burst_vs_twin(gb, kw, f"qstream n={n} {name}"))
+            worst = max(worst, burst_vs_twin(
+                qstream._launch_qstream, qstream._qstream_burst_reference, gb, kw,
+                f"qstream n={n} {name}"))
             cert = BatchFISTAConfig(max_iter=1000, check_every=25, rel_gap_tol=1e-5, **kw)
             rk = fista_vmem.fista_gram_vmem(gb, cert)
             torch.cuda.synchronize()
@@ -791,7 +842,9 @@ def check_qstream(dev) -> float:
     for n in (120, 400, 600, 900):
         for name, (kw, a2) in WIDE_MODES.items():
             gb = random_gram(n, 100, a2, seed=60 + n, dev=dev)
-            worst = max(worst, qstream_burst_vs_twin(gb, kw, f"qstream n={n} {name}"))
+            worst = max(worst, burst_vs_twin(
+                qstream._launch_qstream, qstream._qstream_burst_reference, gb, kw,
+                f"qstream n={n} {name}"))
         if n == 120:  # check_every=0 in the resident window streams Q
             fixed = BatchFISTAConfig(max_iter=100, check_every=0)
             before = (qstream.LAUNCHES, resident.LAUNCHES)
@@ -842,11 +895,11 @@ def check_wide(res, A, b, a1, share: float, label: str) -> dict:
                 gap64=gap64, iters_median=int(it.median()), iters_max=int(it.max()))
 
 
-def med3(fn):
-    """(median ms of 3 timed calls after a warm one, the trials, the last
-    result)."""
+def med_ms(fn, trials: int = 3):
+    """(median ms of ``trials`` timed calls after a warm one, the trials, the
+    last result)."""
     fn()
-    runs = [cuda_ms(fn) for _ in range(3)]
+    runs = [cuda_ms(fn) for _ in range(trials)]
     ms = [r[0] for r in runs]
     return median(ms), ms, runs[-1][1]
 
@@ -900,27 +953,27 @@ def resident_path(dev, cfg, mods) -> dict:
           f"{chk['gap64']:.3e} on 4096 lanes | solve_gram_batch x equal | iters median "
           f"{chk['iters_median']} max {chk['iters_max']}")
     del res, res_g
-    routed_ms, routed_trials, _ = med3(lambda: solve_lasso_batch(A, b, a1, 0.0, cfg=cfg,
-                                                                 feature_major=True))
+    routed_ms, routed_trials, _ = med_ms(lambda: solve_lasso_batch(A, b, a1, 0.0, cfg=cfg,
+                                                                   feature_major=True))
     del A, b
     torch.cuda.empty_cache()
     gb = type(gb)(*(v.contiguous() for v in (gb.Q, gb.c, gb.btb, gb.alpha1, gb.alpha2, gb.L)))
-    kernel_ms, kernel_trials, _ = med3(lambda: resident.fista_gram_resident(
+    kernel_ms, kernel_trials, _ = med_ms(lambda: resident.fista_gram_resident(
         gb, cfg, est_l_iters=96))
     from fastoptsolver_tpu_torch.batch import BatchFISTAConfig
 
     one = BatchFISTAConfig(max_iter=1, check_every=1)
-    copy_ms, _, _ = med3(lambda: resident.fista_gram_resident(gb, one))
+    copy_ms, _, _ = med_ms(lambda: resident.fista_gram_resident(gb, one))
     small = lanes(gb, 3840)
-    k_small_ms, _, rk = med3(lambda: resident.fista_gram_resident(small, cfg, est_l_iters=96))
-    plain_ms, _, rt = med3(lambda: resident.fista_gram_resident_reference(
+    k_small_ms, _, rk = med_ms(lambda: resident.fista_gram_resident(small, cfg, est_l_iters=96))
+    plain_ms, _, rt = med_ms(lambda: resident.fista_gram_resident_reference(
         small, cfg, est_l_iters=96))
     dx = compare_full_width(rk, rt, "resident path, the first 3840 lanes")
     gen = torch.Generator(device=dev).manual_seed(0)
     v0 = torch.randn((n, B), generator=gen, device=dev)
     gbL = type(gb)(gb.Q, gb.c, gb.btb, gb.alpha1, gb.alpha2,
                    _batched_power_L(gb.Q, v0, 100, 1e-6) + gb.alpha2)
-    driver_ms, _, res_d = med3(lambda: fista_gram_batch(gbL, cfg))
+    driver_ms, _, res_d = med_ms(lambda: fista_gram_batch(gbL, cfg))
     print(f"[7 times] routed solve_lasso_batch {routed_ms:.3f} ms ({chk['certified'] / routed_ms * 1e3:.4g} "
           f"certified instances/s) | resident kernel solve {kernel_ms:.3f} ms (one launch; "
           f"a one-step launch, the Gram's copy-in and 2 matvecs, {copy_ms:.3f} ms = "
@@ -969,21 +1022,21 @@ def qstream_path(dev, cfg, mods) -> dict:
           f"rel_gap {chk['gap64']:.3e} on 4096 lanes | solve_gram_batch x equal | iters "
           f"median {chk['iters_median']} max {chk['iters_max']}")
     del res, res_g
-    routed_ms, routed_trials, _ = med3(lambda: solve_lasso_batch(A, b, a1, 0.0, cfg=cfg,
-                                                                 feature_major=True))
+    routed_ms, routed_trials, _ = med_ms(lambda: solve_lasso_batch(A, b, a1, 0.0, cfg=cfg,
+                                                                   feature_major=True))
     del A, b
     torch.cuda.empty_cache()
     gb = type(gb)(*(v.contiguous() for v in (gb.Q, gb.c, gb.btb, gb.alpha1, gb.alpha2, gb.L)))
-    kernel_ms, kernel_trials, rk_full = med3(lambda: fista_vmem.fista_gram_vmem(gb, cfg))
+    kernel_ms, kernel_trials, rk_full = med_ms(lambda: fista_vmem.fista_gram_vmem(gb, cfg))
     q_gb = gb.Q.numel() * 4 / 1e9
     iters = int(rk_full.n_iters_total)
     q_reads = iters + iters // cfg.check_every
-    read_ms, _, _ = med3(lambda: gb.Q.sum())
+    read_ms, _, _ = med_ms(lambda: gb.Q.sum())
     small = lanes(gb, 1920)
-    k_small_ms, _, rk = med3(lambda: fista_vmem.fista_gram_vmem(small, cfg))
-    plain_ms, _, rt = med3(lambda: fista_vmem.fista_gram_vmem_reference(small, cfg))
+    k_small_ms, _, rk = med_ms(lambda: fista_vmem.fista_gram_vmem(small, cfg))
+    plain_ms, _, rt = med_ms(lambda: fista_vmem.fista_gram_vmem_reference(small, cfg))
     dx = compare_full_width(rk, rt, "qstream path, the first 1920 lanes")
-    driver_ms, _, res_d = med3(lambda: fista_gram_batch(gb, cfg))
+    driver_ms, _, res_d = med_ms(lambda: fista_gram_batch(gb, cfg))
     print(f"[8 times] routed solve_lasso_batch {routed_ms:.3f} ms ({chk['certified'] / routed_ms * 1e3:.4g} "
           f"certified instances/s) | qstream solve {kernel_ms:.3f} ms ({iters // cfg.check_every} "
           f"launches, {q_reads} Q reads = {q_reads * q_gb / kernel_ms * 1e3:.1f} GB/s; a plain "
@@ -1100,16 +1153,16 @@ def fused_modes_path(A, b, alpha1, dev, mods) -> dict:
               f"4096: {float(gap64.max()):.3e}) | iters median "
               f"{int(it.median())} max {int(it.max())}")
         del res
-        k_ms, _, rk = med3(lambda: solve_lasso_batch(As, bs, a1s, 0.0, cfg=cfg,
-                                                     feature_major=True))
+        k_ms, _, rk = med_ms(lambda: solve_lasso_batch(As, bs, a1s, 0.0, cfg=cfg,
+                                                       feature_major=True))
         plain_ms, rt = cuda_ms(lambda: fused_solve.fused_solve_reference(As, bs, a1s, 0.0,
                                                                          cfg=cfg))
         dobj = compare_bench_lanes(As, bs, a1s, rk, rt, f"fused {name}, the first 3840 lanes",
                                    hold=not armijo)
-        routed_ms, routed_trials, _ = med3(lambda: solve_lasso_batch(
+        routed_ms, routed_trials, _ = med_ms(lambda: solve_lasso_batch(
             A, b, alpha1, 0.0, cfg=cfg, feature_major=True))
         plan = fused_solve._plan(A, alpha1, 0.0, cfg, None, 1.02, None)
-        kernel_ms, kernel_trials, _ = med3(lambda: fused_solve._launch(A, b, **plan))
+        kernel_ms, kernel_trials, _ = med_ms(lambda: fused_solve._launch(A, b, **plan))
         del plan
         print(f"[9 times] {name}: routed solve_lasso_batch {routed_ms:.3f} ms "
               f"({n_conv / routed_ms * 1e3:.4g} certified instances/s) | fused kernel alone "
@@ -1188,6 +1241,7 @@ def main() -> int:
 
     # ---- 3: each kernel against its twin, on the card ----
     errs = {"fused": 0.0, "stream": 0.0}
+    stream_widths = set()
     for i, (n, m, B) in enumerate(SMALL_SHAPES):
         A, b, a1 = small_problem(n, m, B, seed=i, device=dev)
         for mode, a2 in (("nesterov", 0.0), ("delta", 0.3)):
@@ -1198,7 +1252,12 @@ def main() -> int:
             res_t = fused_solve_reference(A, b, a1, a2, cfg=cfg)
             errs["fused"] = max(errs["fused"], compare_fused(
                 res_k, res_t, cfg.check_every, f"{(n, m, B)} {mode}"))
-        errs["stream"] = max(errs["stream"], compare_stream(A, b, str((n, m, B))))
+        width = _build.library().stream_copy_bytes(B, A.data_ptr(), b.data_ptr())
+        stream_widths.add(width)
+        errs["stream"] = max(errs["stream"],
+                             compare_stream(A, b, f"{(n, m, B)} {width}-byte loads"))
+    require(stream_widths == {4, 16},
+            f"SMALL_SHAPES reach the stream kernel's load widths {stream_widths}, not both")
     errs["fused"] = max(errs["fused"], check_fused_modes(dev))
     errs["gram"], widths = 0.0, set()
     for i, (n, m, B) in enumerate(BUILD_SHAPES):
@@ -1207,8 +1266,8 @@ def main() -> int:
         widths.add(width)
         errs["gram"] = max(errs["gram"], compare_build(Ag, bg, f"{(n, m, B)} {width}-byte copies"))
     require(widths == {4, 16}, f"BUILD_SHAPES reach gram_pairs' copy widths {widths}, not both")
-    errs["burst"] = check_bursts(dev)
-    errs["resident"] = check_resident(dev)
+    errs["burst"] = max(check_bursts(dev), check_burst_groups(dev))
+    errs["resident"], adaptive = check_resident(dev)
     errs["qstream"] = check_qstream(dev)
     torch.cuda.empty_cache()
     print("[3 kernel vs twin] small shapes ok")
@@ -1290,9 +1349,11 @@ def main() -> int:
           f"{ceil_first:.1f} GB/s, stream launches {launches['stream']}")
 
     # ---- 5: times; these launches are not counted above ----
-    solve_ms, ceil_gbps = [], []
+    # the ceiling, one torch call for its sums and the solve in turns
+    solve_ms, ceil_gbps, lib_ms = [], [], []
     for _ in range(5):
         ceil_gbps.append(measure_stream_ceiling(A, b, reps=3, trials=1)["stream_ceiling_gbps"])
+        lib_ms.append(cuda_ms(lambda: A.sum(dim=(0, 1)) + b.sum(dim=0), reps=3)[0])
         ms, res = cuda_ms(lambda: solve_lasso_batch(A, b, alpha1, 0.0, cfg=cfg,
                                                     feature_major=True))
         solve_ms.append(ms)
@@ -1318,11 +1379,13 @@ def main() -> int:
     bounds = {"fused": fused_bound(A, res, cfg),
               "stream": bound(bytes_in + 4 * BATCH, A.numel() + b.numel())}
     # one reduction over A's planes and rows and one over b's rows: the
-    # library's way to the stream kernel's per-lane sums
-    stream_lib_ms, _ = cuda_ms(lambda: A.sum(dim=(0, 1)) + b.sum(dim=0), reps=3)
+    # library's way to the stream kernel's per-lane sums, timed in the loop above
+    stream_lib_ms = median(lib_ms)
     print(f"-- bounds: fused {bounds['fused'][0]:.3f} ms by {bounds['fused'][1]}, stream "
-          f"{bounds['stream'][0]:.3f} ms by {bounds['stream'][1]}; torch sums of A and b "
-          f"{stream_lib_ms:.3f} ms vs the stream kernel {stream_ms:.3f} ms")
+          f"{bounds['stream'][0]:.3f} ms by {bounds['stream'][1]}; medians of 5 in turns: "
+          f"torch sums of A and b {stream_lib_ms:.3f} ms vs the stream kernel "
+          f"{stream_ms:.3f} ms | trials torch sums {[round(x, 3) for x in lib_ms]} stream "
+          f"{[round(bytes_in / g / 1e6, 3) for g in ceil_gbps]}")
 
     # ---- 6: the wide-n path (two-kernel), counted, then timed ----
     from fastoptsolver_tpu_torch.batch import solve_gram_batch
@@ -1376,16 +1439,16 @@ def main() -> int:
           f"{int(iters_w.max())}")
     del res_g
 
-    build_ms, build_trials, _ = med3(lambda: gram_build._launch(Aw, bw, 96))
-    pairs_ms, pairs_trials, (Qw, cw, _, _) = med3(lambda: gram_build._launch(Aw, bw, 0))
-    power_ms, _, _ = med3(lambda: gram_build._launch_power(Qw, cw, 96))
-    build_plain_ms, _, _ = med3(lambda: gram_build.gram_build_reference(Aw, bw, 96))
-    pairs_plain_ms, _, _ = med3(lambda: augmented_gram(Aw, bw))
-    power_plain_ms, _, _ = med3(lambda: power_lambda_max(make_matvec(Qw, WIDE_N), cw, 96))
+    build_ms, build_trials, _ = med_ms(lambda: gram_build._launch(Aw, bw, 96))
+    pairs_ms, pairs_trials, (Qw, cw, _, _) = med_ms(lambda: gram_build._launch(Aw, bw, 0))
+    power_ms, _, _ = med_ms(lambda: gram_build._launch_power(Qw, cw, 96))
+    build_plain_ms, _, _ = med_ms(lambda: gram_build.gram_build_reference(Aw, bw, 96))
+    pairs_plain_ms, _, _ = med_ms(lambda: augmented_gram(Aw, bw))
+    power_plain_ms, _, _ = med_ms(lambda: power_lambda_max(make_matvec(Qw, WIDE_N), cw, 96))
     del Qw, cw
     torch.cuda.empty_cache()
-    burst_ms, burst_trials, res_k = med3(lambda: fista_vmem.fista_gram_vmem(gbw, cfg))
-    burst_plain_ms, _, res_t = med3(lambda: fista_vmem.fista_gram_vmem_reference(gbw, cfg))
+    burst_ms, burst_trials, res_k = med_ms(lambda: fista_vmem.fista_gram_vmem(gbw, cfg), 5)
+    burst_plain_ms, _, res_t = med_ms(lambda: fista_vmem.fista_gram_vmem_reference(gbw, cfg))
     # the same bursts launched back to back, no host loop between them: the
     # solve's excess over this is the per-burst sync and bookkeeping
     rows, Xb, Yb, tb, psb = burst_inputs(gbw, cfg)
@@ -1399,29 +1462,44 @@ def main() -> int:
                 rows["a2"], rows["a1"], rows["btb"], X, Y, tb, psb, None, rows["tau"],
                 n_steps=cfg.check_every, with_gap=True)
         return X
-    launches_ms, _, _ = med3(bursts_only)
+    launches_ms, launches_trials, _ = med_ms(bursts_only, 5)
+    # a launch with no step and no gap: the Gram's copy-in, the rows and the stores
+    copy_ms, _, _ = med_ms(lambda: fista_vmem._launch_burst(
+        betas_w, 0, gbw.Q, gbw.c, rows["tau"], rows["thr"], rows["a2"], rows["a1"],
+        rows["btb"], Xb, Yb, tb, psb, None, rows["tau"], n_steps=0), 5)
     del rows, Xb, Yb
+    group = _build.library().fista_burst_group(WIDE_N)
+    group_smem = _build.library().fista_burst_smem_bytes(WIDE_N)
     compare_full_width(res_k, res_t, "burst wide-n certified run")
     del res_k, res_t
-    wide_ms, wide_trials, _ = med3(lambda: solve_lasso_batch(Aw, bw, a1w, 0.0, cfg=cfg,
-                                                             feature_major=True))
-    driver_ms, _, res_d = med3(lambda: fista_gram_batch(gbw, cfg))
+    wide_ms, wide_trials, _ = med_ms(lambda: solve_lasso_batch(Aw, bw, a1w, 0.0, cfg=cfg,
+                                                               feature_major=True), 5)
+    driver_ms, _, res_d = med_ms(lambda: fista_gram_batch(gbw, cfg))
     print(f"-- torch driver on the wide-n Gram: certified {int(res_d.converged.sum())}"
           f"/{WIDE_B}")
+    # each launch copies every lane's Q from device memory once; each matvec (one
+    # per iteration, one per gap) reads it from shared memory
     q_gb = gbw.Q.numel() * 4 / 1e9
-    q_reads = int(res.n_iters_total) + bursts  # one per iteration, one per gap
+    q_reads = int(res.n_iters_total) + bursts
     print(f"[6 times] build kernels {build_ms:.3f} ms (gram_pairs alone "
           f"{pairs_ms:.3f} ms, trials {[round(x, 3) for x in pairs_trials]}; gram_power "
           f"alone {power_ms:.3f} ms) vs twin {build_plain_ms:.3f} ms (pairs "
           f"{pairs_plain_ms:.3f}, power {power_plain_ms:.3f}) | "
-          f"burst solve {burst_ms:.3f} ms ({bursts} bursts, {q_reads} Q reads = "
-          f"{q_reads * q_gb / burst_ms * 1e3:.1f} GB/s; the {bursts} launches back to "
+          f"burst solve {burst_ms:.3f} ms ({bursts} bursts; the {bursts} launches back to "
           f"back {launches_ms:.3f} ms, so the host loop costs "
           f"{burst_ms - launches_ms:.3f} ms) vs twin {burst_plain_ms:.3f} ms | "
           f"routed solve_lasso_batch {wide_ms:.3f} ms ({n_conv / wide_ms * 1e3:.4g} "
           f"certified instances/s) | torch driver on the same Gram {driver_ms:.3f} ms | "
           f"trials build {[round(x, 3) for x in build_trials]} burst "
-          f"{[round(x, 3) for x in burst_trials]} routed {[round(x, 3) for x in wide_trials]}")
+          f"{[round(x, 3) for x in burst_trials]} launches "
+          f"{[round(x, 3) for x in launches_trials]} routed "
+          f"{[round(x, 3) for x in wide_trials]}")
+    print(f"-- burst kernel at n={WIDE_N}: {group} lanes a CTA, {group_smem} bytes of shared "
+          f"memory; Q read from device memory once a launch, {q_gb:.3f} GB ({bursts * q_gb:.1f} "
+          f"GB in all); a launch with no step (the copy-in) {copy_ms:.3f} ms = "
+          f"{q_gb / copy_ms * 1e3:.1f} GB/s, {100.0 * bursts * copy_ms / launches_ms:.1f}% of "
+          f"the launches; {q_reads} matvecs read Q from shared memory, "
+          f"{q_reads * q_gb / launches_ms * 1e3:.1f} GB/s over the launches")
 
     nw, mw = WIDE_N, 2 * WIDE_N
     bounds["gram"] = bound(4 * (nw * mw * WIDE_B + mw * WIDE_B + nw * nw * WIDE_B
@@ -1437,11 +1515,12 @@ def main() -> int:
     pairs_l2_gbps = pairs_work["l2_bytes"] / pairs_ms / 1e6
     bounds["burst"] = bound(4 * (nw * nw * WIDE_B + nw * WIDE_B + 6 * WIDE_B + nw * WIDE_B),
                             solve_ops(nw, WIDE_B * int(res.n_iters_total), cfg.check_every))
+    gbw_q_bytes = gbw.Q.numel() * 4
     del gbw, res, res_d
     torch.cuda.empty_cache()
     Ab = torch.cat([Aw, bw[None]])
     del Aw, bw
-    gram_lib_ms, _, _ = med3(lambda: torch.einsum("imb,jmb->ijb", Ab, Ab))
+    gram_lib_ms, _, _ = med_ms(lambda: torch.einsum("imb,jmb->ijb", Ab, Ab))
     del Ab
     torch.cuda.empty_cache()
     print(f"-- bounds: build {bounds['gram'][0]:.3f} ms by {bounds['gram'][1]}; gram_pairs "
@@ -1487,7 +1566,8 @@ def main() -> int:
          "launches": launches["burst"], "max_abs_err": errs["burst"],
          "ms": burst_ms, "plain_ms": burst_plain_ms, "bound_ms": bounds["burst"][0],
          "bound_by": bounds["burst"][1], "library_ms": None, "e2e_ms": wide_ms,
-         "driver_ms": driver_ms, "launches_only_ms": launches_ms},
+         "driver_ms": driver_ms, "launches_only_ms": launches_ms, "group_lanes": group,
+         "smem_bytes": group_smem, "q_bytes_per_launch": gbw_q_bytes, "copy_in_ms": copy_ms},
         {"name": "resident_solve", "route": "cuda", "source": RESIDENT_SRC,
          "replaces": "fastoptsolver_tpu/kernels/resident.py:103",
          "also_replaces": "fastoptsolver_tpu/kernels/fista_vmem.py:897 (the adaptive "
@@ -1496,7 +1576,8 @@ def main() -> int:
          "plain_ms": w1["plain_ms"], "bound_ms": w1["bound_ms"], "bound_by": w1["bound_by"],
          "library_ms": None, "plain_lanes": w1["plain_lanes"],
          "ms_at_plain_lanes": w1["ms_at_plain_lanes"], "e2e_ms": w1["e2e_ms"],
-         "driver_ms": w1["driver_ms"], "copy_in_ms": w1["copy_in_ms"]},
+         "driver_ms": w1["driver_ms"], "copy_in_ms": w1["copy_in_ms"],
+         "adaptive_entry": adaptive},
         {"name": "qstream_burst", "route": "cuda", "source": QSTREAM_SRC,
          "replaces": "fastoptsolver_tpu/kernels/qstream.py:90",
          "launches": w2["launches"], "max_abs_err": errs["qstream"], "ms": w2["ms"],

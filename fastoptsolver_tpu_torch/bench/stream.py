@@ -1,11 +1,13 @@
-"""No-math read ceiling of the fused kernel's access pattern (port of
+"""No-math read ceiling of the fused kernel's inputs (port of
 ``fastoptsolver_tpu/bench/stream.py``).
 
 ``csrc/stream.cu`` reads every element of ``A (n, m, B)`` and ``b (m, B)``
-with the fused kernel's launch shape (one thread per lane, ``b_tile`` lanes
-per CTA) and writes each lane's full sum. Its GB/s, measured in the same
-process as the solve, is the denominator of ``pct_of_achievable``. The TPU
-kernel touched one row per brick because its DMA moved whole bricks anyway;
+once and writes each lane's full sum: ``b_tile`` threads per CTA, each
+reading 4 adjacent lanes with 16-byte loads (B % 4 == 0 and 16-byte aligned
+bases, ``stream_copy_bytes`` in C) or one lane with 4-byte loads; each
+lane's sum is added in one order at either width. Its GB/s, measured in
+the same process as the solve, is the denominator of ``pct_of_achievable``.
+The TPU kernel touched one row per brick because its DMA moved whole bricks anyway;
 a GPU fetches only what is read, so here every element is summed, and the
 plain twin :func:`stream_pass_reference` computes the same full sum.
 """

@@ -14,11 +14,11 @@ from a seed:
 - the kernel engine ``plan_gram_solve`` picks on the same Gram
   (``fista_gram_vmem``): the burst engine (n ≤ 104), the resident engine
   (n ≤ 168, one launch) or the Q-streaming engine. ``q_passes`` counts the
-  Q passes as the reference's model of its TPU engines does (burst engine
-  one per burst, resident one per solve, Q-streaming one per iteration and
-  one per burst); ``q_reads`` counts what the port's kernel reads (its
-  burst kernel reads Q every iteration, see ``csrc/fista_burst.cu``), and
-  ``q_stream_gbps`` is ``q_reads`` over the solve time;
+  Q passes from device memory as the reference's model of its TPU engines
+  does, and as the port's kernels read it (burst engine one per burst, its
+  Q held in shared memory for the burst; resident one per solve;
+  Q-streaming one per iteration and one per burst), and ``q_stream_gbps``
+  is ``q_passes`` over the solve time;
 - the routed end-to-end call from raw ``(A, b)`` (``solve_lasso_batch``;
   in the resident window its build skips the power loop and the kernel
   estimates L itself).
@@ -140,11 +140,10 @@ def run_one(n: int, hbm_gb: float = 2.0, max_iter: int = 1000,
         it_k = int(res_k.n_iters_total)
         bursts = -(-it_k // check_every)
         q_passes = {"vmem": bursts, "resident": 1}.get(engine, it_k + bursts)
-        q_reads = 1 if engine == "resident" else it_k + bursts
         out["kernel"] = {"engine": engine, "solve_ms": ms_k, "converged": conv_k,
                          "inst_per_s": conv_k / ms_k * 1e3, "iters_total": it_k,
-                         "q_passes": q_passes, "q_reads": q_reads,
-                         "q_stream_gbps": q_reads * q_bytes / ms_k / 1e6,
+                         "q_passes": q_passes,
+                         "q_stream_gbps": q_passes * q_bytes / ms_k / 1e6,
                          "speedup_vs_driver": ms_d / ms_k}
     del gb
     ms_r, res_r = _timed(lambda: solve_lasso_batch(A, b, alpha1, 0.0, cfg=cfg,

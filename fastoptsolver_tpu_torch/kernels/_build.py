@@ -81,10 +81,15 @@ _SIGNATURES = {
     "gram_pairs_smem_bytes": [],
     # B, A, b
     "gram_pairs_copy_bytes": [_ll, _vp, _vp],
+    "stream_copy_bytes": [_ll, _vp, _vp],
+    # n: the burst kernel's lanes per CTA and their shared bytes
+    "fista_burst_group": [_i],
+    "fista_burst_smem_bytes": [_i],
     "fos_cuda_error_string": [_i],
 }
 _RESTYPES = {"fos_cuda_error_string": ctypes.c_char_p,
-             "gram_pairs_smem_bytes": _ll}  # the rest return int
+             "gram_pairs_smem_bytes": _ll,
+             "fista_burst_smem_bytes": _ll}  # the rest return int
 
 _lib: ctypes.CDLL | None = None
 build_log = ""  # nvcc's output for the library this process built or loaded

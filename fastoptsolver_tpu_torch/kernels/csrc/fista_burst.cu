@@ -1,4 +1,5 @@
-// fista_burst — n_steps FISTA iterations of the Gram-form batched lasso, one launch.
+// fista_burst — n_steps FISTA iterations of the Gram-form batched lasso, one launch,
+// each lane's full Q held in shared memory for the burst.
 //
 // Replaces the TPU kernel fastoptsolver_tpu/kernels/fista_vmem.py:_fista_tile_kernel
 // (launched by _burst; the host loop of fista_vmem.fista_gram_vmem runs one launch
@@ -13,34 +14,39 @@
 // is written too.
 //
 // Layout: Q (n, n, B), c, X, Y (n, B), per-lane rows (B,), lanes on the contiguous
-// last axis. A CTA owns 32 lanes (threadIdx.x) and spreads the features over 8 row
-// groups (threadIdx.y): thread (lane, g) keeps features g, g+8, ... of its lane in
-// registers (F of them, a template constant). Y and the trial point live in shared
-// memory because every thread of a lane reads all of them in the matvec
-//   out[f] = sum_k Q[k][f] * v[k]   (k ascending, over the true n, no padding),
-// whose Q reads coalesce across the 32 lanes into one 128-byte line per (k, f).
-// Per-lane sums over features (norms, the Armijo values, the gap's terms) add each
-// thread's partials, then the 8 row groups in order, through shared memory.
+// last axis. A CTA owns G lanes (a group; fista_burst_group below) and gives each
+// nt = round_up(n, 32) threads, one feature each, as csrc/resident.cu does. At the
+// start of the launch the group's full Grams are copied into shared memory once, as
+// [g][k][i] (n*n floats a lane: 36,864 bytes at n = 96, so G = 6 there and 5 at
+// n = 104; up to 32 lanes at n <= 32), by cp.async: every copy of a thread is in
+// flight before the first wait. Every matvec of the burst (the n_steps steps, each
+// Armijo trial, the gap)
+//   out[i] = sum_k Q[k][i] * v[k]   (k ascending, over the true n, from 0)
+// then reads Q from shared memory: the 32 threads of a warp read 32 consecutive
+// words per k, and y or the trial point, staged per lane, is broadcast 4 floats at a
+// time. Per-lane sums over features (norms, the Armijo values, the gap's terms) keep
+// the order of the kernel this one replaced: for each row group r = 0..7 a partial
+// over the features r, r+8, ... ascending from 0, then the eight partials in order
+// from 0. Each thread stages its term in shared memory (kStage sums at a time), and
+// thread 8s + r of the lane's first warp adds row group r of sum s; shuffles add the
+// eight partials. So X, Y, t, ps, tau and the gap equal the per-step-streaming
+// kernel's bit for bit.
 //
-// Bound: each iteration reads the CTA's Q slice once through L2 (n^2 * 32 * 4 bytes;
-// 2.0 GB per iteration for the whole batch at n=96, B=54144), against 2*n^2 flops per
-// lane: ~0.25 flop/byte, so the kernel is bound by device-memory reads, about 0.6 ms
-// per iteration at the 3.35 TB/s data-sheet peak (measured on an H100 80GB HBM3 at
-// 700 W: 1.13 ms, Q read at ~1760 GB/s against ~3090 GB/s for a plain read of Q:
-// the 13 loads a thread has in flight per k do not cover the latency). The TPU
-// kernel holds a tile's Q in VMEM for a whole burst and reads it once per
-// check_every iterations; holding Q
-// on-chip across a burst (it does not fit one block's 227 KB at n=96 for more than
-// ~1.5 lanes) is later work. Armijo adds one matvec per trial round, the gap one per
-// burst.
+// Bound: device memory holds Q read once per launch (n^2 * B * 4 bytes: 2.0 GB at
+// n = 96, B = 54144); the steps read it from shared memory, n^2 words a lane and a
+// matvec, about one 128-byte wavefront a clock per SM, plus the broadcasts of v.
+// With one CTA an SM at n = 96 the copy-in does not overlap compute. The TPU kernel
+// holds a tile's Q in VMEM for a burst in the same way. Armijo adds one matvec per
+// trial round, the gap one per burst.
 //
 // No lane depends on its neighbours: the trial rounds of a CTA run while any of its
 // lanes is unaccepted, and an accepted lane is left untouched, so the result equals
-// a per-lane trial loop and the twin's batch-wide lockstep rounds at any tiling.
-// Lanes >= B load zeros, start accepted and store nothing; they still reach every
-// __syncthreads. Offsets are 64-bit (Q holds 5.0e8 elements at full width). Built
-// with --fmad=false and without --use_fast_math, so each product and sum rounds
-// separately, as in the twin, and divisions and square roots are IEEE.
+// a per-lane trial loop and the twin's batch-wide lockstep rounds at any grouping.
+// Lanes >= B load zeros, start accepted and store nothing; threads of features >= n
+// compute zeros; both reach every __syncthreads. Offsets are 64-bit (Q holds 5.0e8
+// elements at full width). Built with --fmad=false and without --use_fast_math, so
+// each product and sum rounds separately, as in the twin, and divisions and square
+// roots are IEEE.
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -48,11 +54,13 @@
 
 namespace {
 
-constexpr int kLanes = 32;  // lanes per CTA (threadIdx.x)
-constexpr int kRows = 8;    // feature row groups (threadIdx.y)
-constexpr int kThreads = kLanes * kRows;
-constexpr int kMaxN = 104;  // the burst window (fista_vmem.plan_gram_solve)
-constexpr int kMaxSums = 5;
+constexpr int kMaxThreads = 1024;
+constexpr int kMaxN = 104;       // the burst window (fista_vmem.plan_gram_solve)
+constexpr int kRows = 8;         // row groups of the per-lane sums
+constexpr int kStage = 2;        // sums a lane stages in shared memory at once
+constexpr int kResults = 5;      // a lane's result slots (the gap's five sums)
+constexpr long long kSmemLimit = 232448;  // the shared memory a Hopper block may use
+constexpr int kMaxDevices = 64;
 
 enum Mode { kFixed = 0, kRestart = 1, kGreedy = 2 };
 
@@ -92,6 +100,16 @@ struct Params {
   int max_bt;
 };
 
+__host__ __device__ __forceinline__ int lane_threads(int n) { return (n + 31) / 32 * 32; }
+__host__ __device__ __forceinline__ int vec_floats(int n) { return (n + 3) / 4 * 4; }
+
+// Shared floats of one lane: y and the trial point (vec_floats(n) each, so every
+// lane's vectors are 16-byte aligned), the full Q, kStage staged sums of n terms and
+// kResults results.
+__host__ __device__ __forceinline__ long long lane_floats(int n) {
+  return 2LL * vec_floats(n) + static_cast<long long>(n) * n + kStage * n + kResults;
+}
+
 __device__ __forceinline__ float soft_threshold(float v, float thr) {
   // sign(v) * max(|v| - thr, 0), NaN propagated as the twin's torch ops do
   const float mag = fabsf(v) - thr;
@@ -103,126 +121,150 @@ __device__ __forceinline__ float clamp_min(float v, float lo) {
   return (v < lo) ? lo : v;  // NaN passes through, as torch.clamp_min
 }
 
-// Per-lane totals of K partial sums over the 8 row groups, added in order; every
-// thread of the lane gets them. red holds kMaxSums * kRows * kLanes floats.
-template <int K>
-__device__ __forceinline__ void lane_sums(float (&v)[K], float* red) {
-  const int tx = threadIdx.x, ty = threadIdx.y;
-#pragma unroll
-  for (int q = 0; q < K; ++q) red[(q * kRows + ty) * kLanes + tx] = v[q];
-  __syncthreads();
-#pragma unroll
-  for (int q = 0; q < K; ++q) {
-    float s = 0.f;
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) s += red[(q * kRows + r) * kLanes + tx];
-    v[q] = s;
-  }
-  __syncthreads();
+__device__ __forceinline__ float max_nan(float a, float b) {
+  return (b > a || isnan(b)) ? b : a;  // NaN wins, as torch.amax
 }
 
-__device__ __forceinline__ float lane_max(float v, float* red) {
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  red[ty * kLanes + tx] = v;
-  __syncthreads();
-  float m = red[tx];
-#pragma unroll
-  for (int r = 1; r < kRows; ++r) {
-    const float x = red[r * kLanes + tx];
-    m = (x > m || isnan(x)) ? x : m;  // NaN wins, as torch.amax
-  }
-  __syncthreads();
-  return m;
-}
+// A thread's lane and feature, and the lane's shared memory.
+struct Lane {
+  int n, i;
+  const float* Q;  // [k][i]
+  float* y;        // y, the point of the gradient
+  float* v;        // the trial point, then the final x
+  float* T;        // [kStage][n] staged terms
+  float* R;        // [kResults]
+};
 
-// out[j] = sum_k Q[k][f_j] * vs[k] for this thread's features f_j = ty + 8j.
-// vs is [n][32] in shared memory; the caller syncs before and after.
-template <int F>
-__device__ __forceinline__ void matvec(const float* __restrict__ Q, const float* vs, int n,
-                                       int64_t B, int64_t lane, bool valid, float (&out)[F]) {
-  const int tx = threadIdx.x, ty = threadIdx.y;
+// Per-lane totals (or, with kMax, NaN-winning maxima) of K values over the lane's
+// features f < n, in the order of the kernel this one replaced: row group r's partial
+// over f = r, r+8, ... from 0, then partials r = 0..7 in order (from 0 for a sum,
+// from partial 0 for a max). Every thread of the lane gets the totals.
+template <int K, bool kMax = false>
+__device__ __forceinline__ void lane_reduce(float (&val)[K], const Lane& L) {
+  static_assert(K <= kResults, "too many sums");
 #pragma unroll
-  for (int j = 0; j < F; ++j) out[j] = 0.f;
-  if (!valid) return;
-  for (int k = 0; k < n; ++k) {
-    const float vk = vs[k * kLanes + tx];
-    const float* Qk = Q + static_cast<int64_t>(k) * n * B + lane;
+  for (int q0 = 0; q0 < K; q0 += kStage) {
 #pragma unroll
-    for (int j = 0; j < F; ++j) {
-      const int f = ty + j * kRows;
-      if (f < n) out[j] = out[j] + __ldg(Qk + static_cast<int64_t>(f) * B) * vk;
+    for (int s = 0; s < kStage; ++s)
+      if (q0 + s < K && L.i < L.n) L.T[s * L.n + L.i] = val[q0 + s];
+    __syncthreads();
+    if (L.i < 32) {  // the lane's first warp, whole: thread 8s + r adds row group r of q0 + s
+      const int s = L.i / kRows, r = L.i % kRows;
+      const bool mine = s < kStage && q0 + s < K;
+      float part = 0.f;
+      if (mine) {
+        const float* t = L.T + s * L.n;
+        for (int f = r; f < L.n; f += kRows) part = kMax ? max_nan(part, t[f]) : part + t[f];
+      }
+      const int base = L.i - r;
+      float tot = kMax ? __shfl_sync(0xffffffffu, part, base) : 0.f;
+#pragma unroll
+      for (int rr = kMax ? 1 : 0; rr < kRows; ++rr) {
+        const float x = __shfl_sync(0xffffffffu, part, base + rr);
+        tot = kMax ? max_nan(tot, x) : tot + x;
+      }
+      if (mine && r == 0) L.R[q0 + s] = tot;
     }
+    __syncthreads();
   }
+#pragma unroll
+  for (int q = 0; q < K; ++q) val[q] = L.R[q];
 }
 
-template <int F>
-__global__ void __launch_bounds__(kThreads) fista_burst_kernel(Params p) {
-  extern __shared__ float smem[];
+// out[i] = sum_k Q[k][i] * v[k] for this thread's feature i < n, k ascending; v is
+// the lane's staged vector, read 4 floats at a time. The caller syncs before and after.
+__device__ __forceinline__ float matvec(const Lane& L, const float* v) {
+  const int n = L.n;
+  const float* q = L.Q + L.i;
+  float acc = 0.f;
+  int k = 0;
+  for (; k + 4 <= n; k += 4, q += 4 * n) {
+    const float4 v4 = *reinterpret_cast<const float4*>(v + k);
+    acc = acc + q[0] * v4.x;
+    acc = acc + q[n] * v4.y;
+    acc = acc + q[2 * n] * v4.z;
+    acc = acc + q[3 * n] * v4.w;
+  }
+  for (; k < n; ++k, q += n) acc = acc + q[0] * v[k];
+  return acc;
+}
+
+// One 4-byte asynchronous copy into shared memory; src-size 0 (valid false) reads
+// nothing and fills the destination with +0.
+__device__ __forceinline__ void copy_async(uint32_t dst, const float* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0) : "memory");
+}
+
+__global__ void __launch_bounds__(kMaxThreads) fista_burst_kernel(Params p, int G) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
   const int n = p.n;
   const int64_t B = p.B;
-  const int tx = threadIdx.x, ty = threadIdx.y;
-  const int64_t lane = static_cast<int64_t>(blockIdx.x) * kLanes + tx;
+  const int nt = lane_threads(n), nv = vec_floats(n);
+  const int tid = threadIdx.x;
+  const int g = tid / nt;
+  const int64_t lane0 = static_cast<int64_t>(blockIdx.x) * G;
+  const int64_t lane = lane0 + g;
   const bool valid = lane < B;
-  float* Ys = smem;                  // [n][32]: Y, the point of the gradient
-  float* Vs = Ys + n * kLanes;       // [n][32]: trial point / final X
-  float* red = Vs + n * kLanes;      // [kMaxSums][8][32]
+  float* Qs = smem + 2LL * G * nv;  // [G][n][n], after the G lanes' two vectors
+  Lane L;
+  L.n = n;
+  L.i = tid - g * nt;
+  L.y = smem + 2LL * g * nv;
+  L.v = L.y + nv;
+  L.Q = Qs + static_cast<int64_t>(g) * n * n;
+  L.T = Qs + static_cast<int64_t>(G) * n * n + static_cast<int64_t>(g) * kStage * n;
+  L.R = Qs + static_cast<int64_t>(G) * (n * n + kStage * n) + g * kResults;
+  const int i = L.i;
+  const bool feat = i < n;
+  const bool in = valid && feat;
+
+  // The group's Grams, read from device memory once: thread tid copies lane tid % G of
+  // planes tid / G, tid / G + nt, ... (G divides the block, so its lane is fixed), and
+  // consecutive threads read consecutive lanes of a plane.
+  {
+    const int gg = tid % G;
+    const int64_t ln = lane0 + gg;
+    const bool ok = ln < B;
+    const uint32_t dst = static_cast<uint32_t>(
+        __cvta_generic_to_shared(Qs + static_cast<int64_t>(gg) * n * n));
+    for (int pl = tid / G; pl < n * n; pl += nt)
+      copy_async(dst + 4u * pl, ok ? p.Q + static_cast<int64_t>(pl) * B + ln : p.Q, ok);
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  }
 
   auto row = [&](const float* r) { return (valid && r) ? __ldg(r + lane) : 0.f; };
   const float tau = row(p.tau), thr = row(p.thr), a2 = row(p.a2), a1 = row(p.a1);
   const float btb = row(p.btb), taumin = row(p.taumin);
   float t = row(p.t), ps = row(p.ps), tauv = row(p.tauv);
-
-  float x[F], y[F], cf[F];
-#pragma unroll
-  for (int j = 0; j < F; ++j) {
-    const int f = ty + j * kRows;
-    const bool in = valid && f < n;
-    const int64_t off = static_cast<int64_t>(f) * B + lane;
-    x[j] = in ? __ldg(p.X + off) : 0.f;
-    y[j] = in ? __ldg(p.Y + off) : 0.f;
-    cf[j] = in ? __ldg(p.c + off) : 0.f;
-    if (f < n) Ys[f * kLanes + tx] = y[j];
-  }
+  const int64_t off = static_cast<int64_t>(i) * B + lane;
+  float x = in ? __ldg(p.X + off) : 0.f;
+  float y = in ? __ldg(p.Y + off) : 0.f;
+  const float cf = in ? __ldg(p.c + off) : 0.f;
+  if (feat) L.y[i] = y;
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
   __syncthreads();
 
-  for (int i = 0; i < p.n_steps; ++i) {
-    float qy[F], grad[F], xn[F];
-    matvec<F>(p.Q, Ys, n, B, lane, valid, qy);
-#pragma unroll
-    for (int j = 0; j < F; ++j) grad[j] = qy[j] + a2 * y[j] - cf[j];
+  for (int s = 0; s < p.n_steps; ++s) {
+    const float qy = feat ? matvec(L, L.y) : 0.f;
+    const float grad = qy + a2 * y - cf;
+    float xn;
 
     if (p.armijo) {
       // g(y) = 1/2 y.Qy - c.y + 1/2 btb + 1/2 a2 |y|^2
-      float s[3] = {0.f, 0.f, 0.f};
-#pragma unroll
-      for (int j = 0; j < F; ++j) {
-        s[0] += y[j] * qy[j];
-        s[1] += cf[j] * y[j];
-        s[2] += y[j] * y[j];
-      }
-      lane_sums<3>(s, red);
-      const float g_y = 0.5f * s[0] - s[1] + 0.5f * btb + 0.5f * a2 * s[2];
+      float sy[3] = {y * qy, cf * y, y * y};
+      lane_reduce<3>(sy, L);
+      const float g_y = 0.5f * sy[0] - sy[1] + 0.5f * btb + 0.5f * a2 * sy[2];
       // one trial at step tv: xt = prox(y - tv grad); ok = g(xt) <= g_y + C grad.(xt - y)
-      auto trial = [&](float tv, float (&xt)[F]) -> bool {
+      auto trial = [&](float tv, float& xt) -> bool {
         const float th = tv * a1;
-#pragma unroll
-        for (int j = 0; j < F; ++j) {
-          const int f = ty + j * kRows;
-          xt[j] = soft_threshold(y[j] - tv * grad[j], th);
-          if (f < n) Vs[f * kLanes + tx] = xt[j];
-        }
+        xt = soft_threshold(y - tv * grad, th);
+        if (feat) L.v[i] = xt;
         __syncthreads();
-        float qx[F];
-        matvec<F>(p.Q, Vs, n, B, lane, valid, qx);
-        float u[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-        for (int j = 0; j < F; ++j) {
-          u[0] += xt[j] * qx[j];
-          u[1] += cf[j] * xt[j];
-          u[2] += xt[j] * xt[j];
-          u[3] += grad[j] * (xt[j] - y[j]);
-        }
-        lane_sums<4>(u, red);  // its first sync also ends the matvec's reads of Vs
+        const float qx = feat ? matvec(L, L.v) : 0.f;
+        float u[4] = {xt * qx, cf * xt, xt * xt, grad * (xt - y)};
+        lane_reduce<4>(u, L);  // its first sync also ends the matvec's reads of v
         const float g_x = 0.5f * u[0] - u[1] + 0.5f * btb + 0.5f * a2 * u[2];
         return g_x <= g_y + p.armijo_c * u[3];
       };
@@ -230,60 +272,43 @@ __global__ void __launch_bounds__(kThreads) fista_burst_kernel(Params p) {
       int kbt = 0;
       while (__syncthreads_or(!acc) && kbt < p.max_bt) {
         const float tv = acc ? tauv : p.armijo_eta * tauv;
-        float xt[F];
+        float xt;
         const bool ok = trial(tv, xt);
-        if (!acc) {
-#pragma unroll
-          for (int j = 0; j < F; ++j) xn[j] = xt[j];
-        }
+        if (!acc) xn = xt;
         acc = acc || ok;
         tauv = tv;
         ++kbt;
       }
     } else if (p.mode == kGreedy) {
-#pragma unroll
-      for (int j = 0; j < F; ++j) xn[j] = soft_threshold(y[j] - t * grad[j], t * a1);
+      xn = soft_threshold(y - t * grad, t * a1);
     } else {
-#pragma unroll
-      for (int j = 0; j < F; ++j) xn[j] = soft_threshold(y[j] - tau * grad[j], thr);
+      xn = soft_threshold(y - tau * grad, thr);
     }
 
-    float yn[F];
+    float yn;
     if (p.mode == kFixed) {
-      const float beta = __ldg(p.betas + p.k0 + i);
-#pragma unroll
-      for (int j = 0; j < F; ++j) yn[j] = xn[j] + beta * (xn[j] - x[j]);
+      const float beta = __ldg(p.betas + p.k0 + s);
+      yn = xn + beta * (xn - x);
     } else if (p.mode == kRestart) {
-      float s[1] = {0.f};
-#pragma unroll
-      for (int j = 0; j < F; ++j) {
-        const float d = xn[j] - x[j];
-        s[0] += d * d;
-      }
-      lane_sums<1>(s, red);
-      const float step = sqrtf(s[0]);
+      const float d = xn - x;
+      float sd[1] = {d * d};
+      lane_reduce<1>(sd, L);
+      const float step = sqrtf(sd[0]);
       float t_next = 0.5f * (1.f + sqrtf(1.f + 4.f * t * t));
       const float beta = (t - 1.f) / t_next;
       const float ratio = (ps > 0.f) ? step / clamp_min(ps, 1e-30f) : INFINITY;
       const bool restart = ratio > p.restart_threshold;
       if (restart) t_next = 1.f;
-#pragma unroll
-      for (int j = 0; j < F; ++j) yn[j] = restart ? xn[j] : xn[j] + beta * (xn[j] - x[j]);
+      yn = restart ? xn : xn + beta * (xn - x);
       t = t_next;
       ps = step;
     } else {  // greedy: unit momentum, gradient-mapping restart, tau safeguard
-      float s[2] = {0.f, 0.f};
-#pragma unroll
-      for (int j = 0; j < F; ++j) {
-        const float d = xn[j] - x[j];
-        s[0] += d * d;
-        s[1] += (y[j] - xn[j]) * d;
-      }
-      lane_sums<2>(s, red);
-      const float step = sqrtf(s[0]);
-      const bool restart = s[1] >= 0.f;
-#pragma unroll
-      for (int j = 0; j < F; ++j) yn[j] = restart ? xn[j] : xn[j] + (xn[j] - x[j]);
+      const float d = xn - x;
+      float sd[2] = {d * d, (y - xn) * d};
+      lane_reduce<2>(sd, L);
+      const float step = sqrtf(sd[0]);
+      const bool restart = sd[1] >= 0.f;
+      yn = restart ? xn : xn + (xn - x);
       if (ps == 0.f) ps = step;
       const bool grow = step > p.greedy_S * ps;
       if (grow || restart) {
@@ -292,63 +317,40 @@ __global__ void __launch_bounds__(kThreads) fista_burst_kernel(Params p) {
       }
     }
 
-    __syncthreads();  // every thread is done reading Ys
-#pragma unroll
-    for (int j = 0; j < F; ++j) {
-      const int f = ty + j * kRows;
-      x[j] = xn[j];
-      y[j] = yn[j];
-      if (f < n) Ys[f * kLanes + tx] = y[j];
-    }
+    __syncthreads();  // every thread is done reading y
+    x = xn;
+    y = yn;
+    if (feat) L.y[i] = y;
     __syncthreads();
   }
 
   float gap = 0.f;
   if (p.with_gap) {
-#pragma unroll
-    for (int j = 0; j < F; ++j) {
-      const int f = ty + j * kRows;
-      if (f < n) Vs[f * kLanes + tx] = x[j];
-    }
+    if (feat) L.v[i] = x;
     __syncthreads();
-    float qx[F];
-    matvec<F>(p.Q, Vs, n, B, lane, valid, qx);
-    float s[5] = {0.f, 0.f, 0.f, 0.f, 0.f};  // xQx, cx, xx, l1, uu
-    float u_inf = 0.f;
-#pragma unroll
-    for (int j = 0; j < F; ++j) {
-      s[0] += x[j] * qx[j];
-      s[1] += cf[j] * x[j];
-      s[2] += x[j] * x[j];
-      s[3] += fabsf(x[j]);
-      const float u = qx[j] - cf[j] + a2 * x[j];
-      s[4] += u * u;
-      const float au = fabsf(u);
-      if ((ty + j * kRows) < n) u_inf = (au > u_inf || isnan(au)) ? au : u_inf;
-    }
-    lane_sums<5>(s, red);
-    u_inf = lane_max(u_inf, red);
-    const float rr = clamp_min(s[0] - 2.f * s[1] + btb, 0.f);
-    const float rb = s[1] - btb;
-    const float f = 0.5f * rr + 0.5f * a2 * s[2] + a1 * s[3];
+    const float qx = feat ? matvec(L, L.v) : 0.f;
+    const float u = qx - cf + a2 * x;
+    float sg[5] = {x * qx, cf * x, x * x, fabsf(x), u * u};  // xQx, cx, xx, l1, uu
+    lane_reduce<5>(sg, L);
+    float um[1] = {fabsf(u)};
+    lane_reduce<1, true>(um, L);
+    const float u_inf = um[0];
+    const float rr = clamp_min(sg[0] - 2.f * sg[1] + btb, 0.f);
+    const float rb = sg[1] - btb;
+    const float f = 0.5f * rr + 0.5f * a2 * sg[2] + a1 * sg[3];
     const float sc = (u_inf > a1) ? a1 / clamp_min(u_inf, 1e-30f) : 1.f;
-    const float dual_neg = 0.5f * (sc * sc) * rr + sc * rb + 0.5f * a2 * (sc * sc) * s[2];
+    const float dual_neg = 0.5f * (sc * sc) * rr + sc * rb + 0.5f * a2 * (sc * sc) * sg[2];
     const float l1_gap = clamp_min(f + dual_neg, 0.f);
-    const float smooth_gap = s[4] / ((a2 > 0.f) ? 2.f * a2 : 1.f);
+    const float smooth_gap = sg[4] / ((a2 > 0.f) ? 2.f * a2 : 1.f);
     gap = ((a1 > 0.f) ? l1_gap : smooth_gap) / clamp_min(f, 1.f);
   }
 
   if (!valid) return;
-#pragma unroll
-  for (int j = 0; j < F; ++j) {
-    const int f = ty + j * kRows;
-    if (f < n) {
-      const int64_t off = static_cast<int64_t>(f) * B + lane;
-      p.Xo[off] = x[j];
-      p.Yo[off] = y[j];
-    }
+  if (feat) {
+    p.Xo[off] = x;
+    p.Yo[off] = y;
   }
-  if (ty == 0) {
+  if (i == 0) {
     p.to[lane] = t;
     p.pso[lane] = ps;
     p.tauvo[lane] = tauv;
@@ -356,23 +358,32 @@ __global__ void __launch_bounds__(kThreads) fista_burst_kernel(Params p) {
   }
 }
 
-template <int F>
-int launch(const Params& p, cudaStream_t stream) {
-  const size_t smem = (2 * static_cast<size_t>(p.n) + kMaxSums * kRows) * kLanes * sizeof(float);
-  const unsigned grid = static_cast<unsigned>((p.B + kLanes - 1) / kLanes);
-  fista_burst_kernel<F><<<grid, dim3(kLanes, kRows), smem, stream>>>(p);
-  return static_cast<int>(cudaGetLastError());
+}  // namespace
+
+// The burst kernel's lanes per CTA at feature count n: as many as fit 232,448 bytes
+// of shared memory (lane_floats(n) floats each) and 1024 threads (round_up(n, 32)
+// each): 32 at n <= 32, 6 at n = 96, 5 at n = 104. 0 for n outside 1..104. A launch
+// takes min(this, B).
+extern "C" int fista_burst_group(int n) {
+  if (n < 1 || n > kMaxN) return 0;
+  const long long by_smem = kSmemLimit / (4 * lane_floats(n));
+  const int by_threads = kMaxThreads / lane_threads(n);
+  return by_smem < by_threads ? static_cast<int>(by_smem) : by_threads;
 }
 
-}  // namespace
+// The dynamic shared memory, in bytes, of a CTA of fista_burst_group(n) lanes.
+extern "C" long long fista_burst_smem_bytes(int n) {
+  return 4 * lane_floats(n) * fista_burst_group(n);
+}
 
 // One burst. mode: 0 fixed (table beta), 1 nesterov + adaptive restart, 2 greedy;
 // armijo != 0 adds the per-lane Armijo search (mode 0 or 1). Rows tau, thr, a2, a1,
 // btb, t, ps, tauv are (B,); taumin may be null (greedy only); betas needs k0 +
 // n_steps entries in mode 0. Outputs Xo, Yo (n, B), to, pso, tauvo, gap (B,); gap is
 // 0 unless with_gap. Returns a cudaError_t as int: cudaErrorInvalidValue for n
-// outside 1..104, an unknown mode, greedy with armijo, or an empty batch, else
-// cudaGetLastError() after the launch.
+// outside 1..104, an unknown mode, greedy with armijo, an empty batch, or a card
+// whose blocks hold less shared memory than the group needs, else the first error of
+// the device query, the shared-memory opt-in (made once per device) or the launch.
 extern "C" int fista_burst(const float* Q, const float* c, const float* tau, const float* thr,
                            const float* a2, const float* a1, const float* btb, const float* X,
                            const float* Y, const float* t, const float* ps,
@@ -385,14 +396,31 @@ extern "C" int fista_burst(const float* Q, const float* c, const float* tau, con
   if (n < 1 || n > kMaxN || B < 1 || n_steps < 0 || mode < kFixed || mode > kGreedy ||
       (armijo && mode == kGreedy) || (mode == kGreedy && !taumin))
     return static_cast<int>(cudaErrorInvalidValue);
+  // the opt-in limit of each device, set on the kernel at its first launch there
+  static int optin_set[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidValue);
+  if (optin_set[dev] == 0) {
+    int optin = 0;
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (optin > kSmemLimit) optin = static_cast<int>(kSmemLimit);
+    err = cudaFuncSetAttribute(fista_burst_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    optin_set[dev] = optin;
+  }
+  const int G = fista_burst_group(n) < B ? fista_burst_group(n) : static_cast<int>(B);
+  const long long smem = 4 * lane_floats(n) * G;
+  if (smem > optin_set[dev]) return static_cast<int>(cudaErrorInvalidValue);
   const Params p{Q,  c,   tau, thr,   a2,  a1,       btb,    X,        Y,
                  t,  ps,  taumin, tauv, betas, Xo,   Yo,     to,       pso,
                  tauvo, gap, n, B, n_steps, k0, mode, armijo, with_gap, restart_threshold,
                  greedy_S, greedy_shrink, armijo_c, armijo_eta, max_backtracks};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n <= 8) return launch<1>(p, s);
-  if (n <= 16) return launch<2>(p, s);
-  if (n <= 32) return launch<4>(p, s);
-  if (n <= 64) return launch<8>(p, s);
-  return launch<13>(p, s);
+  const unsigned grid = static_cast<unsigned>((B + G - 1) / G);
+  fista_burst_kernel<<<grid, G * lane_threads(n), static_cast<size_t>(smem),
+                       static_cast<cudaStream_t>(stream)>>>(p, G);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -3,8 +3,9 @@
 
 :func:`fista_gram_vmem` solves a prebuilt :class:`GramBatch` in bursts of
 ``check_every`` FISTA iterations. On a CUDA tensor each burst is one launch of
-the hand-written Hopper kernel ``csrc/fista_burst.cu`` (see its note for the
-design and the bound); on a CPU tensor it is the plain twin
+the hand-written Hopper kernel ``csrc/fista_burst.cu``, which holds each
+lane's Q in shared memory for the burst (see its note for the design and the
+bound); on a CPU tensor it is the plain twin
 :func:`_burst_reference`, built from ``kernels/_common.py``. Every momentum
 mode runs in the burst: fixed (nesterov or delta, β from a host table at the
 absolute iteration), adaptive restart, greedy, and the masked per-lane Armijo
@@ -121,7 +122,8 @@ def auto_b_tile(n_pad: int, vmem_budget_bytes: int = 12 * 1024 * 1024) -> int:
     of 128 lanes, clamped to [128, 1024], whose double-buffered Q tile fits
     its TPU budget. Kept so that :func:`plan_gram_solve` returns the same
     plan in both packages; here no result depends on it (the CUDA kernel
-    runs 32-lane CTAs). Raises past the window (n_pad ≥ 112, n > 104)."""
+    groups as many lanes a CTA as its shared memory holds). Raises past the
+    window (n_pad ≥ 112, n > 104)."""
     fit = vmem_budget_bytes // (2 * n_pad * n_pad * 4)
     if fit < LANE:
         raise ValueError(

@@ -162,6 +162,22 @@ def test_stream_kernel_matches_twin(cuda, shape):
     assert bool(((got - want).abs() <= 1e-5 * scale).all())
 
 
+def test_stream_copy_widths_agree(cuda):
+    """Each lane's sum does not depend on the load width: a B=301 pass
+    (4-byte loads) equals, on its first 300 lanes, a B=300 pass of the same
+    data (16-byte loads), bit for bit, and both hold against the twin."""
+    A, b, _ = _problem(5, 70, 301, seed=8, device=cuda)
+    A3, b3 = A[:, :, :300].contiguous(), b[:, :300].contiguous()
+    width = _build.library().stream_copy_bytes
+    assert width(301, A.data_ptr(), b.data_ptr()) == 4
+    assert width(300, A3.data_ptr(), b3.data_ptr()) == 16
+    narrow, wide = stream.stream_pass(A, b), stream.stream_pass(A3, b3)
+    torch.cuda.synchronize()
+    assert torch.equal(narrow[:300], wide)
+    scale = A.abs().sum(dim=(0, 1)) + b.abs().sum(dim=0)
+    assert bool(((narrow - stream.stream_pass_reference(A, b)).abs() <= 1e-5 * scale).all())
+
+
 def test_router_takes_the_kernel_on_cuda(cuda):
     A, b, a1 = _problem(5, 100, 256, seed=4, device=cuda)
     before = fused_solve.LAUNCHES
@@ -250,12 +266,19 @@ BURST_MODES = {
 }
 
 
-@pytest.mark.parametrize("mode", list(BURST_MODES))
-def test_burst_kernel_matches_twin(cuda, mode):
+# every mode at n = 20, fixed Nesterov and restart at a width of each other
+# lanes-a-CTA count of the window (32 lanes at n <= 32, then 16, 13, 6, 5)
+BURST_CASES = [(20, mode) for mode in BURST_MODES] + [
+    (n, mode) for n in (5, 9, 33, 64, 96, 104) for mode in ("nesterov", "restart")]
+
+
+@pytest.mark.parametrize("n, mode", BURST_CASES)
+def test_burst_kernel_matches_twin(cuda, n, mode):
     """Fixed runs (check_every=0) to rtol 2e-4/atol 2e-5, certified runs
-    (rel_gap_tol 1e-5) with converged identical and iters within a burst."""
+    (rel_gap_tol 1e-5) with converged identical and iters within a burst,
+    at B = 300 (a ragged last CTA at 32, 16 and 13 lanes a CTA)."""
     kw, a2 = BURST_MODES[mode]
-    A, b, a1 = _problem(20, 150, 300, seed=7, device=cuda)
+    A, b, a1 = _problem(n, max(150, 2 * n), 300, seed=7, device=cuda)
     gb = gram_build.make_gram_batch_fused(A, b, a1, a2)
     fixed = BatchFISTAConfig(max_iter=100, check_every=0, **kw)
     before = fista_vmem.LAUNCHES
@@ -269,6 +292,18 @@ def test_burst_kernel_matches_twin(cuda, mode):
     want = fista_vmem.fista_gram_vmem_reference(gb, cert)
     assert torch.equal(got.converged, want.converged) and got.converged.all()
     assert int((got.iters - want.iters).abs().max()) <= 25
+
+
+def test_burst_group_fits_a_block(cuda):
+    """The C exports size a CTA that a Hopper block takes at every n of the
+    window: at most 232,448 bytes of shared memory and 1024 threads."""
+    lib = _build.library()
+    for n in range(1, fista_vmem.MAX_N + 1):
+        G, smem = lib.fista_burst_group(n), lib.fista_burst_smem_bytes(n)
+        assert 1 <= G <= 32 and G * (-(-n // 32) * 32) <= 1024, n
+        assert 0 < smem <= 232448 and smem % G == 0, n
+    assert [lib.fista_burst_group(n) for n in (5, 20, 33, 64, 96, 104)] == [32, 32, 16, 13, 6, 5]
+    assert lib.fista_burst_group(0) == lib.fista_burst_group(fista_vmem.MAX_N + 1) == 0
 
 
 def test_burst_kernel_armijo_decisive_and_resume(cuda):
