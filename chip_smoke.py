@@ -40,12 +40,14 @@ Phases, one line each (``--`` lines are detail):
    upper triangle), and the library's grouping equal to the twin's for every
    n of the window; the adaptive entry onto it at n = 96, B = 300 (restart
    and greedy, each timed, median of 5, beside its bound); the Q-streaming
-   kernel at n ∈ {200, 256}, B = 300, one burst per mode (state to rtol
+   engine at n ∈ {200, 256}, B = 300, one burst per mode (state to rtol
    2e-4/atol 2e-5) and a certified run, then one burst per mode at
-   n ∈ {120, 400, 600, 900}, B = 100 (each of the kernel's other
-   instantiations the router reaches: 8, 32 and 64 features a thread at 32
-   lanes a CTA, and 16 lanes a CTA past n = 868) and a fixed run with
-   ``check_every=0`` at n = 120 (the window's route to this kernel); a
+   n ∈ {120, 400, 600, 900}, B = 100 (the cluster kernel at each cluster
+   size the rule reaches, 2, 4 and 8 CTAs a lane, and the streaming kernel
+   past n = 660), each burst also bit for bit against the streaming kernel
+   forced at the same n, both routes required, every n's cluster size,
+   shared bytes a CTA and active clusters printed, and a fixed run with
+   ``check_every=0`` at n = 120 (the window's route to this engine); a
    40 + 60 resume bit-exact for each engine;
 4. main path — ``solve_lasso_batch`` at the bench configuration (n=5,
    m=1000, float32, fixed Nesterov momentum, check_every=25, rel_gap_tol=1e-6,
@@ -85,9 +87,16 @@ Phases, one line each (``--`` lines are detail):
    kernel and the twin on those lanes are held as in phase 6 (below);
 8. Q-streaming path — n=256, m=512, B=7552: the einsum build with its power
    loop and one Q-streaming launch per burst, nothing else; at least 75%
-   certified (the JAX driver: 82%); then the routed call, the kernel solve
-   alone with its Q read rate against a plain ``Q.sum()``, the twin and the
-   kernel on the first 1920 lanes, held as in phase 6, and the torch driver.
+   certified (the JAX driver: 82%); then the routed call, the engine's solve
+   alone (the re-layout and the launches), the twin and the kernel on the
+   first 1920 lanes, held as in phase 6, and the torch driver; then the
+   cluster kernel's parts: its cluster size, shared bytes a CTA and active
+   clusters, Q bytes read from device memory a launch, the re-layout (median
+   of 5), the bursts back to back and a launch with no step and no gap (the
+   copy-in; both medians of 5), the matvecs' shared-memory read rate, the
+   bursts at each cluster size 2, 4 and 8 (medians of 3), and the streaming
+   kernel forced at n = 256 against the cluster kernel in turns (old, new,
+   new, old), their bursts held bit-identical.
 9. fused modes path — the bench configuration through ``solve_lasso_batch``
    in adaptive restart, greedy, Armijo (table-β) and Armijo with restart:
    one fused launch and nothing else per call, no lane failed, the certified
@@ -122,7 +131,9 @@ for the build; the build's entry also gives ``gram_pairs`` and
 ``gram_power`` apart (``pairs_*``, ``power_*``); the burst entry its
 ``group_lanes``, ``smem_bytes``, ``q_bytes_per_launch`` and ``copy_in_ms``;
 the resident entry the adaptive entry's phase-3 times
-(``adaptive_entry``); the fused entry's
+(``adaptive_entry``); the Q-streaming entry its ``cluster_size``,
+``smem_bytes``, ``active_clusters``, ``q_bytes_per_launch``, ``copy_in_ms``,
+``relayout_ms`` and phase 8's other splits; the fused entry's
 ``modes`` holds phase 9's times), the card's name and power limit, and,
 last, ``{"ok": true, "device": {...}}``. It exits non-zero, printing no
 result, when there is no CUDA device or any phase fails.
@@ -808,25 +819,45 @@ def random_gram(n: int, B: int, a2: float, seed: int, dev):
 
 
 def check_qstream(dev) -> float:
-    """The Q-streaming kernel against its twin at n ∈ {200, 256}: one burst
+    """The Q-streaming engine against its twin at n ∈ {200, 256}: one burst
     per mode, a certified run, a 40 + 60 resume bit-exact; then one burst per
-    mode at n ∈ {120, 400, 600, 900} (8, 32, 64 features a thread, and 16
-    lanes a CTA) and a fixed ``check_every=0`` run at n = 120. Returns the
-    largest |dx|."""
+    mode at n ∈ {120, 400, 600, 900} and a fixed ``check_every=0`` run at
+    n = 120. Every burst runs on the route ``qstream_burst`` takes (the
+    cluster kernel at n ≤ 660, each cluster size the rule reaches, and the
+    streaming kernel at n = 900), and in the cluster window it must equal the
+    streaming kernel forced at the same n bit for bit; both routes must run.
+    Returns the largest |dx|."""
     import dataclasses
 
     import torch
 
     from fastoptsolver_tpu_torch.batch import BatchFISTAConfig
-    from fastoptsolver_tpu_torch.kernels import fista_vmem, qstream, resident
+    from fastoptsolver_tpu_torch.kernels import _build, fista_vmem, qstream, resident
 
-    worst = 0.0
-    for n in (200, 256):
+    lib = _build.library()
+
+    def against_streaming(*args, **kw):
+        got = qstream._launch_qstream(*args, **kw)
+        streamed = qstream._launch_qstream(*args, cluster=0, **kw)
+        torch.cuda.synchronize()
+        require(all(torch.equal(g, s) for g, s in zip(got, streamed)),
+                f"qstream n={args[3].shape[0]}: the cluster kernel's bits differ from the "
+                "streaming kernel's")
+        return got
+
+    worst, routes = 0.0, {}
+    for n in (200, 256, 120, 400, 600, 900):
+        C = qstream.cluster_size(n)
+        routes[n] = (C, lib.qstream_smem_bytes(n, C),
+                     lib.qstream_active_clusters(n, C) if C else None)
         for name, (kw, a2) in WIDE_MODES.items():
-            gb = wide_gram(n, 300, a2, seed=50 + n, dev=dev)
+            gb = (wide_gram(n, 300, a2, seed=50 + n, dev=dev) if n in (200, 256)
+                  else random_gram(n, 100, a2, seed=60 + n, dev=dev))
             worst = max(worst, burst_vs_twin(
-                qstream._launch_qstream, qstream._qstream_burst_reference, gb, kw,
-                f"qstream n={n} {name}"))
+                against_streaming, qstream._qstream_burst_reference, gb, kw,
+                f"qstream n={n} (cluster {C}) {name}"))
+            if n not in (200, 256):
+                continue
             cert = BatchFISTAConfig(max_iter=1000, check_every=25, rel_gap_tol=1e-5, **kw)
             rk = fista_vmem.fista_gram_vmem(gb, cert)
             torch.cuda.synchronize()
@@ -839,13 +870,7 @@ def check_qstream(dev) -> float:
             require(bool(torch.equal(fista_vmem.fista_gram_vmem(gb, full, state0=mid).x,
                                      straight.x)),
                     f"qstream n={n} {name}: resume 40 + 60 is not bit-exact")
-    for n in (120, 400, 600, 900):
-        for name, (kw, a2) in WIDE_MODES.items():
-            gb = random_gram(n, 100, a2, seed=60 + n, dev=dev)
-            worst = max(worst, burst_vs_twin(
-                qstream._launch_qstream, qstream._qstream_burst_reference, gb, kw,
-                f"qstream n={n} {name}"))
-        if n == 120:  # check_every=0 in the resident window streams Q
+        if n == 120:  # check_every=0 in the resident window takes this engine
             fixed = BatchFISTAConfig(max_iter=100, check_every=0)
             before = (qstream.LAUNCHES, resident.LAUNCHES)
             rk = fista_vmem.fista_gram_vmem(gb, fixed)
@@ -859,6 +884,14 @@ def check_qstream(dev) -> float:
                     and bool(torch.allclose(rk.x, rt.x, rtol=2e-4, atol=2e-5)),
                     "qstream n=120 check_every=0: not the qstream kernel, or off its twin")
             worst = max(worst, dx)
+    sizes = {C for C, _, _ in routes.values()}
+    require(0 in sizes and len(sizes) > 1,
+            f"phase 3 reaches the qstream routes {sorted(sizes)}: not both the cluster and "
+            "the streaming kernel")
+    require(all(a is None or a > 0 for _, _, a in routes.values()),
+            f"a cluster size the card holds no cluster of: {routes}")
+    print(f"-- qstream (cluster size, shared bytes a CTA, active clusters) by n: {routes}; "
+          f"every burst equals the streaming kernel's bits in the cluster window")
     print(f"-- qstream resume 40 + 60 == 100: bit-exact (every mode, n = 200 and 256); "
           f"bursts at n = 120, 400, 600, 900 match; launches so far {qstream.LAUNCHES}")
     return worst
@@ -995,7 +1028,7 @@ def qstream_path(dev, cfg, mods) -> dict:
     from fastoptsolver_tpu_torch.batch import solve_gram_batch, solve_lasso_batch
     from fastoptsolver_tpu_torch.batch.fista_gram import fista_gram_batch, make_gram_batch
     from fastoptsolver_tpu_torch.bench.wide_n import build_problems
-    from fastoptsolver_tpu_torch.kernels import fista_vmem
+    from fastoptsolver_tpu_torch.kernels import _build, fista_vmem, qstream
 
     n, B = W2_N, W2_B
     A, b, a1 = build_problems(torch.Generator(device=dev).manual_seed(0), B, 2 * n, n)
@@ -1008,8 +1041,7 @@ def qstream_path(dev, cfg, mods) -> dict:
     require(counts == dict(counts, qstream=bursts) and sum(counts.values()) == bursts,
             f"qstream path: launches {counts} (want qstream {bursts} = bursts, every other 0)")
     chk = check_wide(res, A, b, a1, 0.75, "qstream path")
-    # Q read once (the kernel re-reads it every step: PERF.md states that bound
-    # too), c and the rows; every lane runs every burst
+    # Q read once, c and the rows; every lane runs every burst
     bnd = bound(4 * (n * n * B + n * B + 6 * B + 2 * n * B + 4 * B),
                 solve_ops(n, B * int(res.n_iters_total), cfg.check_every))
     gb = make_gram_batch(A.permute(2, 1, 0), b.T, a1, 0.0)
@@ -1029,27 +1061,94 @@ def qstream_path(dev, cfg, mods) -> dict:
     gb = type(gb)(*(v.contiguous() for v in (gb.Q, gb.c, gb.btb, gb.alpha1, gb.alpha2, gb.L)))
     kernel_ms, kernel_trials, rk_full = med_ms(lambda: fista_vmem.fista_gram_vmem(gb, cfg))
     q_gb = gb.Q.numel() * 4 / 1e9
-    iters = int(rk_full.n_iters_total)
-    q_reads = iters + iters // cfg.check_every
     read_ms, _, _ = med_ms(lambda: gb.Q.sum())
     small = lanes(gb, 1920)
     k_small_ms, _, rk = med_ms(lambda: fista_vmem.fista_gram_vmem(small, cfg))
     plain_ms, _, rt = med_ms(lambda: fista_vmem.fista_gram_vmem_reference(small, cfg))
     dx = compare_full_width(rk, rt, "qstream path, the first 1920 lanes")
+    del rk, rt, small
     driver_ms, _, res_d = med_ms(lambda: fista_gram_batch(gb, cfg))
+    del res_d
     print(f"[8 times] routed solve_lasso_batch {routed_ms:.3f} ms ({chk['certified'] / routed_ms * 1e3:.4g} "
-          f"certified instances/s) | qstream solve {kernel_ms:.3f} ms ({iters // cfg.check_every} "
-          f"launches, {q_reads} Q reads = {q_reads * q_gb / kernel_ms * 1e3:.1f} GB/s; a plain "
-          f"Q.sum() reads {q_gb / read_ms * 1e3:.1f} GB/s) | on 1920 lanes kernel "
-          f"{k_small_ms:.3f} ms vs twin {plain_ms:.3f} ms | torch driver on the same Gram "
-          f"{driver_ms:.3f} ms (certified {int(res_d.converged.sum())}/{B}) | trials routed "
+          f"certified instances/s) | qstream solve {kernel_ms:.3f} ms ({bursts} launches and "
+          f"the re-layout) | on 1920 lanes kernel {k_small_ms:.3f} ms vs twin {plain_ms:.3f} ms "
+          f"| torch driver on the same Gram {driver_ms:.3f} ms | trials routed "
           f"{[round(x, 3) for x in routed_trials]} kernel {[round(x, 3) for x in kernel_trials]}")
     print(f"-- qstream bound {bnd[0]:.3f} ms by {bnd[1]}")
+
+    # the engine's parts: the re-layout, the launches back to back on one re-laid
+    # copy, a launch with no step and no gap (the copy-in), each cluster size, and
+    # old (the streaming kernel, forced) against new in turns
+    lib = _build.library()
+    C = qstream.cluster_size(n)
+    smem, active = lib.qstream_smem_bytes(n, C), lib.qstream_active_clusters(n, C)
+    relayout_ms, relayout_trials, Qt = med_ms(lambda: qstream.relayout(gb.Q, C), 5)
+    rows, X0, Y0, _, _ = burst_inputs(gb, cfg)
+    one = torch.ones_like(rows["tau"])
+    betas = fista_vmem._beta_table(bursts * cfg.check_every, cfg).to(dev)
+    with_rows = lambda X, Y, k: (betas, k, gb.Q, gb.c, rows["tau"], rows["thr"], rows["a2"],
+                                 rows["a1"], rows["btb"], X, Y, one, 0 * one, None, rows["tau"])
+
+    def bursts_only(**kw):
+        X, Y = X0, Y0
+        for i in range(bursts):
+            X, Y, *_ = qstream._launch_qstream(*with_rows(X, Y, i * cfg.check_every),
+                                               n_steps=cfg.check_every, with_gap=True, **kw)
+        return X, Y
+
+    new, streamed = bursts_only(Qt=Qt), bursts_only(cluster=0)
+    torch.cuda.synchronize()
+    require(torch.equal(new[0], streamed[0]) and torch.equal(new[1], streamed[1]),
+            f"qstream path: {bursts} bursts of the cluster kernel differ from the streaming "
+            "kernel's bits")
+    del new, streamed
+    ab = [med_ms(lambda kw=kw: bursts_only(**kw), 1)[0]
+          for kw in (dict(cluster=0), dict(Qt=Qt), dict(Qt=Qt), dict(cluster=0))]
+    launches_ms, launches_trials, _ = med_ms(lambda: bursts_only(Qt=Qt), 5)
+    copy_ms, copy_trials, _ = med_ms(lambda: qstream._launch_qstream(
+        *with_rows(X0, Y0, 0), n_steps=0, Qt=Qt), 5)
+    q_bytes = Qt.numel() * 4
+    del Qt
+    torch.cuda.empty_cache()
+    by_size, size_fit = {}, {}
+    for size in (2, 4, 8):
+        Qs = qstream.relayout(gb.Q, size)
+        by_size[size] = med_ms(lambda: bursts_only(Qt=Qs, cluster=size), 3)[0]
+        size_fit[size] = (lib.qstream_smem_bytes(n, size),
+                          lib.qstream_active_clusters(n, size))
+        del Qs
+        torch.cuda.empty_cache()
+    # each launch copies every lane's Q from device memory once; each matvec (one
+    # per iteration, one per gap) reads it from shared memory
+    matvecs = int(rk_full.n_iters_total) + bursts
+    smem_gbps = matvecs * q_gb / launches_ms * 1e3
+    smem_gbps_steps = matvecs * q_gb / (launches_ms - bursts * copy_ms) * 1e3
+    print(f"-- qstream cluster kernel at n={n}: C = {C} CTAs a lane, {smem} shared bytes a "
+          f"CTA, {active} clusters active at once; Q read from device memory once a launch, "
+          f"{q_bytes / 1e9:.3f} GB ({bursts * q_bytes / 1e9:.1f} GB a solve); the re-layout "
+          f"{relayout_ms:.3f} ms (trials {[round(x, 3) for x in relayout_trials]}); "
+          f"{bursts} launches back to back {launches_ms:.3f} ms (trials "
+          f"{[round(x, 3) for x in launches_trials]}), so the host loop costs "
+          f"{kernel_ms - launches_ms - relayout_ms:.3f} ms; a launch with no step (the "
+          f"copy-in) {copy_ms:.3f} ms = {q_bytes / copy_ms / 1e6:.1f} GB/s (a plain Q.sum() "
+          f"{q_gb / read_ms * 1e3:.1f} GB/s), {100.0 * bursts * copy_ms / launches_ms:.1f}% of "
+          f"the launches; {matvecs} matvecs read Q from shared memory at {smem_gbps:.1f} GB/s "
+          f"over the launches, {smem_gbps_steps:.1f} GB/s without the copy-ins")
+    print(f"-- qstream {bursts} bursts by cluster size (medians of 3): "
+          + ", ".join(f"C={k} {v:.3f} ms ({size_fit[k][0]} shared bytes a CTA, "
+                      f"{size_fit[k][1]} clusters active)" for k, v in by_size.items())
+          + f" | streaming kernel (old) against the cluster kernel (new) in turns: old "
+          f"{ab[0]:.3f}, new {ab[1]:.3f}, new {ab[2]:.3f}, old {ab[3]:.3f} ms; the "
+          f"{bursts} bursts bit-identical")
     return dict(launches=counts["qstream"], ms=kernel_ms, plain_ms=plain_ms,
                 bound_ms=bnd[0], bound_by=bnd[1],
                 plain_lanes=1920, ms_at_plain_lanes=k_small_ms, e2e_ms=routed_ms,
-                driver_ms=driver_ms, q_gbps=q_reads * q_gb / kernel_ms * 1e3,
-                q_sum_gbps=q_gb / read_ms * 1e3, dx_small=dx)
+                driver_ms=driver_ms, cluster_size=C, smem_bytes=smem,
+                active_clusters=active, q_bytes_per_launch=q_bytes, copy_in_ms=copy_ms,
+                relayout_ms=relayout_ms, launches_only_ms=launches_ms,
+                smem_read_gbps=smem_gbps, q_sum_gbps=q_gb / read_ms * 1e3,
+                bursts_ms_by_cluster_size=by_size, streaming_ms=[ab[0], ab[3]],
+                cluster_ms=[ab[1], ab[2]], dx_small=dx)
 
 
 def fused_bound(A, res, cfg, extra_per_step: int = 0):
@@ -1584,8 +1683,11 @@ def main() -> int:
          "plain_ms": w2["plain_ms"], "bound_ms": w2["bound_ms"], "bound_by": w2["bound_by"],
          "library_ms": None, "plain_lanes": w2["plain_lanes"],
          "ms_at_plain_lanes": w2["ms_at_plain_lanes"], "e2e_ms": w2["e2e_ms"],
-         "driver_ms": w2["driver_ms"], "q_gbps": w2["q_gbps"],
-         "q_sum_gbps": w2["q_sum_gbps"]},
+         **{k: w2[k] for k in (
+             "driver_ms", "cluster_size", "smem_bytes", "active_clusters",
+             "q_bytes_per_launch", "copy_in_ms", "relayout_ms", "launches_only_ms",
+             "smem_read_gbps", "q_sum_gbps", "bursts_ms_by_cluster_size", "streaming_ms",
+             "cluster_ms")}},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -14,11 +14,12 @@ from a seed:
 - the kernel engine ``plan_gram_solve`` picks on the same Gram
   (``fista_gram_vmem``): the burst engine (n ≤ 104), the resident engine
   (n ≤ 168, one launch) or the Q-streaming engine. ``q_passes`` counts the
-  Q passes from device memory as the reference's model of its TPU engines
-  does, and as the port's kernels read it (burst engine one per burst, its
-  Q held in shared memory for the burst; resident one per solve;
-  Q-streaming one per iteration and one per burst), and ``q_stream_gbps``
-  is ``q_passes`` over the solve time;
+  Q passes from device memory as the port's kernels read it (burst engine
+  one per burst, its Q held in shared memory for the burst; resident one
+  per solve; Q-streaming one per burst where its cluster kernel holds Q,
+  n ≤ 660, else one per iteration and one per burst, the reference's TPU
+  model; the re-layout's copy is not counted), and ``q_stream_gbps`` is
+  ``q_passes`` over the solve time;
 - the routed end-to-end call from raw ``(A, b)`` (``solve_lasso_batch``;
   in the resident window its build skips the power loop and the kernel
   estimates L itself).
@@ -84,6 +85,7 @@ def run_one(n: int, hbm_gb: float = 2.0, max_iter: int = 1000,
             seed: int = 0, backtracking: bool = False) -> dict:
     from ..batch import solve_lasso_batch
     from ..batch.fista_gram import BatchFISTAConfig, fista_gram_batch, make_gram_batch
+    from ..kernels import qstream
     from ..kernels.fista_vmem import fista_gram_vmem, plan_gram_solve
     from ..kernels.gram_build import _auto_tiles, make_gram_batch_fused
 
@@ -139,7 +141,8 @@ def run_one(n: int, hbm_gb: float = 2.0, max_iter: int = 1000,
         conv_k = int(res_k.converged.sum())
         it_k = int(res_k.n_iters_total)
         bursts = -(-it_k // check_every)
-        q_passes = {"vmem": bursts, "resident": 1}.get(engine, it_k + bursts)
+        held = engine != "qstream" or qstream.cluster_size(n) > 0
+        q_passes = 1 if engine == "resident" else (bursts if held else it_k + bursts)
         out["kernel"] = {"engine": engine, "solve_ms": ms_k, "converged": conv_k,
                          "inst_per_s": conv_k / ms_k * 1e3, "iters_total": it_k,
                          "q_passes": q_passes,

@@ -8,8 +8,9 @@
 - ``resident`` (CUDA ``csrc/resident.cu``): the whole certified solve in one
   launch with each group's Gram on-chip, 104 < n ≤ 168, and the adaptive
   entry ``fista_vmem.fista_gram_vmem_adaptive``;
-- ``qstream`` (CUDA ``csrc/qstream.cu``): bursts with Q streamed from device
-  memory at every step, past the resident window.
+- ``qstream`` (CUDA ``csrc/qstream.cu``): bursts past the resident window,
+  each lane's Q held in a thread-block cluster's shared memory for the burst
+  (n ≤ 660), else streamed from device memory at every step.
 
 The CUDA sources are compiled on first use (``_build``); importing this
 package needs no nvcc and no GPU."""

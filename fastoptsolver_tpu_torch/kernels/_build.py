@@ -72,10 +72,15 @@ _SIGNATURES = {
     # l_safety, t_init, stream
     "resident_solve": [_vp] * 27 + [_i, _ll, _i, _i, _i, _f, _i, _i, _f, _f,
                                     _f, _f, _f, _i, _i, _f, _f, _vp],
-    # Q, c, tau, thr, a2, a1, btb, X, Y, t, ps, taumin, betas, Xo, Yo, to,
-    # pso, gap, n, B, n_steps, k0, mode, with_gap, restart_threshold,
-    # greedy_S, greedy_shrink, stream
-    "qstream_burst": [_vp] * 18 + [_i, _ll, _i, _i, _i, _i, _f, _f, _f, _vp],
+    # Q, Qt, c, tau, thr, a2, a1, btb, X, Y, t, ps, taumin, betas, Xo, Yo,
+    # to, pso, gap, n, B, n_steps, k0, mode, with_gap, cluster,
+    # restart_threshold, greedy_S, greedy_shrink, stream
+    "qstream_burst": [_vp] * 19 + [_i, _ll, _i, _i, _i, _i, _i, _f, _f, _f, _vp],
+    # n: the Q-streaming engine's cluster size; (n, C): a CTA's shared bytes,
+    # the clusters the card holds at once
+    "qstream_cluster_size": [_i],
+    "qstream_smem_bytes": [_i, _i],
+    "qstream_active_clusters": [_i, _i],
     # n: the resident kernel's lanes per CTA on the current device
     "resident_group": [_i],
     "gram_pairs_smem_bytes": [],
@@ -89,7 +94,8 @@ _SIGNATURES = {
 }
 _RESTYPES = {"fos_cuda_error_string": ctypes.c_char_p,
              "gram_pairs_smem_bytes": _ll,
-             "fista_burst_smem_bytes": _ll}  # the rest return int
+             "fista_burst_smem_bytes": _ll,
+             "qstream_smem_bytes": _ll}  # the rest return int
 
 _lib: ctypes.CDLL | None = None
 build_log = ""  # nvcc's output for the library this process built or loaded

@@ -403,7 +403,7 @@ def _dispatch(gb, cfg, state0, return_state, twin: bool):
         burst = _burst_reference if twin else _burst
     else:
         burst = (qstream._qstream_burst_reference if twin
-                 else qstream.qstream_burst)
+                 else qstream.make_burst(gb.Q))
     return _solve(burst, gb, cfg, state0, return_state)
 
 

@@ -1,19 +1,27 @@
 """The Q-streaming engine past the resident window (port of
 ``fastoptsolver_tpu/kernels/qstream.py``).
 
-One burst of ``n_steps`` FISTA iterations with Q read from device memory at
-every step: on a CUDA tensor one launch of the hand-written Hopper kernel
-``csrc/qstream.cu`` (see its note for the design and the bound), on a CPU
-tensor the plain twin :func:`_qstream_burst_reference`. Fixed, restart and
-greedy momentum run; Armijo is refused, as in the reference (each trial
-round would be one more pass over Q). ``fista_vmem._solve_on_device`` drives
-the bursts with the same certification record as the burst engine, so
-resume, early exit and the non-finite quarantine behave alike.
+One burst of ``n_steps`` FISTA iterations: on a CUDA tensor one launch of
+the hand-written Hopper kernels of ``csrc/qstream.cu`` (see its note for the
+designs and the bounds), on a CPU tensor the plain twin
+:func:`_qstream_burst_reference`. Fixed, restart and greedy momentum run;
+Armijo is refused, as in the reference. ``fista_vmem._solve_on_device``
+drives the bursts with the same certification record as the burst engine,
+so resume, early exit and the non-finite quarantine behave alike.
+
+Where :func:`cluster_size` gives C > 0 (n up to ~660) each lane runs on a
+thread-block cluster of C CTAs that hold its Q in shared memory for the
+whole launch, split by output feature, so device memory carries Q once a
+launch instead of once a step. The kernel reads Q re-laid by
+:func:`relayout` into one contiguous slab a CTA. :func:`make_burst` makes
+that copy once a solve, at the first burst, and reuses it for every launch:
+one more tensor of Q's size (plus padding) for the solve's length, 1.98 GB
+at n = 256, B = 7552. Past that window the streaming kernel reads Q from
+device memory every step. Both give the same bits.
 
 :func:`auto_tiles_qstream` returns the reference's plan (its VMEM window and
 plane groups), so that ``fista_vmem.plan_gram_solve`` picks the same engine
-in both packages; the CUDA kernel tiles lanes itself (32 lanes per CTA, 16
-past n = 868), and no lane's result depends on the tiling.
+in both packages; no lane's result depends on the CUDA kernels' tiling.
 """
 from __future__ import annotations
 
@@ -72,12 +80,45 @@ def _qstream_burst_reference(betas, k0, Q, c, tau, thr, a2, a1, btb, X, Y, t,
                             restart_threshold=restart_threshold, greedy=greedy)
 
 
+def slab_features(n: int, C: int) -> int:
+    """F: the output features a CTA of a C-CTA cluster holds, ceil(n / C)
+    rounded up to a multiple of 4 (``csrc/qstream.cu:slab_features``)."""
+    return (-(-n // C) + 3) // 4 * 4
+
+
+def relayout(Q: torch.Tensor, C: int) -> torch.Tensor:
+    """Q ``(n, n, B)`` re-laid for clusters of ``C`` CTAs: ``Qt[l, r, k, j]
+    = Q[k, r·F + j, l]`` (F = :func:`slab_features`), zero where ``r·F + j
+    ≥ n``, shape ``(B, C, n, F)``, contiguous; so the slab of CTA r of lane
+    l is one block of n·F floats. A zeros tensor and one permuted copy a
+    rank, on Q's device."""
+    n, _, B = Q.shape
+    F = slab_features(n, C)
+    Qt = torch.zeros((B, C, n, F), dtype=Q.dtype, device=Q.device)
+    for r in range(C):
+        w = min(F, n - r * F)
+        if w > 0:
+            Qt[:, r, :, :w].copy_(Q[:, r * F:r * F + w, :].permute(2, 0, 1))
+    return Qt
+
+
+def cluster_size(n: int) -> int:
+    """The cluster kernel's size at width ``n`` (``qstream_cluster_size`` in
+    C): 1, 2, 4 or 8 CTAs a lane, or 0 where the streaming kernel serves."""
+    return _build.library().qstream_cluster_size(n)
+
+
 def _launch_qstream(betas, k0, Q, c, tau, thr, a2, a1, btb, X, Y, t, ps,
                     taumin=None, tauv=None, *, n_steps, with_gap=False,
-                    restart_threshold=None, greedy=None, armijo=None):
+                    restart_threshold=None, greedy=None, armijo=None, Qt=None,
+                    cluster=None):
     """Launch ``qstream_burst`` on the current stream; the same outputs as
     :func:`_qstream_burst_reference` (``tauv`` passes through). Raises on
-    any input the kernel does not take and on a launch error."""
+    any input the kernel does not take and on a launch error.
+
+    ``cluster`` is :func:`cluster_size` unless given (tests and timings
+    force a size; 0 is the streaming kernel). The cluster kernel reads
+    ``Qt``, :func:`relayout` of Q at that size, made here when not passed."""
     global LAUNCHES
     _refuse_armijo(armijo)
     n, B = c.shape
@@ -105,16 +146,28 @@ def _launch_qstream(betas, k0, Q, c, tau, thr, a2, a1, btb, X, Y, t, ps,
     mode = 2 if greedy is not None else (0 if fixed else 1)
     S, shrink = greedy if greedy is not None else (0.0, 0.0)
     lib = _build.library()
+    if cluster is None:
+        cluster = lib.qstream_cluster_size(n)
+    if cluster == 0:
+        Qt = None
+    else:
+        if Qt is None:
+            Qt = relayout(Q, cluster)
+        want = (B, cluster, n, slab_features(n, cluster))
+        if (Qt.shape != want or Qt.device != Q.device or Qt.dtype != torch.float32
+                or not Qt.is_contiguous()):
+            raise ValueError(f"Qt must be a contiguous float32 tensor of shape {want} "
+                             f"on {Q.device}, got {tuple(Qt.shape)} on {Qt.device}")
     Xo, Yo = torch.empty_like(X), torch.empty_like(Y)
     to, pso, gap = (torch.empty_like(tau) for _ in range(3))
     ptr = lambda v: None if v is None else v.data_ptr()
     stream = torch.cuda.current_stream(Q.device).cuda_stream
     with torch.cuda.device(Q.device):
         err = lib.qstream_burst(
-            *(ptr(v) for v in (Q, c, tau, thr, a2, a1, btb, X, Y, t, ps,
+            *(ptr(v) for v in (Q, Qt, c, tau, thr, a2, a1, btb, X, Y, t, ps,
                                taumin if greedy is not None else None, betas,
                                Xo, Yo, to, pso, gap)),
-            n, B, n_steps, k0, mode, int(with_gap),
+            n, B, n_steps, k0, mode, int(with_gap), cluster,
             float(restart_threshold or 0.0), S, shrink, stream,
         )
     _build.check(err, "qstream_burst")
@@ -127,3 +180,22 @@ def qstream_burst(*args, **kw):
     tensor (``args[2]`` is Q)."""
     return (_launch_qstream if args[2].is_cuda else _qstream_burst_reference)(
         *args, **kw)
+
+
+def make_burst(Q: torch.Tensor):
+    """:func:`qstream_burst` for the bursts of one solve on ``Q``: on a CUDA
+    tensor in the cluster window, a closure that re-lays Q at its first
+    call and passes that copy to every launch; otherwise
+    :func:`qstream_burst` itself (the streaming kernel, or the twin on a
+    CPU tensor, which keeps Q as it is)."""
+    C = cluster_size(Q.shape[0]) if Q.is_cuda else 0
+    if C == 0:
+        return qstream_burst
+    held = []
+
+    def burst(*args, **kw):
+        if not held:
+            held.append(relayout(args[2], C))
+        return _launch_qstream(*args, Qt=held[0], cluster=C, **kw)
+
+    return burst

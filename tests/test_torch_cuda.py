@@ -1,7 +1,8 @@
 """The CUDA kernels of ``fastoptsolver_tpu_torch`` against their plain
 PyTorch twins, on the card (``chip_smoke.py`` phase 3 for pytest users):
 the fused solve, the stream pass, the Gram build, the burst engine, the
-resident engine (and the adaptive entry onto it) and the Q-streaming engine.
+resident engine (and the adaptive entry onto it) and the Q-streaming engine
+(its cluster kernel also bit for bit against its streaming kernel).
 
 Every test takes the ``cuda`` fixture, which skips when torch sees no CUDA
 device: run them on a GPU machine with ``python -m pytest -m cuda
@@ -440,25 +441,12 @@ def test_adaptive_entry_matches_twin(cuda, mode):
 def _qstream_one_burst(gb, kw, cuda):
     """One burst of 25 from a non-trivial state, with the gap: every output
     of the kernel to rtol 2e-4/atol 2e-5 of the twin's."""
-    cfg = BatchFISTAConfig(max_iter=100, check_every=25, **kw)
-    greedy = cfg.momentum == "greedy"
-    tau = ((cfg.greedy_xi if greedy else 1.0) / gb.L)[None, :].contiguous()
-    g = torch.Generator(device=cuda).manual_seed(7)
-    X = 0.1 * torch.randn(gb.c.shape, generator=g, device=cuda)
-    Y = X + 0.01 * torch.randn(gb.c.shape, generator=g, device=cuda)
-    row = lambda v: v[None, :].contiguous()
-    args = (fista_vmem._beta_table(100, cfg).to(cuda), 25, gb.Q, gb.c, tau,
-            (tau * row(gb.alpha1)).contiguous(), row(gb.alpha2), row(gb.alpha1),
-            row(gb.btb), X, Y, tau.clone() if greedy else torch.full_like(tau, 1.7),
-            torch.full_like(tau, 0.05), row(1.0 / gb.L), tau)
-    static = dict(n_steps=25, with_gap=True, greedy=(cfg.greedy_S, cfg.greedy_shrink)
-                  if greedy else None,
-                  restart_threshold=cfg.restart_threshold if cfg.adaptive_restart else None)
+    args, static = _qstream_args(gb, kw, cuda)
     before = qstream.LAUNCHES
-    got = qstream._launch_qstream(*args, **static)
+    got = qstream._launch_qstream(*args, with_gap=True, **static)
     torch.cuda.synchronize()
     assert qstream.LAUNCHES == before + 1
-    want = qstream._qstream_burst_reference(*args, **static)
+    want = qstream._qstream_burst_reference(*args, with_gap=True, **static)
     for gv, wv in zip(got, want):
         torch.testing.assert_close(gv, wv, rtol=2e-4, atol=2e-5)
 
@@ -510,3 +498,82 @@ def test_qstream_kernel_matches_twin_at_each_instantiation(cuda, n, mode):
         assert qstream.LAUNCHES > before[0] and resident.LAUNCHES == before[1]
         want = fista_vmem.fista_gram_vmem_reference(gb, fixed)
         torch.testing.assert_close(got.x, want.x, rtol=2e-4, atol=2e-5)
+
+
+# the window of the Q-streaming cluster kernel: 8 CTAs of 232,448 bytes hold a
+# lane's Q up to n = 660 (qstream.cu:cta_floats)
+CLUSTER_MAX_N = 660
+
+
+def test_qstream_cluster_exports(cuda):
+    """The C exports: a cluster size for every n of the window, each CTA
+    inside a Hopper block's shared memory, clusters the card can hold; 0
+    past it, where the streaming kernel serves."""
+    lib = _build.library()
+    for n in range(1, qstream.MAX_N + 1):
+        C = lib.qstream_cluster_size(n)
+        smem = lib.qstream_smem_bytes(n, C)
+        if n <= CLUSTER_MAX_N:
+            assert C in (1, 2, 4, 8) and 0 < smem <= 232448, n
+            assert -(-n // C) <= 64 or C == 8, n
+        else:
+            assert C == 0 and smem == 0, n
+    assert [lib.qstream_cluster_size(n) for n in (120, 200, 256, 400, 600, 900)] == \
+        [2, 4, 4, 8, 8, 0]
+    for n in (120, 200, 256, 400, 600):
+        assert lib.qstream_active_clusters(n, lib.qstream_cluster_size(n)) > 0, n
+    assert lib.qstream_cluster_size(0) == lib.qstream_cluster_size(qstream.MAX_N + 1) == 0
+    assert lib.qstream_active_clusters(600, 1) < 0  # 1.44 MB a CTA
+
+
+def _qstream_args(gb, kw, cuda):
+    """One burst's arguments from a non-trivial state, and its static options."""
+    cfg = BatchFISTAConfig(max_iter=100, check_every=25, **kw)
+    greedy = cfg.momentum == "greedy"
+    tau = ((cfg.greedy_xi if greedy else 1.0) / gb.L)[None, :].contiguous()
+    g = torch.Generator(device=cuda).manual_seed(7)
+    X = 0.1 * torch.randn(gb.c.shape, generator=g, device=cuda)
+    Y = X + 0.01 * torch.randn(gb.c.shape, generator=g, device=cuda)
+    row = lambda v: v[None, :].contiguous()
+    args = (fista_vmem._beta_table(100, cfg).to(cuda), 25, gb.Q, gb.c, tau,
+            (tau * row(gb.alpha1)).contiguous(), row(gb.alpha2), row(gb.alpha1),
+            row(gb.btb), X, Y, tau.clone() if greedy else torch.full_like(tau, 1.7),
+            torch.full_like(tau, 0.05), row(1.0 / gb.L), tau)
+    static = dict(n_steps=25, greedy=(cfg.greedy_S, cfg.greedy_shrink) if greedy else None,
+                  restart_threshold=cfg.restart_threshold if cfg.adaptive_restart else None)
+    return args, static
+
+
+@pytest.mark.parametrize("mode", list(BURST_MODES))
+@pytest.mark.parametrize("B", [300, 301])
+@pytest.mark.parametrize("n", [120, 200, 256, 400, 600, 900])
+def test_qstream_cluster_kernel_is_the_streaming_kernels_bits(cuda, n, B, mode):
+    """One burst with and without the gap on the route qstream_burst takes
+    (the cluster kernel at each size the rule reaches, the streaming kernel
+    at n = 900): every output to rtol 2e-4/atol 2e-5 of the twin's, and in
+    the cluster window bit-identical to the streaming kernel forced at the
+    same n."""
+    kw, a2 = BURST_MODES[mode]
+    args, static = _qstream_args(_random_gram(n, a2, cuda, B=B), kw, cuda)
+    C = qstream.cluster_size(n)
+    assert (C > 0) == (n <= CLUSTER_MAX_N)
+    for with_gap in (True, False):
+        before = qstream.LAUNCHES
+        got = qstream.qstream_burst(*args, with_gap=with_gap, **static)
+        streamed = qstream._launch_qstream(*args, with_gap=with_gap, cluster=0, **static)
+        torch.cuda.synchronize()
+        assert qstream.LAUNCHES == before + 2
+        want = qstream._qstream_burst_reference(*args, with_gap=with_gap, **static)
+        for gv, sv, wv in zip(got, streamed, want):
+            torch.testing.assert_close(gv, wv, rtol=2e-4, atol=2e-5)
+            assert torch.equal(gv, sv)
+
+
+def test_qstream_refuses_launches_it_cannot_take(cuda):
+    """A cluster launch the card cannot take raises; nothing falls back."""
+    args, static = _qstream_args(_random_gram(600, 0.0, cuda, B=8), {}, cuda)
+    for C in (1, 3, 16):  # 1.44 MB a CTA; not a power of two; past the portable 8
+        with pytest.raises(RuntimeError, match="qstream_burst"):
+            qstream._launch_qstream(*args, cluster=C, **static)
+    with pytest.raises(ValueError, match="Qt"):
+        qstream._launch_qstream(*args, Qt=qstream.relayout(args[2], 4), **static)

@@ -212,3 +212,42 @@ def test_tiles_agree_with_jax():
                 qstream.auto_tiles_qstream(n_pad)
         else:
             assert qstream.auto_tiles_qstream(n_pad) == want, n_pad
+
+
+@pytest.mark.parametrize("C", [1, 2, 8])
+@pytest.mark.parametrize("n", [120, 256, 600])
+def test_relayout_puts_each_entry_in_its_slab(n, C):
+    """Qt[l, f // F, k, f % F] = Q[k, f, l], zeros where r·F + j ≥ n: each
+    CTA's slab of the cluster kernel is one contiguous block."""
+    Bs = 3
+    Q = torch.from_numpy(np.random.default_rng(n + C).normal(size=(n, n, Bs)).astype(np.float32))
+    Qt = qstream.relayout(Q, C)
+    F = qstream.slab_features(n, C)
+    assert F % 4 == 0 and F >= -(-n // C) and Qt.shape == (Bs, C, n, F) and Qt.is_contiguous()
+    f = np.arange(n)
+    got = Qt.numpy()[:, f // F, :, f % F]  # (n_f, B, n_k): advanced indices lead
+    np.testing.assert_array_equal(got, Q.numpy().transpose(1, 2, 0))
+    flat = Qt.numpy().transpose(1, 3, 0, 2).reshape(C * F, Bs, n)
+    assert not flat[n:].any()
+
+
+def test_slab_features():
+    assert [qstream.slab_features(n, C) for n, C in
+            ((1, 1), (120, 2), (200, 4), (256, 4), (256, 8), (660, 8), (661, 8))] == \
+        [4, 60, 52, 64, 32, 84, 84]
+
+
+def test_cpu_solve_runs_the_twin_on_q_unchanged(grams, certified, monkeypatch):
+    """On a CPU tensor the engine keeps Q as it is (no re-layout): every
+    burst gets the Gram's own (n, n, B) Q, and the result is the one held
+    against the JAX reference in test_qstream_solve_matches_jax."""
+    gbt = convert.gram_batch_from_numpy(*grams[120, 0.0])
+    assert qstream.make_burst(gbt.Q) is qstream.qstream_burst
+    seen = []
+    twin = qstream._qstream_burst_reference
+    monkeypatch.setattr(qstream, "_qstream_burst_reference",
+                        lambda *a, **k: seen.append(a[2]) or twin(*a, **k))
+    rj, _, cfg = certified[120, "nesterov"]
+    rt = tvmem.fista_gram_vmem(gbt, convert.config_from_jax(cfg))
+    assert seen and all(q.shape == (120, 120, B) and torch.equal(q, gbt.Q) for q in seen)
+    np.testing.assert_allclose(rt.x.numpy(), np.asarray(rj.x), rtol=2e-4, atol=2e-5)
