@@ -30,9 +30,13 @@ Phases, one line each (``--`` lines are detail):
    burst in fixed Nesterov and in restart at n ∈ {5, 9, 33, 64, 96, 104},
    B = 301 (each lanes-a-CTA count of the window: 32, 16, 13, 6 and 5; the
    C exports ``fista_burst_group`` and ``fista_burst_smem_bytes`` printed),
-   and fixed Nesterov at the wide-n shape; the resident kernel at
-   n ∈ {112, 128, 168} (groups of 8, 6 and 3 lanes; 128 is the resident
-   path's width), B = 300, every mode with L estimated in-kernel (certified
+   and fixed Nesterov at the wide-n shape; ``gram_power`` alone at
+   n ∈ {1, 5, 31, 32, 33, 96, 113, 118}, B = 301, against the twin's power
+   iteration on the same Gram and c (λ to 1e-5 relative), and its C exports
+   ``gram_power_group``/``gram_power_smem_bytes`` equal to their Python
+   mirrors for n = 1..128; the resident kernel at
+   n ∈ {5, 33, 112, 113, 128, 150, 168} (groups of 32, 16, 8, 8, 6, 4 and 3
+   lanes; 128 is the resident path's width), B = 300, every mode with L estimated in-kernel (certified
    runs at rel_gap_tol 1e-5: ``converged`` identical, ``iters`` within a
    burst, x to rtol 2e-4/atol 2e-5) and Armijo in the decisive regime (x to
    rtol 1e-4/atol 1e-5), against its twin at the kernel's lane grouping,
@@ -74,7 +78,10 @@ Phases, one line each (``--`` lines are detail):
    burst solve (median of 5) vs its twin, its launches back to back and a
    launch with no step (the Gram's copy-in; both medians of 5), the burst
    kernel's lanes a CTA, shared bytes and Q bytes read from device memory
-   a launch, the routed call (median of 5; ms, certified instances/s) and
+   a launch, ``gram_power``'s lanes a CTA, shared bytes and the rate its
+   matvecs read Q from shared memory (96·n²·B·4 bytes over its time) beside
+   the shared-memory floor (those bytes at 128 B a clock on every SM at the
+   largest SM clock), the routed call (median of 5; ms, certified instances/s) and
    the torch driver on the same Gram (the route this path replaces);
 7. resident path — the same recipe at n=128, m=256, B=30464 (a 2 GB Gram):
    the einsum build without the power loop and one launch of the resident
@@ -84,7 +91,12 @@ Phases, one line each (``--`` lines are detail):
    the routed call, the kernel solve alone, a one-step launch (the copy-in
    of the Gram and two matvecs), the twin and the kernel on the first 3840
    lanes (the twin is per-plane torch ops), and the torch driver; the
-   kernel and the twin on those lanes are held as in phase 6 (below);
+   kernel and the twin on those lanes are held as in phase 6 (below); the
+   kernel's lanes a CTA, shared bytes, and the rate it reads Q from shared
+   memory: lane-matvecs (96 power steps a lane, the steps each group runs,
+   a gap every 25) × n² × 4 bytes over its time, beside the shared-memory
+   floor; and two splits, a one-step launch after 96 power steps and 1000
+   steps in every group (tol 0), as µs a CTA-step;
 8. Q-streaming path — n=256, m=512, B=7552: the einsum build with its power
    loop and one Q-streaming launch per burst, nothing else; at least 75%
    certified (the JAX driver: 82%); then the routed call, the engine's solve
@@ -130,7 +142,10 @@ sums of A and b for the stream pass, the pair sums as one ``torch.einsum``
 for the build; the build's entry also gives ``gram_pairs`` and
 ``gram_power`` apart (``pairs_*``, ``power_*``); the burst entry its
 ``group_lanes``, ``smem_bytes``, ``q_bytes_per_launch`` and ``copy_in_ms``;
-the resident entry the adaptive entry's phase-3 times
+the build's ``power_group_lanes``, ``power_smem_bytes``,
+``power_smem_read_gbps`` and ``power_smem_floor_ms``; the resident entry its
+``group_lanes``, ``smem_bytes``, ``smem_read_gbps``, ``lane_matvecs``,
+``smem_floor_ms`` and the adaptive entry's phase-3 times
 (``adaptive_entry``); the Q-streaming entry its ``cluster_size``,
 ``smem_bytes``, ``active_clusters``, ``q_bytes_per_launch``, ``copy_in_ms``,
 ``relayout_ms`` and phase 8's other splits; the fused entry's
@@ -158,6 +173,19 @@ BUILD_SHAPES = ((9, 33, 300), (20, 70, 200), (64, 128, 256), (9, 33, 301))
 # with n = 20, a width for each lanes-a-CTA count of the burst kernel's window:
 # 32 lanes (n <= 32), 16 (n = 33), 13 (n = 64), 6 (n = 96), 5 (n = 104)
 BURST_WIDTHS = (5, 9, 33, 64, 96, 104)
+# the resident kernel's widths in phase 3: each lanes-a-CTA count from 32 (n = 5)
+# down to 3 (n = 168), the path's 128, and widths whose last warp is ragged. At
+# the first three widths iters are held within a burst and Armijo's x as the
+# decisive regime allows; at the others (the narrow ones, where a lane's gap can
+# sit at the tolerance for two bursts, kernel and twin 50 iterations apart, and
+# an Armijo accept at m = 2n rows can flip at the boundary) iters are reported
+# and Armijo's x is held on the lanes whose steps τ agree, at most 1% of lanes
+# flipped
+RESIDENT_WIDTHS = (5, 33, 112, 113, 128, 150, 168)
+RESIDENT_HELD = (112, 128, 168)
+# gram_power's widths in phase 3: one warp a lane and its edges, the wide-n path's
+# 96, and the window's top (113, 118: 8 lanes a CTA)
+POWER_WIDTHS = (1, 5, 31, 32, 33, 96, 113, 118)
 # bench/wide_n.py's first width: n = 96, m = 2n, B sized to a 2 GB Gram
 WIDE_N = 96
 WIDE_B = int(2e9 / (WIDE_N * WIDE_N * 4)) // 128 * 128  # 54144
@@ -180,6 +208,10 @@ REFERENCE_SHARE = {"restart": 1.0, "greedy": 1.0}
 # float32 operations over the rate outside the tensor cores
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
+# shared memory serves an SM 128 bytes a clock (32 banks of 4 bytes); the floor
+# of a kernel bound by its shared-memory reads is its bytes over that rate on
+# every SM at the card's largest SM clock (nvidia-smi clocks.max.sm)
+SMEM_BYTES_PER_CLOCK = 128
 
 
 class PhaseFailed(Exception):
@@ -228,6 +260,20 @@ def cuda_ms(fn, reps: int = 1):
     stop.record()
     stop.synchronize()
     return start.elapsed_time(stop) / reps, out
+
+
+def smem_floor_ms(n_bytes: float) -> float:
+    """The least ms the card's shared memory takes to serve ``n_bytes`` of
+    reads: 128 B a clock on every SM at the largest SM clock."""
+    import torch
+
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    mhz = float(out.stdout.strip().splitlines()[0])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return n_bytes / (sms * SMEM_BYTES_PER_CLOCK * mhz * 1e6) * 1e3
 
 
 def bound(n_bytes: float, n_ops: float):
@@ -649,18 +695,23 @@ WIDE_MODES = {"nesterov": (dict(), 0.0), "delta_ridge": (dict(momentum="delta"),
               "greedy": (dict(momentum="greedy"), 0.0)}
 
 
-def compare_certified(rk, rt, label: str, check_every: int = 25) -> float:
+def compare_certified(rk, rt, label: str, check_every: int = 25,
+                      hold_iters: bool = True) -> float:
     """A certified run (rel_gap_tol 1e-5) of a kernel against its twin:
-    ``converged`` identical, ``iters`` within a burst, x to rtol 2e-4/atol
-    2e-5. Returns max|dx|."""
+    ``converged`` identical, x to rtol 2e-4/atol 2e-5, and ``iters`` within a
+    burst (reported only, with the lanes more than a burst apart, when not
+    ``hold_iters``). Returns max|dx|."""
     import torch
 
     dx = float((rk.x - rt.x).abs().max())
-    d_it = int((rk.iters.long() - rt.iters.long()).abs().max())
+    d_its = (rk.iters.long() - rt.iters.long()).abs()
+    d_it = int(d_its.max())
     same = bool(torch.equal(rk.converged, rt.converged))
     print(f"-- {label}: max|dx|={dx:.3e} converged_equal={same} max|d_iters|={d_it} "
+          f"(lanes more than a burst apart {int((d_its > check_every).sum())}"
+          f"{'' if hold_iters else ', reported'}) "
           f"certified={int(rk.converged.sum())}/{rk.converged.numel()}")
-    require(same and d_it <= check_every
+    require(same and (d_it <= check_every or not hold_iters)
             and bool(torch.allclose(rk.x, rt.x, rtol=2e-4, atol=2e-5)),
             f"{label}: the kernel disagrees with its twin")
     return dx
@@ -693,8 +744,8 @@ def compare_full_width(rk, rt, label: str) -> float:
 
 
 def check_resident(dev):
-    """The resident kernel against its twin at the kernel's grouping, n ∈
-    {112, 128, 168}, every mode with L estimated in-kernel, Armijo decisive;
+    """The resident kernel against its twin at the kernel's grouping, n in
+    ``RESIDENT_WIDTHS``, every mode with L estimated in-kernel, Armijo decisive;
     a 40 + 60 resume bit-exact; the adaptive entry at n = 96, also timed.
     Returns the largest |dx| and the adaptive entry's times and bounds."""
     import dataclasses
@@ -707,10 +758,10 @@ def check_resident(dev):
     worst = 0.0
     groups = {n: resident.kernel_group(n, dev) for n in range(1, resident.MAX_N + 1)}
     off = {n: g for n, g in groups.items() if g != resident.group_lanes(n)}
-    print(f"-- resident grouping from the card at n = 112, 128, 168: "
-          f"{[groups[n] for n in (112, 128, 168)]}")
+    print(f"-- resident grouping from the card at n = {RESIDENT_WIDTHS}: "
+          f"{[groups[n] for n in RESIDENT_WIDTHS]}")
     require(not off, f"the library groups other lanes than group_lanes at {off}")
-    for n in (112, 128, 168):
+    for n in RESIDENT_WIDTHS:
         for name, (kw, a2) in {**WIDE_MODES, "armijo": (dict(backtracking=True), 0.0)}.items():
             armijo = name == "armijo"
             gb = wide_gram(n, 300, a2, seed=30 + n, dev=dev, decisive=armijo)
@@ -719,17 +770,23 @@ def check_resident(dev):
             else:
                 cfg, est = BatchFISTAConfig(max_iter=1000, check_every=25,
                                             rel_gap_tol=1e-5, **kw), 96
-            rk = resident.fista_gram_resident(gb, cfg, est_l_iters=est)
+            rk, sk = resident.fista_gram_resident(gb, cfg, est_l_iters=est, return_state=True)
             torch.cuda.synchronize()
-            rt = resident.fista_gram_resident_reference(gb, cfg, est_l_iters=est)
+            rt, st = resident.fista_gram_resident_reference(gb, cfg, est_l_iters=est,
+                                                            return_state=True)
             label = f"resident n={n} {name} (group {resident.group_lanes(n)})"
+            held = n in RESIDENT_HELD
             if armijo:
                 dx = float((rk.x - rt.x).abs().max())
-                print(f"-- {label} decisive: max|dx|={dx:.3e}")
-                require(bool(torch.allclose(rk.x, rt.x, rtol=1e-4, atol=1e-5)),
+                close = torch.isclose(rk.x, rt.x, rtol=1e-4, atol=1e-5).all(1)
+                flipped = (sk.tau != st.tau)[0]
+                print(f"-- {label} decisive: max|dx|={dx:.3e}, lanes whose step τ differs "
+                      f"{int(flipped.sum())}{'' if held else ' (x held on the others)'}")
+                require(bool(close.all()) if held else
+                        bool((close | flipped).all()) and int(flipped.sum()) <= 0.01 * 300,
                         f"{label}: the kernel disagrees with its twin")
             else:
-                dx = compare_certified(rk, rt, label)
+                dx = compare_certified(rk, rt, label, hold_iters=held)
             worst = max(worst, dx)
             full = BatchFISTAConfig(max_iter=100, check_every=20, rel_gap_tol=1e-12, **kw)
             straight = resident.fista_gram_resident(gb, full, est_l_iters=est)
@@ -770,9 +827,45 @@ def check_resident(dev):
         adaptive[name] = dict(ms=ms, bound_ms=bnd[0], bound_by=bnd[1], lanes=B)
         print(f"-- adaptive entry n={n} B={B} {name}: {ms:.3f} ms (median of 5, trials "
               f"{[round(x, 3) for x in trials]}), bound {bnd[0]:.4f} ms by {bnd[1]}")
-    print(f"-- resident resume 40 + 60 == 100: bit-exact (every mode, n = 112, 128, 168); "
+    print(f"-- resident resume 40 + 60 == 100: bit-exact (every mode, n = {RESIDENT_WIDTHS}); "
           f"launches so far {resident.LAUNCHES}")
     return worst, adaptive
+
+
+def check_power(dev) -> float:
+    """``gram_power`` alone against the twin's power iteration on the same
+    Gram and c (the kernel's own ``gram_pairs`` output, so only the norm's
+    summation order separates them): λ to 1e-5 relative at n in
+    ``POWER_WIDTHS``, B = 301 (a ragged last CTA); and the C exports
+    ``gram_power_group``/``gram_power_smem_bytes`` equal to their Python
+    mirrors for n = 1..128. Returns the largest relative |dλ|."""
+    import torch
+
+    from fastoptsolver_tpu_torch.kernels import _build, gram_build
+    from fastoptsolver_tpu_torch.kernels._common import make_matvec, power_lambda_max
+
+    lib = _build.library()
+    exports = {n: (lib.gram_power_group(n), lib.gram_power_smem_bytes(n))
+               for n in range(1, gram_build.POWER_MAX_N + 1)}
+    off = {n: e for n, e in exports.items()
+           if e != (gram_build.power_group_lanes(n), gram_build._power_smem_bytes(n))}
+    require(not off, f"gram_power's C exports differ from their mirrors at {off}")
+    worst = 0.0
+    for n in POWER_WIDTHS:
+        A, b = small_problem(n, max(2 * n, 16), 301, seed=50 + n, device=dev)[:2]
+        Q, c, _, _ = gram_build._launch(A, b, 0)
+        pl_iters = 32 if n <= 7 else 96
+        lam = gram_build._launch_power(Q, c, pl_iters)
+        torch.cuda.synchronize()
+        want = power_lambda_max(make_matvec(Q, n), c, pl_iters)[0]
+        rel = float(((lam - want).abs() / want.abs().clamp_min(1e-30)).max())
+        worst = max(worst, rel)
+        require(bool(torch.isfinite(lam).all()) and rel <= 1e-5,
+                f"gram_power n={n}: max rel|dlam| {rel:.3e} against its twin")
+    print(f"-- gram_power (lanes a CTA, shared bytes) by n: "
+          f"{ {n: exports[n] for n in POWER_WIDTHS} }; λ against the twin on the same "
+          f"Gram, B = 301: max rel|dlam| {worst:.3e}")
+    return worst
 
 
 def burst_vs_twin(launch, twin, gb, kw, label: str) -> float:
@@ -972,10 +1065,13 @@ def resident_path(dev, cfg, mods) -> dict:
     chk = check_wide(res, A, b, a1, 0.80, "resident path")
     # Q read once, c and the rows; 96 power steps, then each group of the
     # kernel's lanes runs to its last lane's iters
+    group = resident.kernel_group(n, dev)
+    steps = group_steps(res.iters, group)
     bnd = bound(4 * (n * n * B + n * B + 6 * B + 2 * n * B + 7 * B),
-                B * 96 * (2 * n * n + 3 * n)
-                + solve_ops(n, group_steps(res.iters, resident.kernel_group(n, dev)),
-                            cfg.check_every))
+                B * 96 * (2 * n * n + 3 * n) + solve_ops(n, steps, cfg.check_every))
+    # lane-matvecs, each reading the lane's n² words of Q from shared memory:
+    # 96 power steps, one a step, one a gap
+    lane_mv = 96 * B + steps + steps // cfg.check_every
     gb = make_gram_batch(A.permute(2, 1, 0), b.T, a1, 0.0, estimate_l=False)
     res_g = solve_gram_batch(gb, cfg, est_l_iters=96)
     require(bool(torch.equal(res_g.x, res.x)), "solve_gram_batch(est_l_iters=96) on the "
@@ -997,6 +1093,13 @@ def resident_path(dev, cfg, mods) -> dict:
 
     one = BatchFISTAConfig(max_iter=1, check_every=1)
     copy_ms, _, _ = med_ms(lambda: resident.fista_gram_resident(gb, one))
+    # the same launch after 96 power steps, and 1000 steps in every group (no
+    # lane certifies at tol 0): the time of a power step and of a step
+    power_ms, _, _ = med_ms(lambda: resident.fista_gram_resident(gb, one, est_l_iters=96))
+    all_steps = BatchFISTAConfig(max_iter=cfg.max_iter, check_every=cfg.check_every,
+                                 rel_gap_tol=0.0)
+    steps_ms, _, _ = med_ms(lambda: resident.fista_gram_resident(gb, all_steps,
+                                                                 est_l_iters=96))
     small = lanes(gb, 3840)
     k_small_ms, _, rk = med_ms(lambda: resident.fista_gram_resident(small, cfg, est_l_iters=96))
     plain_ms, _, rt = med_ms(lambda: resident.fista_gram_resident_reference(
@@ -1014,8 +1117,29 @@ def resident_path(dev, cfg, mods) -> dict:
           f"twin {plain_ms:.3f} ms | torch driver on the same Gram {driver_ms:.3f} ms "
           f"(certified {int(res_d.converged.sum())}/{B}) | trials routed "
           f"{[round(x, 3) for x in routed_trials]} kernel {[round(x, 3) for x in kernel_trials]}")
-    print(f"-- resident bound {bnd[0]:.3f} ms by {bnd[1]}")
+    smem_read = lane_mv * n * n * 4
+    smem_gbps = smem_read / kernel_ms / 1e6
+    floor_ms = smem_floor_ms(smem_read)
+    smem_bytes = group * resident._smem_per_lane(n)
+    # a CTA-step: one step (or power step) of a CTA's lanes, the waves of CTAs
+    # one an SM running in turn
+    ctas = -(-B // group)
+    waves = -(-ctas // torch.cuda.get_device_properties(0).multi_processor_count)
+    steps_all = cfg.max_iter + cfg.max_iter // cfg.check_every + 96
+    cta_step_us = steps_ms / (waves * steps_all) * 1e3
+    power_step_us = (power_ms - copy_ms) / 96 / waves * 1e3
+    print(f"-- resident bound {bnd[0]:.3f} ms by {bnd[1]}; {group} lanes a CTA, {smem_bytes} "
+          f"bytes of shared memory; {lane_mv} lane-matvecs read {smem_read / 1e12:.3f} TB of Q "
+          f"from shared memory at {smem_gbps:.1f} GB/s (the shared-memory floor "
+          f"{floor_ms:.3f} ms) | splits (medians of 3): the one-step launch after 96 power "
+          f"steps {power_ms:.3f} ms, so {power_step_us:.3f} us a power step a CTA over "
+          f"{waves} waves; {cfg.max_iter} steps in every group {steps_ms:.3f} ms, "
+          f"{cta_step_us:.3f} us a CTA-step ({B * steps_all * n * n * 4 / steps_ms / 1e6:.1f} "
+          f"GB/s of Q from shared memory)")
     return dict(launches=counts["resident"], ms=kernel_ms, plain_ms=plain_ms,
+                group_lanes=group, smem_bytes=smem_bytes, smem_read_gbps=smem_gbps,
+                lane_matvecs=lane_mv, smem_floor_ms=floor_ms, power_launch_ms=power_ms,
+                all_steps_ms=steps_ms, cta_step_us=cta_step_us,
                 bound_ms=bnd[0], bound_by=bnd[1],
                 plain_lanes=3840, ms_at_plain_lanes=k_small_ms, e2e_ms=routed_ms,
                 driver_ms=driver_ms, copy_in_ms=copy_ms, dx_small=dx)
@@ -1366,6 +1490,7 @@ def main() -> int:
         errs["gram"] = max(errs["gram"], compare_build(Ag, bg, f"{(n, m, B)} {width}-byte copies"))
     require(widths == {4, 16}, f"BUILD_SHAPES reach gram_pairs' copy widths {widths}, not both")
     errs["burst"] = max(check_bursts(dev), check_burst_groups(dev))
+    power_rel = check_power(dev)
     errs["resident"], adaptive = check_resident(dev)
     errs["qstream"] = check_qstream(dev)
     torch.cuda.empty_cache()
@@ -1612,6 +1737,12 @@ def main() -> int:
     bounds["power"] = bound(4 * (nw * nw * WIDE_B + nw * WIDE_B + WIDE_B),
                             WIDE_B * 96 * 2 * nw * nw)
     pairs_l2_gbps = pairs_work["l2_bytes"] / pairs_ms / 1e6
+    # gram_power's matvecs read each lane's n² words from shared memory 96 times
+    power_group = _build.library().gram_power_group(nw)
+    power_smem = _build.library().gram_power_smem_bytes(nw)
+    power_smem_read = 96 * nw * nw * WIDE_B * 4
+    power_smem_gbps = power_smem_read / power_ms / 1e6
+    power_floor_ms = smem_floor_ms(power_smem_read)
     bounds["burst"] = bound(4 * (nw * nw * WIDE_B + nw * WIDE_B + 6 * WIDE_B + nw * WIDE_B),
                             solve_ops(nw, WIDE_B * int(res.n_iters_total), cfg.check_every))
     gbw_q_bytes = gbw.Q.numel() * 4
@@ -1628,6 +1759,9 @@ def main() -> int:
           f"{pairs_work['l2_bytes'] / 1e9:.1f} GB at {pairs_l2_gbps:.1f} GB/s; gram_power "
           f"{bounds['power'][0]:.3f} ms by {bounds['power'][1]} against its {power_ms:.3f} ms; "
           f"burst solve {bounds['burst'][0]:.3f} ms by {bounds['burst'][1]}")
+    print(f"-- gram_power at n={nw}: {power_group} lanes a CTA, {power_smem} bytes of shared "
+          f"memory; its matvecs read {power_smem_read / 1e9:.1f} GB of Q from shared memory "
+          f"at {power_smem_gbps:.1f} GB/s (the shared-memory floor {power_floor_ms:.3f} ms)")
 
     # ---- 7 and 8: the resident and Q-streaming paths, counted, then timed ----
     w1 = resident_path(dev, cfg, mods)
@@ -1659,7 +1793,10 @@ def main() -> int:
          "pairs_bound_ms": bounds["pairs"][0], "pairs_bound_by": bounds["pairs"][1],
          "pairs_l2_gbps": pairs_l2_gbps, "pairs_library_ms": gram_lib_ms,
          "power_ms": power_ms, "power_plain_ms": power_plain_ms,
-         "power_bound_ms": bounds["power"][0], "power_bound_by": bounds["power"][1]},
+         "power_bound_ms": bounds["power"][0], "power_bound_by": bounds["power"][1],
+         "power_group_lanes": power_group, "power_smem_bytes": power_smem,
+         "power_smem_read_gbps": power_smem_gbps, "power_smem_floor_ms": power_floor_ms,
+         "power_max_rel_dlam": power_rel},
         {"name": "fista_burst", "route": "cuda", "source": BURST_SRC,
          "replaces": "fastoptsolver_tpu/kernels/fista_vmem.py:92",
          "launches": launches["burst"], "max_abs_err": errs["burst"],
@@ -1676,6 +1813,9 @@ def main() -> int:
          "library_ms": None, "plain_lanes": w1["plain_lanes"],
          "ms_at_plain_lanes": w1["ms_at_plain_lanes"], "e2e_ms": w1["e2e_ms"],
          "driver_ms": w1["driver_ms"], "copy_in_ms": w1["copy_in_ms"],
+         **{k: w1[k] for k in ("group_lanes", "smem_bytes", "smem_read_gbps",
+                               "lane_matvecs", "smem_floor_ms", "power_launch_ms",
+                               "all_steps_ms", "cta_step_us")},
          "adaptive_entry": adaptive},
         {"name": "qstream_burst", "route": "cuda", "source": QSTREAM_SRC,
          "replaces": "fastoptsolver_tpu/kernels/qstream.py:90",

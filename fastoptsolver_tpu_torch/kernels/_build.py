@@ -4,10 +4,10 @@ The sources under ``kernels/csrc/`` have a plain C interface (no PyTorch
 headers). Each is compiled by its own ``nvcc`` process, all started
 together, and one more ``nvcc`` links the objects: seconds in all. The
 library lands in ``fastoptsolver_tpu_torch/_build/`` (listed in
-``.gitignore``), named by a hash of the sources and the flags, so an edited
-source rebuilds and an unchanged one loads the cached build. Nothing here
-runs at import: the first wrapper that launches a kernel calls
-:func:`library`.
+``.gitignore``), named by a hash of the flags and of every file under
+``csrc/``, so an edited source or header rebuilds and an unchanged tree
+loads the cached build. Nothing here runs at import: the first wrapper
+that launches a kernel calls :func:`library`.
 
 Pointers and the stream go to the C functions as ``ctypes.c_void_p``; each
 function returns a ``cudaError_t`` (0 = success) that the wrappers check
@@ -59,6 +59,9 @@ _SIGNATURES = {
     "gram_pairs": [_vp] * 5 + [_i, _ll, _ll, _vp],
     # Q, c, lam, n, B, pl_iters, stream
     "gram_power": [_vp] * 3 + [_i, _ll, _i, _vp],
+    # n: gram_power's lanes per CTA on the current device, and their shared bytes
+    "gram_power_group": [_i],
+    "gram_power_smem_bytes": [_i],
     # Q, c, tau, thr, a2, a1, btb, X, Y, t, ps, taumin, tauv, betas,
     # Xo, Yo, to, pso, tauvo, gap, n, B, n_steps, k0, mode, armijo,
     # with_gap, restart_threshold, greedy_S, greedy_shrink, armijo_c,
@@ -94,6 +97,7 @@ _SIGNATURES = {
 }
 _RESTYPES = {"fos_cuda_error_string": ctypes.c_char_p,
              "gram_pairs_smem_bytes": _ll,
+             "gram_power_smem_bytes": _ll,
              "fista_burst_smem_bytes": _ll,
              "qstream_smem_bytes": _ll}  # the rest return int
 
@@ -115,11 +119,15 @@ def _nvcc() -> str:
     )
 
 
-def _digest() -> str:
+def _digest(csrc: Path = CSRC) -> str:
+    """The build's name: a hash of the flags and of every file under ``csrc``
+    (the sources and the headers they include)."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for name, extra in SOURCES.items():
         h.update(name.encode() + " ".join(extra).encode())
-        h.update((CSRC / name).read_bytes())
+    for path in sorted(p for p in csrc.rglob("*") if p.is_file()):
+        h.update(path.relative_to(csrc).as_posix().encode())
+        h.update(path.read_bytes())
     return h.hexdigest()[:16]
 
 

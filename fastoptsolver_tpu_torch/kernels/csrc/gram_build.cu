@@ -46,20 +46,23 @@
 //   re-reads) and no padded pairs in diagonal blocks are the next steps; TF32
 //   tensor cores are ruled out (the certificate needs f32).
 //
-// gram_power — grid (tile of 8 lanes). pl_iters power steps per lane from
-//   v0 = c/max(|c|, 1e-30): w = Qv, lam = |w|, v = w/max(lam, 1e-30). Reading Q
-//   from device memory every step would read the Gram pl_iters times (~192 GB at
-//   full width), the cost the TPU kernel exists to avoid. So each CTA copies the
-//   upper triangles of its 8 lanes into shared memory once (8 lanes x n(n+1)/2
-//   floats: 149 KB at n = 96, one 32-byte sector per pair) and iterates there; Q
-//   is read from device memory once. The shared-memory block of 227 KB bounds the
-//   feature count (n <= 118, gram_build._auto_tiles). One CTA fits per SM at n=96,
-//   so the matvec's instruction stream bounds this launch: 96 steps x 9216
-//   shared-memory reads per lane, each behind the triangle's index arithmetic
-//   (~39 ms at full width, measured as above). The matvec sums over k in order
-//   with a separate multiply and add (this file is built with --fmad=false),
-//   exactly as the twin's make_matvec does, so only the norm's summation order
-//   differs from the twin.
+// gram_power — the resident kernel's layout (csrc/resident.cu): features on threads,
+//   round_up(n, 32) threads a lane and G = gram_power_group(n) lanes a CTA (10 at n = 96,
+//   8 at 118). pl_iters power steps per lane from v0 = c/max(|c|, 1e-30): w = Qv,
+//   lam = |w|, v = w/max(lam, 1e-30). Reading Q from device memory every step would read
+//   the Gram pl_iters times (~192 GB at full width), the cost the TPU kernel exists to
+//   avoid. So each CTA copies its lanes' upper triangles into shared memory once (the
+//   resident kernel's copy-in) and iterates there: the matvec is tri_matvec.cuh's, v read
+//   as 16-byte broadcasts and the triangle walked in warp-uniform segments, k ascending
+//   with a separate multiply and add (this file is built with --fmad=false), exactly as
+//   the twin's make_matvec. The norm |w| is summed in lane_norm2's fixed order (that of
+//   the earlier 8-lane layout, so lam is its bits); only the norm's order differs from
+//   the twin. Bound: the matvec's shared-memory reads, 96 steps x n^2 words a lane,
+//   191.6 GB at n = 96, B = 54144 (~6-7 ms at 128 B a clock on 132 SMs). Measured there on
+//   an H100 80GB HBM3 at 700 W, in turns with the 8-lane layout (256 threads, 8 warps an
+//   SM, a select and a 4-byte load of v a term): 18.5 ms against 43.2, with 30 warps an
+//   SM. The build's window stays n <= 118 (gram_build.MAX_N): this block would hold lanes
+//   past it, but the window routes the build and is kept where it was.
 //
 // Ragged edges are masked in-kernel: lanes >= B and features >= na load 0 and store
 // nothing. Offsets are 64-bit (n*m*B is 1.0e9 at full width). Built without
@@ -68,6 +71,8 @@
 
 #include <cmath>
 #include <cstdint>
+
+#include "tri_matvec.cuh"
 
 namespace {
 
@@ -233,103 +238,84 @@ __global__ void __launch_bounds__(kPairThreads, 2)
 }
 
 // ---- gram_power ----
-constexpr int kPLanes = 8;                    // lanes per CTA: one 32-byte sector
-constexpr int kPThreads = 256;
-constexpr int kPRows = kPThreads / kPLanes;   // 32 row groups
-constexpr int kPMaxRows = 4;                  // rows per thread: n <= 128
-constexpr int kPWarps = kPThreads / 32;
+constexpr int kPMaxThreads = 1024;
+constexpr int kPMaxGroup = 32;  // lanes per CTA at most
+constexpr int kPMaxN = 128;     // a lane's norm: one warp, rows r, r+32, r+64, r+96
+constexpr int kPowerUnroll = 8;  // terms a body of tri_matvec.cuh's walk: the faster here
 
-__device__ __forceinline__ int tri(int i, int k, int n) {
-  // upper-triangle pair (i, k), i <= k, row-major
-  return i * n - (i * (i - 1)) / 2 + (k - i);
+__host__ __device__ constexpr int power_lane_threads(int n) { return (n + 31) / 32 * 32; }
+
+// Shared floats of one lane: its iterate and its squares (vec_stride each), its triangle.
+__host__ __device__ constexpr long long power_lane_floats(int n) {
+  return 2LL * tri::vec_stride(n) + tri::npairs(n);
 }
 
-// Sum of one lane's values over the 32 row groups, in a fixed order; every thread
-// of the lane gets the total. Thread t holds lane t % 8, row group t / 8, so a warp
-// holds 4 row groups of all 8 lanes.
-__device__ __forceinline__ float lane_total(float part, float* red, int tid) {
-  part += __shfl_xor_sync(0xffffffffu, part, 8);
-  part += __shfl_xor_sync(0xffffffffu, part, 16);
-  const int warp = tid / 32, l = tid % kPLanes;
-  if ((tid % 32) < kPLanes) red[warp * kPLanes + l] = part;
-  __syncthreads();
+// The lane's sum of sq[0 .. n-1] in a fixed order: row group r (one thread of the warp)
+// adds rows r, r+32, r+64, r+96 from 0; groups pair as (p0 + p1) + (p2 + p3) within each
+// 4; the 8 sums of 4 are added in order from 0. That is the order of the build's earlier
+// 8-lanes-a-CTA layout, so lam did not move with the layout. Every thread of the warp gets
+// the total, so each warp of the lane computes it alone, with no barrier.
+__device__ __forceinline__ float lane_norm2(const float* sq, int n) {
+  const int r = threadIdx.x & 31;
+  float part = 0.f;
+#pragma unroll
+  for (int j = 0; j < kPMaxN / 32; ++j)
+    if (r + 32 * j < n) part += sq[r + 32 * j];
+  part += __shfl_xor_sync(0xffffffffu, part, 1);
+  part += __shfl_xor_sync(0xffffffffu, part, 2);
   float s = 0.f;
 #pragma unroll
-  for (int w = 0; w < kPWarps; ++w) s += red[w * kPLanes + l];
-  __syncthreads();
+  for (int q = 0; q < 8; ++q) s += __shfl_sync(0xffffffffu, part, 4 * q);
   return s;
 }
 
-__global__ void __launch_bounds__(kPThreads)
+// The resident kernel's layout: features on threads (thread (g, i): feature i of lane g),
+// G lanes a CTA; shared memory [G][2][vec_stride] (the iterate v, the squares sq) then
+// [G][npairs] triangles.
+__global__ void __launch_bounds__(kPMaxThreads)
     gram_power_kernel(const float* __restrict__ Q, const float* __restrict__ c,
-                      float* __restrict__ lam, int n, int64_t B, int pl_iters) {
-  extern __shared__ float smem[];
-  const int npairs = n * (n + 1) / 2;
-  float* T = smem;                        // [npairs][8]
-  float* v = T + npairs * kPLanes;        // [n][8]
-  float* red = v + n * kPLanes;           // [8 warps][8]
-  const int tid = threadIdx.x;
-  const int l = tid % kPLanes;
-  const int rg = tid / kPLanes;
-  const int64_t lane0 = static_cast<int64_t>(blockIdx.x) * kPLanes;
-  const int64_t lane = lane0 + l;
-  const bool valid = lane < B;
+                      float* __restrict__ lam, int n, int64_t B, int G, int pl_iters) {
+  extern __shared__ __align__(16) float smem[];
+  const int nt = power_lane_threads(n);
+  const int n4 = tri::vec_stride(n);
+  const int g = threadIdx.x / nt, i = threadIdx.x % nt;
+  const int64_t lane0 = static_cast<int64_t>(blockIdx.x) * G;
+  const int64_t lane = lane0 + g;
+  const bool valid = lane < B, feat = i < n;
+  float* v = smem + 2 * g * n4;
+  float* sq = v + n4;
+  float* T0 = smem + 2 * G * n4;
+  const float* T = T0 + static_cast<int64_t>(g) * tri::npairs(n);
 
-  // Q's upper triangles of the 8 lanes, read from device memory once
-  for (int i = 0; i < n; ++i) {
-    const int base = tri(i, i, n);
-    for (int q = tid; q < (n - i) * kPLanes; q += kPThreads) {
-      const int k = i + q / kPLanes;
-      const int ql = q % kPLanes;
-      const int64_t ln = lane0 + ql;
-      T[(base + q / kPLanes) * kPLanes + ql] =
-          (ln < B) ? __ldg(Q + (static_cast<int64_t>(i) * n + k) * B + ln) : 0.f;
-    }
-  }
+  // Q's upper triangles of the G lanes, read from device memory once
+  tri::copy_in(T0, Q, n, B, lane0, G);
   // v0 = c / max(|c|, 1e-30)
-  float w[kPMaxRows];
-  float part = 0.f;
-#pragma unroll
-  for (int j = 0; j < kPMaxRows; ++j) {
-    const int i = rg + j * kPRows;
-    w[j] = (valid && i < n) ? __ldg(c + static_cast<int64_t>(i) * B + lane) : 0.f;
-    part += w[j] * w[j];
-  }
-  const float c_norm = fmaxf(sqrtf(lane_total(part, red, tid)), 1e-30f);
-#pragma unroll
-  for (int j = 0; j < kPMaxRows; ++j) {
-    const int i = rg + j * kPRows;
-    if (i < n) v[i * kPLanes + l] = w[j] / c_norm;
-  }
+  const float cf = (valid && feat) ? __ldg(c + static_cast<int64_t>(i) * B + lane) : 0.f;
+  if (feat) sq[i] = cf * cf;
+  __syncthreads();
+  const float c_norm = fmaxf(sqrtf(lane_norm2(sq, n)), 1e-30f);
+  if (feat) v[i] = cf / c_norm;
   __syncthreads();
 
   float L = 0.f;
   for (int it = 0; it < pl_iters; ++it) {
-    part = 0.f;
-#pragma unroll
-    for (int j = 0; j < kPMaxRows; ++j) {
-      const int i = rg + j * kPRows;
-      float acc = 0.f;
-      if (i < n) {
-        // out[i] = sum_k Q[k][i] v[k], k ascending, as the twin's make_matvec
-        for (int k = 0; k < n; ++k) {
-          const int p = (k <= i) ? tri(k, i, n) : tri(i, k, n);
-          acc = acc + T[p * kPLanes + l] * v[k * kPLanes + l];
-        }
-      }
-      w[j] = acc;
-      part += acc * acc;
-    }
-    L = sqrtf(lane_total(part, red, tid));  // its syncs end every read of v
+    const float w = feat ? tri::matvec<kPowerUnroll>(T, v, n, i) : 0.f;
+    if (feat) sq[i] = w * w;
+    __syncthreads();  // every read of v is done and sq is whole
+    L = sqrtf(lane_norm2(sq, n));
     const float d = fmaxf(L, 1e-30f);
-#pragma unroll
-    for (int j = 0; j < kPMaxRows; ++j) {
-      const int i = rg + j * kPRows;
-      if (i < n) v[i * kPLanes + l] = w[j] / d;
-    }
-    __syncthreads();
+    if (feat) v[i] = w / d;
+    __syncthreads();  // v is whole and every read of sq is done
   }
-  if (valid && rg == 0) lam[lane] = L;
+  if (valid && i == 0) lam[lane] = L;
+}
+
+int optin_smem(int* optin) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return static_cast<int>(err);
 }
 
 }  // namespace
@@ -339,9 +325,27 @@ extern "C" long long gram_pairs_smem_bytes() {
   return static_cast<long long>(kStages) * kStageFloats * 4;
 }
 
-// Shared memory of gram_power at feature count n, in bytes.
+// gram_power's lanes per CTA at feature count n on the current device: as many as the
+// card's opt-in shared memory per block and 1024 threads (round_up(n, 32) a lane) hold, at
+// most 32, the rule of resident.cu's resident_group on gram_power's own bytes. 0 for n
+// outside 1..128, minus a cudaError_t if the device query fails.
+extern "C" int gram_power_group(int n) {
+  if (n < 1 || n > kPMaxN) return 0;
+  int optin = 0;
+  const int err = optin_smem(&optin);
+  if (err) return -err;
+  const long long by_smem = optin / (4 * power_lane_floats(n));
+  const int by_threads = kPMaxThreads / power_lane_threads(n) < kPMaxGroup
+                             ? kPMaxThreads / power_lane_threads(n)
+                             : kPMaxGroup;
+  return by_smem < by_threads ? static_cast<int>(by_smem) : by_threads;
+}
+
+// The dynamic shared memory, in bytes, of a gram_power CTA of gram_power_group(n) lanes
+// (0 where that is not positive).
 extern "C" long long gram_power_smem_bytes(int n) {
-  return (static_cast<long long>(n) * (n + 1) / 2 + n + kPWarps) * kPLanes * 4;
+  const int G = gram_power_group(n);
+  return G > 0 ? 4 * power_lane_floats(n) * G : 0;
 }
 
 namespace {
@@ -384,25 +388,23 @@ extern "C" int gram_pairs(const float* A, const float* b, float* Q, float* c, fl
              : launch_pairs<1>(A, b, Q, c, btb, n, m, B, nb, grid, st);
 }
 
-// lam (B,) = pl_iters power steps on Q (n, n, B) from v0 = c (n, B). Returns
-// cudaErrorInvalidValue when n is outside 1..128 or the triangle block exceeds the
-// card's shared memory per block, else cudaGetLastError() after the launch.
+// lam (B,) = pl_iters power steps on Q (n, n, B) from v0 = c (n, B), gram_power_group(n)
+// lanes a CTA. Returns cudaErrorInvalidValue when n is outside 1..128, B or pl_iters is
+// out of range, or the group's block exceeds the card's shared memory per block, else the
+// device query's or the attribute call's error or cudaGetLastError() after the launch.
 extern "C" int gram_power(const float* Q, const float* c, float* lam, int n, long long B,
                           int pl_iters, void* stream) {
-  if (n < 1 || n > kPRows * kPMaxRows || B < 1 || pl_iters < 0)
+  if (n < 1 || n > kPMaxN || B < 1 || pl_iters < 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int G = gram_power_group(n);
+  if (G < 0) return -G;
+  if (G == 0) return static_cast<int>(cudaErrorInvalidValue);
   const long long smem = gram_power_smem_bytes(n);
-  int dev = 0, optin = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = cudaFuncSetAttribute(
+      gram_power_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (smem > optin) return static_cast<int>(cudaErrorInvalidValue);
-  err = cudaFuncSetAttribute(gram_power_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const unsigned grid = static_cast<unsigned>((B + kPLanes - 1) / kPLanes);
-  gram_power_kernel<<<grid, kPThreads, static_cast<size_t>(smem),
-                      static_cast<cudaStream_t>(stream)>>>(Q, c, lam, n, B, pl_iters);
+  const unsigned grid = static_cast<unsigned>((B + G - 1) / G);
+  gram_power_kernel<<<grid, G * power_lane_threads(n), static_cast<size_t>(smem),
+                      static_cast<cudaStream_t>(stream)>>>(Q, c, lam, n, B, G, pl_iters);
   return static_cast<int>(cudaGetLastError());
 }

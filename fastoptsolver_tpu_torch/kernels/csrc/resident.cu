@@ -24,24 +24,32 @@
 // Layout: features on threads, lanes of the group on thread blocks of nt = round_up(n, 32)
 // threads (whole warps, so a lane's sums over features are warp shuffles and then a sum
 // over its nt/32 warps in order). Thread (g, i) holds x, y, c of feature i of lane g in
-// registers; y and the trial point are staged in shared memory for the matvec
-//   out[i] = sum_k Q[k][i] v[k]   (k ascending over the true n, a separate multiply and
-// add: this file is built with --fmad=false, as the twin's make_matvec rounds), read from
-// the triangle: entry (k, i) for k <= i, whose index advances by n-1-k (consecutive
-// threads read consecutive words), then (i, k), which advances by 1 (threads of a warp read
-// words n-i-1 apart, so these reads meet bank conflicts). The upper triangle is
-// authoritative: Q[k][i] for k > i is read as Q[i][k], where the reference reads the full
-// Q. The two agree on a bit-symmetric Gram, which the port's builds give; the twin reads
-// the same triangle, so kernel and twin agree on any Q.
+// registers. Shared memory holds first the vectors, y (the power iterate) and the trial
+// point, round_up(n, 4) floats each and 16-byte aligned, then the lanes' triangles, then
+// the reduction scratch. The matvec out[i] = sum_k Q[k][i] v[k] is tri_matvec.cuh's, shared
+// with gram_build.cu's gram_power: k ascending over the true n with a separate multiply and
+// add (this file is built with --fmad=false, as the twin's make_matvec rounds), v read as
+// 16-byte broadcasts, the triangle walked in warp-uniform segments with a per-term select
+// only inside each warp's diagonal block. The upper triangle is authoritative: Q[k][i] for k > i is read as Q[i][k], where the
+// reference reads the full Q. The two agree on a bit-symmetric Gram, which the port's
+// builds give; the twin reads the same triangle, so kernel and twin agree on any Q.
 //
-// Bound: the matvec's shared-memory reads. Each step reads n^2 words a lane from shared
-// memory (5.0e8 words a step at n = 128, B = 30464), about 65 us at one 32-word wavefront a
-// clock on 132 SMs, twice that with the conflicts of the second half; ~1040 matvecs (1000
-// steps and 40 gaps) put the solve near 0.1 s. Device memory is read once: the copy-in,
-// 2.0 GB at that shape, a strided gather (Q is lane-last, so a group's G lanes are
-// G*4 bytes of a 32-byte sector; neighbouring groups share the sector through L2). That
-// is the TPU design (Q read once per solve) in a smaller tile: the TPU held 128 lanes'
-// full Q in 15 MiB of VMEM, a Hopper block holds a few lanes' triangles in 227 KB.
+// Bound: the matvec's shared-memory reads. A matvec reads n^2 words a lane of the
+// triangle (5.0e8 words a step at n = 128, B = 30464): ~2.4e7 lane-matvecs at that
+// shape (96 power steps, the steps each group runs, a gap every 25) are ~1.6 TB, 48-60 ms
+// at 128 B a clock on 132 SMs. Counted from the kernel's addresses, a warp's triangle read
+// costs 1.23 wavefronts on average at n = 128 (1.30 at 96, 1.63 at 112, never more than 3),
+// so bank conflicts are not the main cost; the v load a term (one more wavefront, the same
+// word for every thread) and the select's instructions were, and the walk removes the load
+// and, outside each warp's diagonal block, the select. Measured on an H100 80GB HBM3 at
+// 700 W, in turns with the select-every-term walk: the solve at that shape 135.1 ms
+// against 180.4, 4.3 us a CTA-step against 5.7 (~12 TB/s of Q from shared memory), still
+// about twice the floor; ptxas spills 36 bytes at the 64-register cap of 1024 threads.
+// Device memory is read once: the copy-in, 2.0 GB at that shape, a strided gather (Q is
+// lane-last, so a group's G lanes are G*4 bytes of a 32-byte sector; neighbouring groups
+// share the sector through L2). That is the TPU design (Q read once per solve) in a
+// smaller tile: the TPU held 128 lanes' full Q in 15 MiB of VMEM, a Hopper block holds a
+// few lanes' triangles in 227 KB.
 //
 // Lanes >= B load zeros, start done and store nothing; threads of features >= n compute
 // zeros; both reach every __syncthreads. The group's k is uniform (the wrapper checks a
@@ -52,12 +60,15 @@
 #include <cmath>
 #include <cstdint>
 
+#include "tri_matvec.cuh"
+
 namespace {
 
 constexpr int kMaxThreads = 1024;
 constexpr int kMaxGroup = 32;  // resident.MAX_GROUP
 constexpr int kSums = 6;       // resident.N_SUMS
 constexpr int kMaxN = 168;     // resident.MAX_N
+constexpr int kMatvecUnroll = 4;  // terms a body of tri_matvec.cuh's walk: the faster here
 
 enum Mode { kFixed = 0, kRestart = 1, kGreedy = 2 };
 
@@ -164,25 +175,13 @@ __device__ __forceinline__ float lane_max(float v, const Place& pl) {
   return m;
 }
 
-// out[i] = sum_k Q[k][i] v[k] from the upper triangle T of one lane (row-major pairs
-// (r, c), r <= c), k ascending.
-__device__ __forceinline__ float matvec_row(const float* __restrict__ T, const float* v, int n,
-                                            int i) {
-  float acc = 0.f;
-  int p = i;  // (0, i)
-  for (int k = 0; k < n; ++k) {
-    acc = acc + T[p] * v[k];
-    p += (k < i) ? (n - 1 - k) : 1;
-  }
-  return acc;
-}
-
 __global__ void __launch_bounds__(kMaxThreads) resident_kernel(Params p) {
-  extern __shared__ float smem[];
+  extern __shared__ __align__(16) float smem[];
   const int n = p.n;
   const int nt = (n + 31) / 32 * 32;
   const int G = p.G;
-  const int npairs = n * (n + 1) / 2;
+  const int npairs = tri::npairs(n);
+  const int n4 = tri::vec_stride(n);
   const int64_t B = p.B;
   const int tid = threadIdx.x;
   Place pl;
@@ -190,7 +189,7 @@ __global__ void __launch_bounds__(kMaxThreads) resident_kernel(Params p) {
   pl.i = tid % nt;
   pl.W = nt / 32;
   pl.wl = pl.i / 32;
-  pl.red = smem + static_cast<int64_t>(G) * (npairs + 2 * n);
+  pl.red = smem + static_cast<int64_t>(G) * (2 * n4 + npairs);
   const int g = pl.g, i = pl.i;
   const int64_t lane0 = static_cast<int64_t>(blockIdx.x) * G;
   const int64_t lane = lane0 + g;
@@ -198,25 +197,14 @@ __global__ void __launch_bounds__(kMaxThreads) resident_kernel(Params p) {
   const bool feat = i < n;
   const bool in = valid && feat;
   const int64_t off = static_cast<int64_t>(i) * B + lane;
-  const float* T = smem + static_cast<int64_t>(g) * npairs;
-  float* vy = smem + static_cast<int64_t>(G) * npairs + g * n;      // y, the power iterate
-  float* vx = smem + static_cast<int64_t>(G) * (npairs + n) + g * n;  // trial point, x
+  // [G][2][n4] vectors (16-byte aligned), then [G][npairs] triangles, then red
+  float* vy = smem + 2 * g * n4;  // y, the power iterate
+  float* vx = vy + n4;            // trial point, x
+  float* T0 = smem + 2 * G * n4;
+  const float* T = T0 + static_cast<int64_t>(g) * npairs;
 
   // the upper triangles of the group's Grams, read from device memory once
-  {
-    int base = 0;
-    for (int r = 0; r < n; ++r) {
-      const int cnt = (n - r) * G;
-      for (int q = tid; q < cnt; q += blockDim.x) {
-        const int kk = r + q / G;
-        const int gg = q % G;
-        const int64_t ln = lane0 + gg;
-        smem[static_cast<int64_t>(gg) * npairs + base + q / G] =
-            (ln < B) ? __ldg(p.Q + (static_cast<int64_t>(r) * n + kk) * B + ln) : 0.f;
-      }
-      base += n - r;
-    }
-  }
+  tri::copy_in(T0, p.Q, n, B, lane0, G);
   auto row = [&](const float* rr) { return valid ? __ldg(rr + lane) : 0.f; };
   const float a1 = row(p.a1), a2 = row(p.a2), btb = row(p.btb);
   float tau = row(p.tau), thr = row(p.thr), taumin = row(p.taumin);
@@ -232,7 +220,7 @@ __global__ void __launch_bounds__(kMaxThreads) resident_kernel(Params p) {
     __syncthreads();
     float lam = 0.f;
     for (int it = 0; it < p.est_l_iters; ++it) {
-      const float w = feat ? matvec_row(T, vy, n, i) : 0.f;
+      const float w = feat ? tri::matvec<kMatvecUnroll>(T, vy, n, i) : 0.f;
       float u[1] = {w * w};
       lane_sums<1>(u, pl);  // its first sync ends every read of vy
       lam = sqrtf(u[0]);
@@ -275,7 +263,7 @@ __global__ void __launch_bounds__(kMaxThreads) resident_kernel(Params p) {
 
   while (k < p.k_end && !__syncthreads_and(done)) {
     for (int s = 0; s < p.chunk; ++s) {
-      const float qy = feat ? matvec_row(T, vy, n, i) : 0.f;
+      const float qy = feat ? tri::matvec<kMatvecUnroll>(T, vy, n, i) : 0.f;
       const float grad = qy + a2 * y - cf;
       float xn;
       if (p.armijo) {
@@ -288,7 +276,7 @@ __global__ void __launch_bounds__(kMaxThreads) resident_kernel(Params p) {
           xt = soft_threshold(y - tvv * grad, tvv * a1);
           if (feat) vx[i] = xt;
           __syncthreads();
-          const float qx = feat ? matvec_row(T, vx, n, i) : 0.f;
+          const float qx = feat ? tri::matvec<kMatvecUnroll>(T, vx, n, i) : 0.f;
           float u[4] = {xt * qx, cf * xt, xt * xt, grad * (xt - y)};
           lane_sums<4>(u, pl);  // its first sync also ends the matvec's reads of vx
           const float g_x = 0.5f * u[0] - u[1] + 0.5f * btb + 0.5f * a2 * u[2];
@@ -350,7 +338,7 @@ __global__ void __launch_bounds__(kMaxThreads) resident_kernel(Params p) {
     // the per-lane relative duality gap of x, and the certification record
     if (feat) vx[i] = x;
     __syncthreads();
-    const float qx = feat ? matvec_row(T, vx, n, i) : 0.f;
+    const float qx = feat ? tri::matvec<kMatvecUnroll>(T, vx, n, i) : 0.f;
     const float u = qx - cf + a2 * x;
     float sg[kSums] = {x * qx, cf * x, x * x, fabsf(x), u * u,
                        (feat && !isfinite(x)) ? 1.f : 0.f};
@@ -392,7 +380,7 @@ __global__ void __launch_bounds__(kMaxThreads) resident_kernel(Params p) {
 
 size_t smem_bytes(int n, int G) {
   const int nt = (n + 31) / 32 * 32;
-  return (static_cast<size_t>(n) * (n + 1) / 2 + 2 * static_cast<size_t>(n) +
+  return (2 * static_cast<size_t>(tri::vec_stride(n)) + tri::npairs(n) +
           static_cast<size_t>(nt / 32) * kSums) *
          G * sizeof(float);
 }

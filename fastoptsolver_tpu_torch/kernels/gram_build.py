@@ -8,10 +8,13 @@ it launches the hand-written Hopper kernels of ``csrc/gram_build.cu`` — two
 launches, ``gram_pairs`` (one pass over A and b, staged through a ring of
 three shared-memory stages filled by ``cp.async`` so the loads overlap the
 sums) and ``gram_power`` (the power iteration against each lane's Gram held
-in shared memory); see the source's note for their design and bounds. On a
-CPU tensor it runs the plain twin :func:`gram_build_reference`, built from
-``_common.augmented_gram`` and ``_common.power_lambda_max``: v0 = c, 32
-steps at n ≤ 7, else 96, and the host rule ``L = where(λ > 0, 1.02·λ, 1) + α₂``.
+in shared memory, on the resident kernel's layout: features on threads,
+:func:`power_group_lanes` lanes a CTA, and its matvec,
+``csrc/tri_matvec.cuh``); see the source's note for their design and
+bounds. On a CPU tensor it runs the plain twin :func:`gram_build_reference`,
+built from ``_common.augmented_gram`` and ``_common.power_lambda_max``:
+v0 = c, 32 steps at n ≤ 7, else 96, and the host rule
+``L = where(λ > 0, 1.02·λ, 1) + α₂``.
 
 The reference's TPU tiling knobs ``b_tile``, ``m_tile`` and ``split_k`` have no
 counterpart: the kernels tile lanes themselves and each lane's sums do not
@@ -69,29 +72,53 @@ def _pairs_work(n: int, m: int, B: int) -> dict:
             "l2_bytes": 4 * (nb + 1) * (n + 1) * m * B}
 
 
+# Threads a CTA and lanes a CTA at most of ``gram_power`` (csrc/gram_build.cu
+# kPMaxThreads, kPMaxGroup); its norm takes n <= 128 (kPMaxN).
+POWER_MAX_THREADS = 1024
+POWER_MAX_GROUP = 32
+POWER_MAX_N = 128
+
+
+def _power_lane_bytes(n: int) -> int:
+    """Shared memory of one ``gram_power`` lane: its iterate and its squares,
+    ``round_up(n, 4)`` floats each, and its Gram's upper triangle."""
+    return (2 * _round_up(n, 4) + n * (n + 1) // 2) * 4
+
+
+def power_group_lanes(n: int) -> int:
+    """Lanes per CTA of ``gram_power`` on an H100 at feature count n
+    (1 ≤ n ≤ 128): as many as 227 KB of shared memory and 1024 threads
+    (``round_up(n, 32)`` a lane) hold, at most 32; 10 at n = 96, 8 at 118.
+    The rule of ``resident.group_lanes`` on ``gram_power``'s own bytes; the
+    card's is the C export ``gram_power_group``."""
+    if not 1 <= n <= POWER_MAX_N:
+        raise ValueError(f"gram_power takes n = 1..{POWER_MAX_N}, got n={n}")
+    return min(POWER_MAX_GROUP, POWER_MAX_THREADS // _round_up(n, 32),
+               SMEM_PER_BLOCK // _power_lane_bytes(n))
+
+
 def _power_smem_bytes(n: int) -> int:
-    """Shared memory of ``gram_power`` at feature count n: 8 lanes' upper
-    triangles, their iterates and an 8 × 8 reduction buffer (the C function
-    ``gram_power_smem_bytes``)."""
-    return (n * (n + 1) // 2 + n + 8) * 8 * 4
+    """Shared memory of a ``gram_power`` CTA of :func:`power_group_lanes`
+    lanes on an H100 (the C function ``gram_power_smem_bytes``)."""
+    return power_group_lanes(n) * _power_lane_bytes(n)
 
 
-# The largest n whose power-iteration block fits: 118.
-MAX_N = max(n for n in range(1, 129) if _power_smem_bytes(n) <= SMEM_PER_BLOCK)
+# The build's window, 1 <= n <= 118: where gram_power's first layout, 8 lanes'
+# triangles a CTA, fit 227 KB. Its block holds lanes past it now, but the
+# window routes the build (batch/api.py) and is kept where it was.
+MAX_N = 118
 
 
 def _auto_tiles(n: int, m: int):
     """``(b_tile, m_tile)`` of the Hopper build: 32 lanes per CTA and the
-    whole row axis in the block's own loop. The window is what the power
-    iteration's shared-memory block holds, 1 ≤ n ≤ ``MAX_N`` (118; the burst
-    engine needs n ≤ 104). Raises past it, with a pointer to the torch
-    precompute, as the reference raises past its VMEM budget."""
+    whole row axis in the block's own loop. The window is 1 ≤ n ≤ ``MAX_N``
+    (118; the burst engine needs n ≤ 104). Raises past it, with a pointer to
+    the torch precompute, as the reference raises past its VMEM budget."""
     if not 1 <= n <= MAX_N:
         raise ValueError(
-            f"fused Gram build: n={n} needs {_power_smem_bytes(n)} bytes of "
-            f"shared memory for the power iteration's 8-lane block, past the "
-            f"{SMEM_PER_BLOCK} a Hopper block holds (n <= {MAX_N}). Use the "
-            "torch precompute (batch.make_gram_batch) for wider problems."
+            f"fused Gram build: n={n} is past the build kernels' window "
+            f"(n <= {MAX_N}). Use the torch precompute (batch.make_gram_batch) "
+            "for wider problems."
         )
     return LANE_TILE, m
 

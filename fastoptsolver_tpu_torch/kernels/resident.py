@@ -6,8 +6,11 @@
 ``csrc/resident.cu`` on a CUDA tensor: each CTA copies the upper triangles of
 its lanes' Gram into shared memory once, optionally estimates L against them
 (``est_l_iters`` power steps), and iterates there until its lanes are all
-certified or ``k_end`` is reached (see the source's note for the design and
-the bound). On a CPU tensor it runs the plain twin
+certified or ``k_end`` is reached. Features are on threads, and the matvec
+over each triangle (``csrc/tri_matvec.cuh``, shared with the build's
+``gram_power``) reads the vector as 16-byte broadcasts and walks the
+triangle in warp-uniform segments; see the source's note for the design and
+the bound. On a CPU tensor it runs the plain twin
 :func:`fista_gram_resident_reference`, built from
 ``_common.certified_solve_body``. Every momentum mode runs, Armijo included,
 and a run resumes from its :class:`ResidentSolveState`.
@@ -91,10 +94,11 @@ def auto_b_tile_resident(n_pad: int,
 
 
 def _smem_per_lane(n: int) -> int:
-    """Shared memory of one lane in the kernel: its Gram's upper triangle,
-    two (n,) vectors and the partial sums of its warps."""
+    """Shared memory of one lane in the kernel: two vectors of
+    ``round_up(n, 4)`` floats (16-byte aligned, for the matvec's broadcast
+    loads), its Gram's upper triangle and the partial sums of its warps."""
     warps = _round_up(n, 32) // 32
-    return (n * (n + 1) // 2 + 2 * n + warps * N_SUMS) * 4
+    return (2 * _round_up(n, 4) + n * (n + 1) // 2 + warps * N_SUMS) * 4
 
 
 def group_lanes(n: int) -> int:

@@ -83,9 +83,11 @@ def test_host_rule_and_power_depth():
 def test_window_and_guards():
     for n in (1, 20, 96, 104, tgram.MAX_N):
         assert tgram._auto_tiles(n, 70) == (32, 70)
-    assert tgram.MAX_N == 118  # 8 lanes' triangles in 227 KB of shared memory
-    assert tgram._power_smem_bytes(tgram.MAX_N) <= tgram.SMEM_PER_BLOCK
-    assert tgram._power_smem_bytes(tgram.MAX_N + 1) > tgram.SMEM_PER_BLOCK
+    # the window stays where 8 lanes' triangles filled 227 KB, though
+    # gram_power's block now holds lanes past it: it routes the build
+    assert tgram.MAX_N == 118
+    for n in range(1, tgram.POWER_MAX_N + 1):
+        assert 0 < tgram._power_smem_bytes(n) <= tgram.SMEM_PER_BLOCK
     with pytest.raises(ValueError, match="torch precompute"):
         tgram._auto_tiles(tgram.MAX_N + 1, 70)
     A = torch.ones((5, 16, 32))
@@ -104,6 +106,29 @@ def test_window_and_guards():
     with pytest.raises(ValueError):
         jgram._auto_tiles(96, 200)
     assert tgram._auto_tiles(96, 200) == (32, 200)
+
+
+@pytest.mark.parametrize("m", [1, 70, 238])
+def test_window_stays_at_118(m):
+    """Routing at n = 119..128 does not move with gram_power's new block:
+    the build takes n <= 118 and raises at 119, as it did."""
+    assert tgram.MAX_N == 118
+    assert tgram._auto_tiles(118, m) == (32, m)
+    with pytest.raises(ValueError, match="torch precompute"):
+        tgram._auto_tiles(119, m)
+
+
+def test_power_group_lanes():
+    """gram_power's lanes a CTA on the resident layout: 1024 threads
+    (round_up(n, 32) a lane) and 227 KB (two round_up(n, 4) vectors and the
+    triangle a lane) bound it, 32 at most; its shared bytes are the group's."""
+    widths = (1, 5, 31, 32, 33, 64, 96, 113, 118, 128)
+    assert [tgram.power_group_lanes(n) for n in widths] == [32, 32, 32, 32, 16, 16, 10, 8, 8, 6]
+    assert tgram._power_smem_bytes(96) == 10 * (2 * 96 + 96 * 97 // 2) * 4
+    assert tgram._power_smem_bytes(118) == 8 * (2 * 120 + 118 * 119 // 2) * 4
+    for n in (0, tgram.POWER_MAX_N + 1):
+        with pytest.raises(ValueError, match="gram_power"):
+            tgram.power_group_lanes(n)
 
 
 def test_pairs_ring_fits_two_ctas():

@@ -301,3 +301,59 @@ def test_adaptive_entry_matches_jax(kw):
     wide = _pair(_gram_fields(112, seed=1))[1]
     with pytest.raises(ValueError, match="window"):
         tvmem.fista_gram_vmem_adaptive(wide, tvmem.BatchFISTAConfig())
+
+
+def test_group_lanes_pinned_to_the_packed_layout():
+    """The matvec's 16-byte aligned vectors (``round_up(n, 4)`` floats each)
+    move no grouping: for every n = 1..168, ``group_lanes`` equals the rule
+    on the layout of (n,) vectors it replaced, so x, which depends on the
+    grouping, does not move."""
+    def packed(n):
+        nt = -(-n // 32) * 32
+        lane = (n * (n + 1) // 2 + 2 * n + nt // 32 * resident.N_SUMS) * 4
+        return min(32, 1024 // nt, 232448 // lane)
+
+    window = range(1, resident.MAX_N + 1)
+    assert [resident.group_lanes(n) for n in window] == [packed(n) for n in window]
+    assert [resident.group_lanes(n) for n in (96, 112, 118, 128, 168)] == [10, 8, 7, 6, 3]
+
+
+def _select_walk(n, i):
+    """The triangle words the matvec read for feature i with a select every
+    term: from (0, i), advancing n-1-k while k < i, then 1."""
+    p, words = i, []
+    for k in range(n):
+        words.append(p)
+        p += n - 1 - k if k < i else 1
+    return words
+
+
+def _segment_walk(n, i):
+    """The words of ``csrc/tri_matvec.cuh``'s walk for feature i: base_k + i
+    below the warp's diagonal block (base_k shared by the warp), the select
+    inside it, base_i + k past it."""
+    d0 = i & ~31
+    d1 = min(d0 + 32, n)
+    words, off = [], 0
+    for k in range(d0):
+        words.append(off + i)
+        off += n - 1 - k
+    p = off + i
+    for k in range(d0, d1):
+        words.append(p)
+        p += n - 1 - k if k < i else 1
+    base_i = i * (n - 1) - i * (i - 1) // 2
+    return words + [base_i + k for k in range(d1, n)]
+
+
+@pytest.mark.parametrize("n", [1, 5, 31, 32, 33, 96, 113, 128, 150, 168])
+def test_segment_walk_reads_the_select_walks_words(n):
+    """The kernel's warp-uniform walk reads, term for term, the words of the
+    select-every-term walk, and each is pair (min(k, i), max(k, i)) of the
+    row-major upper triangle the twin mirrors (``upper_symmetric``): the
+    same products in the same order, so the same sums."""
+    index = {rc: w for w, rc in enumerate((r, c) for r in range(n) for c in range(r, n))}
+    for i in range(n):
+        words = _segment_walk(n, i)
+        assert words == _select_walk(n, i)
+        assert words == [index[min(k, i), max(k, i)] for k in range(n)]
