@@ -58,7 +58,9 @@ Phases, one line each (``--`` lines are detail):
    max_iter=1000) on data the ported generator makes on the card; every lane
    must certify, none may fail, and 4096 sampled lanes are rechecked in
    float64; then one read-ceiling measurement, the bench path's roofline;
-5. times — CUDA events, median of 5 solves interleaved with the stream
+5. times — the headline's measurement (``bench/headline.py``: its data
+   recipe made phase 4's inputs, its ``measure`` and ``kernel_ms`` time
+   here): CUDA events, median of 5 solves interleaved with the stream
    ceiling and with one torch call for its sums (``A.sum((0, 1)) +
    b.sum(0)``): solve ms and instances/s (every timed solve must certify
    every lane), ceiling GB/s, pct_of_achievable, the twin's time, iteration
@@ -121,6 +123,22 @@ Phases, one line each (``--`` lines are detail):
    outside Armijo), CUDA-event medians of 3 of the routed call and the
    kernel; then 100 iterations, the ``FusedSolveState``, resumed to 1000,
    bit-equal to a straight run (three fused launches).
+10. cv — ``cv_lasso`` at the shape of UCI's YearPredictionMSD regression
+   (515,345 × 90; A ~ N(0, 1), a 10%-sparse x_true with N(0, 9) entries,
+   noise σ = 9, made on the card from seed 0) with the reference's defaults
+   (5 folds, 50 alphas, eps 1e-3, max_iter 2000, check_every 25) and
+   ``fit_intercept=True``: 300 lanes at n = 90, so the burst kernel and
+   nothing else launches; once as lasso and once as an elastic-net ladder
+   (``l1_ratio=0.5``, α₂ varying by lane), each held against
+   ``backend="xla"`` (the torch driver) on the same data: certified counts
+   within 1% of lanes, the float64 objective on lanes both certify within
+   1e-5 relative, ``mse_mean`` within 1e-5 relative, the same ``best_idx``
+   unless the two minima tie within that tolerance, and the refit lanes'
+   float64 gap ≤ 1e-4; then the call's ms (median of 3) split into the
+   folds and Grams, the Lipschitz loop and the routed solve (its bound, the
+   burst twin and the driver on the same grid beside it), and
+   ``lasso_path`` on the same data (the torch driver; every lane
+   certified, no kernel launched).
 
 Phases 6-8 hold each engine against its twin on the path's own Grams, where
 lanes near the f32 floor certify or not by the gap's last bits, which kernel
@@ -131,7 +149,8 @@ they are held at B = 300 and rel_gap_tol 1e-5 in phase 3.
 
 Launch counts are set to 0 just before each main-path call (phase 4's solve,
 phase 4's ceiling measurement, phases 6, 7 and 8's solves, phase 9's solve
-per mode and its checkpointed run) and read just after it. The script then
+per mode and its checkpointed run, phase 10's two CV calls and its path)
+and read just after it. The script then
 prints the per-kernel JSON line (``ms`` is the kernel's own time: the fused
 and stream launches, the two build launches, and one certified solve of the
 burst, resident and Q-streaming engines; ``e2e_ms`` is the routed call;
@@ -149,7 +168,8 @@ the build's ``power_group_lanes``, ``power_smem_bytes``,
 (``adaptive_entry``); the Q-streaming entry its ``cluster_size``,
 ``smem_bytes``, ``active_clusters``, ``q_bytes_per_launch``, ``copy_in_ms``,
 ``relayout_ms`` and phase 8's other splits; the fused entry's
-``modes`` holds phase 9's times), the card's name and power limit, and,
+``modes`` holds phase 9's times; the burst entry's ``cv`` phase 10's
+launches, holds and times), the card's name and power limit, and,
 last, ``{"ok": true, "device": {...}}``. It exits non-zero, printing no
 result, when there is no CUDA device or any phase fails.
 """
@@ -194,6 +214,9 @@ WIDE_B = int(2e9 / (WIDE_N * WIDE_N * 4)) // 128 * 128  # 54144
 W1_N, W2_N = 128, 256
 W1_B = int(2e9 / (W1_N * W1_N * 4)) // 128 * 128  # 30464
 W2_B = int(2e9 / (W2_N * W2_N * 4)) // 128 * 128  # 7552
+# phase 10: cv_lasso at the shape of UCI's YearPredictionMSD regression (515,345
+# rows × 90 features) with the reference's defaults: 5 folds × 50 alphas, 300 lanes
+CV_M, CV_N, CV_FOLDS, CV_ALPHAS = 515345, 90, 5, 50
 # the fused kernel's modes besides fixed momentum, run at the bench configuration
 FUSED_MODES = {"restart": dict(adaptive_restart=True), "greedy": dict(momentum="greedy"),
                "armijo": dict(backtracking=True),
@@ -325,24 +348,13 @@ def small_problem(n: int, m: int, B: int, seed: int, device):
 
 
 def bench_problem(batch: int, m: int, device):
-    """The bench configuration's data (bench.py:_build_problems), made on the
-    card by the ported generator: per-instance noise/ρ drawn from the
-    reference grid, features standardised per instance, α₁ = 0.1·‖Aᵀb‖∞."""
+    """The bench configuration's data, made on the card by the headline's
+    recipe (``bench.headline.build_problems``, seed 0)."""
     import torch
 
-    from fastoptsolver_tpu_torch.problems import generate_scenario_batch_fm
+    from fastoptsolver_tpu_torch.bench.headline import build_problems
 
-    g = torch.Generator(device=device).manual_seed(0)
-    pick = lambda vals: torch.tensor(vals, device=device)[
-        torch.randint(len(vals), (batch,), generator=g, device=device)]
-    noise, rho1, rho2 = pick([0.5, 1.0, 2.0, 5.0]), pick([0.5, 0.8]), pick([0.7, 0.9])
-    A, b, _ = generate_scenario_batch_fm(g, batch, m=m, noise_std=noise,
-                                         rho1=rho1, rho2=rho2)
-    mu = A.mean(dim=1, keepdim=True)
-    sd = A.std(dim=1, keepdim=True, unbiased=False)
-    A.sub_(mu).div_(sd)
-    alpha1 = 0.1 * torch.stack([(A[k] * b).sum(0) for k in range(A.shape[0])]).abs().amax(0)
-    return A, b, alpha1
+    return build_problems(torch.Generator(device=device).manual_seed(0), batch, m)
 
 
 def compare_fused(res_k, res_t, check_every: int, label: str) -> float:
@@ -1417,6 +1429,162 @@ def fused_modes_path(A, b, alpha1, dev, mods) -> dict:
     return out
 
 
+def cv_problem(dev):
+    """Phase 10's data, on the card from seed 0, at the shape of UCI's
+    YearPredictionMSD regression (``CV_M`` rows × ``CV_N`` features): A ~ N(0, 1),
+    a 10%-sparse x_true with N(0, 9) entries, noise σ = 9."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    A = torch.randn((CV_M, CV_N), generator=g, device=dev)
+    keep = torch.rand((CV_N,), generator=g, device=dev) < 0.1
+    x_true = torch.where(keep, 3.0 * torch.randn((CV_N,), generator=g, device=dev), 0.0)
+    b = A @ x_true + 9.0 * torch.randn((CV_M,), generator=g, device=dev)
+    return A, b
+
+
+def cv_grid64(A, b, alphas, l1_ratio: float):
+    """The CV grid of ``cv_lasso(fit_intercept=True)`` in float64: float64
+    fold Grams by ``batch.cv``'s own fold and penalty rules, (k+1)·K lanes,
+    group-major, with L = 1 (no solve reads it)."""
+    import torch
+
+    from fastoptsolver_tpu_torch.batch import cv
+
+    A64, b64 = A.double(), b.double()
+    A64, b64 = A64 - A64.mean(dim=0), b64 - b64.mean()
+    folds = cv._folds(A64, b64, CV_FOLDS)
+    Q, c, btb = cv._train_grams(A64, b64, folds)
+    a1, a2 = cv._penalties(alphas.double(), folds.sizes, CV_M, 0.0, l1_ratio)
+    return cv._grid(Q, c, btb, torch.ones_like(btb), a1, a2)
+
+
+def cv_lanes64(gb, res):
+    """Every lane's objective and relative gap of a ``cv_lasso`` result on
+    the float64 grid ``gb``, at its f32 x."""
+    import torch
+
+    from fastoptsolver_tpu_torch.batch.fista_gram import _rel_gap
+
+    X = torch.cat([res.coef_folds, res.coef_path[None]]).reshape(-1, CV_N).double().T
+    QX = torch.einsum("ijb,jb->ib", gb.Q, X)
+    f = (0.5 * (X * QX).sum(0) - (gb.c * X).sum(0) + 0.5 * gb.btb
+         + 0.5 * gb.alpha2 * (X * X).sum(0) + gb.alpha1 * X.abs().sum(0))
+    return f, _rel_gap(gb, X)
+
+
+def compare_cv(A, b, rk, rx, l1_ratio: float, label: str) -> dict:
+    """The kernel route's CV result against the torch driver's on the same
+    data: certified counts within 1% of lanes, the per-lane objective on lanes
+    both certify within 1e-5 relative, ``mse_mean`` within 1e-5 relative, the
+    same ``best_idx`` unless the two minima tie within that tolerance, and the
+    refit lanes' float64 gap ≤ 1e-4."""
+    import torch
+
+    lanes_n = rk.converged_grid.numel()
+    ck, cx = int(rk.converged_grid.sum()), int(rx.converged_grid.sum())
+    require(bool(torch.equal(rk.alphas, rx.alphas)), f"cv {label}: the routes' ladders differ")
+    gb64 = cv_grid64(A, b, rk.alphas, l1_ratio)
+    fk, gk = cv_lanes64(gb64, rk)
+    fx, _ = cv_lanes64(gb64, rx)
+    both = (rk.converged_grid & rx.converged_grid).reshape(-1)
+    dobj = float(((fk - fx).abs() / fx.abs().clamp_min(1.0))[both].max()) if both.any() else 0.0
+    dmse = float(((rk.mse_mean - rx.mse_mean).abs() / rx.mse_mean).max())
+    ik, ix = int(rk.best_idx), int(rx.best_idx)
+    # another index is allowed only where the driver's two minima tie
+    tied = abs(float(rx.mse_mean[ik] - rx.mse_mean[ix])) <= 1e-5 * float(rx.mse_mean[ix])
+    refit_gap64 = float(gk[-rk.alphas.numel():].max())
+    print(f"-- cv {label}: certified kernel {ck}/{lanes_n}, driver {cx}/{lanes_n} | max rel "
+          f"|dobj| {dobj:.3e} on {int(both.sum())} lanes both certify | max rel |dmse_mean| "
+          f"{dmse:.3e} | best_idx kernel {ik} driver {ix} | refit f64 max rel_gap "
+          f"{refit_gap64:.3e} | best alpha {float(rk.best_alpha):.6g}, iters max "
+          f"{int(rk.iters.max())}")
+    require(abs(ck - cx) <= 0.01 * lanes_n and dobj <= 1e-5 and dmse <= 1e-5
+            and (ik == ix or tied) and refit_gap64 <= 1e-4,
+            f"cv {label}: the kernel route disagrees with the torch driver")
+    return dict(certified=ck, driver_certified=cx, lanes=lanes_n, max_rel_dobj=dobj,
+                max_rel_dmse=dmse, best_idx=ik, refit_gap64=refit_gap64)
+
+
+def cv_path(dev, mods) -> dict:
+    """Phase 10: ``cv_lasso`` at the YearPredictionMSD shape through the burst
+    kernel (lasso with an intercept, then an elastic-net ladder), held against
+    the torch driver, timed and split; then ``lasso_path`` on the same data."""
+    import torch
+
+    from fastoptsolver_tpu_torch.batch import (
+        BatchFISTAConfig, cv, cv_lasso, fista_gram_batch, lasso_path, solve_gram_batch)
+    from fastoptsolver_tpu_torch.kernels import fista_vmem
+    from fastoptsolver_tpu_torch.ops import estimate_lipschitz_gram
+    from fastoptsolver_tpu_torch.problems import LeastSquares
+
+    A, b = cv_problem(dev)
+    torch.cuda.synchronize()
+    cfg = BatchFISTAConfig(max_iter=2000, check_every=25)
+    kw = dict(k_folds=CV_FOLDS, n_alphas=CV_ALPHAS, eps=1e-3, cfg=cfg, fit_intercept=True)
+    out = {}
+    for label, l1_ratio in (("lasso", 1.0), ("enet", 0.5)):
+        zero_counts(mods)
+        rk = cv_lasso(A, b, l1_ratio=l1_ratio, **kw)
+        torch.cuda.synchronize()
+        counts = {k: m.LAUNCHES for k, m in mods.items()}
+        require(counts["burst"] > 0 and sum(counts.values()) == counts["burst"],
+                f"cv {label}: launches {counts} (want burst > 0, every other 0)")
+        lanes = (CV_FOLDS + 1) * CV_ALPHAS
+        require(rk.coef_folds.shape == (CV_FOLDS, CV_ALPHAS, CV_N)
+                and bool(torch.isfinite(rk.coef_path).all()) and bool(torch.isfinite(rk.mse_path).all()),
+                f"cv {label}: results not finite of the expected shapes")
+        if l1_ratio < 1.0:
+            a2 = rk.alphas * (1.0 - l1_ratio) / l1_ratio
+            require(float(a2.max() / a2.min()) > 100.0, "cv enet: α₂ does not vary by lane")
+        rx = cv_lasso(A, b, l1_ratio=l1_ratio, backend="xla", **kw)
+        out[label] = dict(compare_cv(A, b, rk, rx, l1_ratio, label), launches=counts["burst"])
+        print(f"-- cv {label}: {lanes} lanes at n={CV_N}, burst launches {counts['burst']}")
+        del rk, rx
+
+    # the split of one call: folds and Grams, the Lipschitz loop, the solve
+    cv_ms, cv_trials, _ = med_ms(lambda: cv_lasso(A, b, **kw))
+    Ac, bc = A - A.mean(dim=0), b - b.mean()
+    grams_ms, _, (Q_all, c_all, btb_all) = med_ms(
+        lambda: cv._train_grams(Ac, bc, cv._folds(Ac, bc, CV_FOLDS)))
+    lip_ms, _, L_all = med_ms(lambda: estimate_lipschitz_gram(Q_all))
+    folds = cv._folds(Ac, bc, CV_FOLDS)
+    alphas = cv._ladder(c_all[-1].abs().amax(), CV_ALPHAS, 1e-3, A.dtype)
+    gb = cv._grid(Q_all, c_all, btb_all, L_all, *cv._penalties(alphas, folds.sizes, CV_M,
+                                                              0.0, 1.0))
+    solve_ms, _, res_s = med_ms(lambda: solve_gram_batch(gb, cfg))
+    plain_ms, _, _ = med_ms(lambda: fista_vmem.fista_gram_vmem_reference(gb, cfg))
+    driver_ms, _, _ = med_ms(lambda: fista_gram_batch(gb, cfg))
+    # the routed solve: Q, c and the rows read once, x written once; every
+    # lane runs every burst's steps
+    B = gb.c.shape[1]
+    bnd = bound(4 * (CV_N * CV_N * B + 2 * CV_N * B + 6 * B),
+                solve_ops(CV_N, B * int(res_s.n_iters_total), cfg.check_every))
+    print(f"[10 cv] cv_lasso at ({CV_M}, {CV_N}), {CV_FOLDS} folds × {CV_ALPHAS} alphas = "
+          f"{(CV_FOLDS + 1) * CV_ALPHAS} lanes: {cv_ms:.3f} ms median of 3 (trials "
+          f"{[round(x, 3) for x in cv_trials]}) = folds and Grams {grams_ms:.3f} + Lipschitz "
+          f"loop {lip_ms:.3f} + burst solve {solve_ms:.3f} (bound {bnd[0]:.4f} ms by {bnd[1]}; "
+          f"its twin {plain_ms:.3f}, the torch driver on the same grid {driver_ms:.3f}) | "
+          f"burst launches lasso {out['lasso']['launches']}, enet "
+          f"{out['enet']['launches']} | certified lasso {out['lasso']['certified']}, enet "
+          f"{out['enet']['certified']}")
+    del Ac, bc, folds, gb, Q_all
+
+    zero_counts(mods)
+    path_ms, (alphas_p, rp) = cuda_ms(lambda: lasso_path(LeastSquares.create(A, b, "lasso")))
+    counts = {k: m.LAUNCHES for k, m in mods.items()}
+    n_p = int(rp.converged.sum())
+    require(sum(counts.values()) == 0, f"lasso_path launched {counts} (the driver's path)")
+    require(n_p == alphas_p.numel() and bool(torch.isfinite(rp.x).all()),
+            f"lasso_path: {n_p}/{alphas_p.numel()} certified")
+    print(f"-- lasso_path at ({CV_M}, {CV_N}): {n_p}/{alphas_p.numel()} certified, "
+          f"{path_ms:.3f} ms, iters max {int(rp.iters.max())} (the torch driver, no kernel)")
+    return dict(out, e2e_ms=cv_ms, trials_ms=cv_trials, grams_ms=grams_ms, lipschitz_ms=lip_ms,
+                solve_ms=solve_ms, plain_ms=plain_ms, driver_ms=driver_ms, bound_ms=bnd[0],
+                bound_by=bnd[1], lanes=(CV_FOLDS + 1) * CV_ALPHAS,
+                n=CV_N, m=CV_M, lasso_path_ms=path_ms, lasso_path_certified=n_p)
+
+
 def main() -> int:
     import torch
 
@@ -1427,7 +1595,7 @@ def main() -> int:
     import fastoptsolver_tpu_torch  # noqa: F401  (numerics contract)
     from fastoptsolver_tpu_torch.batch import BatchFISTAConfig, solve_lasso_batch
     from fastoptsolver_tpu_torch.batch.fista_gram import _rel_gap, make_gram_batch
-    from fastoptsolver_tpu_torch.bench import stream as stream_mod
+    from fastoptsolver_tpu_torch.bench import headline, stream as stream_mod
     from fastoptsolver_tpu_torch.bench.stream import measure_stream_ceiling, stream_pass_reference
     from fastoptsolver_tpu_torch.bench.wide_n import build_problems
     from fastoptsolver_tpu_torch.kernels import (
@@ -1507,10 +1675,7 @@ def main() -> int:
     del res_t
     errs["stream"] = max(errs["stream"], compare_stream(A, b, f"bench (5, {m}, {BATCH})"))
     stream_plain_ms, _ = cuda_ms(lambda: stream_pass_reference(A, b), reps=3)
-    plan = fused_solve._plan(A, alpha1, 0.0, cfg, None, 1.02, None)
-    kernel_ms = median([cuda_ms(lambda: fused_solve._launch(A, b, **plan))[0]
-                        for _ in range(5)])  # the launch alone, no host set-up
-    del plan
+    kernel_ms = headline.kernel_ms(A, b, alpha1, cfg)  # the launch alone, no host set-up
     torch.cuda.empty_cache()
     print("[3 kernel vs twin] bench shape ok")
 
@@ -1573,17 +1738,17 @@ def main() -> int:
           f"{ceil_first:.1f} GB/s, stream launches {launches['stream']}")
 
     # ---- 5: times; these launches are not counted above ----
-    # the ceiling, one torch call for its sums and the solve in turns
-    solve_ms, ceil_gbps, lib_ms = [], [], []
-    for _ in range(5):
-        ceil_gbps.append(measure_stream_ceiling(A, b, reps=3, trials=1)["stream_ceiling_gbps"])
-        lib_ms.append(cuda_ms(lambda: A.sum(dim=(0, 1)) + b.sum(dim=0), reps=3)[0])
-        ms, res = cuda_ms(lambda: solve_lasso_batch(A, b, alpha1, 0.0, cfg=cfg,
-                                                    feature_major=True))
-        solve_ms.append(ms)
-        n_ok, n_bad = int(res.converged.sum()), int(res.failed.sum())
-        require(n_ok == BATCH and n_bad == 0,
-                f"timed solve: {n_ok}/{BATCH} certified, {n_bad} failed")
+    # the ceiling, one torch call for its sums and the solve in turns, by the
+    # headline's measurement (bench/headline.py)
+    meas = headline.measure(A, b, alpha1, cfg, reps=1, trials=5, ceiling_reps=3,
+                            beside=lambda: [A.sum(dim=(0, 1)) + b.sum(dim=0)
+                                            for _ in range(3)])
+    require(meas["converged"] == BATCH and meas["failed"] == 0,
+            f"timed solve: {meas['converged']}/{BATCH} certified, {meas['failed']} failed")
+    solve_ms = [ms for trial in meas["trial_ms"] for ms in trial]
+    ceil_gbps = meas["ceilings_gbps"]
+    lib_ms = [ms / 3 for ms in meas["beside_ms"]]
+    res = meas["result"]
     t_solve = median(solve_ms) / 1e3
     ceil = median(ceil_gbps)
     bytes_in = (A.numel() + b.numel()) * A.element_size()
@@ -1771,6 +1936,11 @@ def main() -> int:
 
     # ---- 9: the fused kernel's other modes and its checkpoint, at the bench shape ----
     modes = fused_modes_path(A, b, alpha1, dev, mods)
+    del A, b, alpha1
+    torch.cuda.empty_cache()
+
+    # ---- 10: cross-validation through the burst kernel, counted, held, timed ----
+    cv_out = cv_path(dev, mods)
 
     kernels = [
         {"name": "fused_lasso_solve", "route": "cuda", "source": FUSED_SRC,
@@ -1803,7 +1973,8 @@ def main() -> int:
          "ms": burst_ms, "plain_ms": burst_plain_ms, "bound_ms": bounds["burst"][0],
          "bound_by": bounds["burst"][1], "library_ms": None, "e2e_ms": wide_ms,
          "driver_ms": driver_ms, "launches_only_ms": launches_ms, "group_lanes": group,
-         "smem_bytes": group_smem, "q_bytes_per_launch": gbw_q_bytes, "copy_in_ms": copy_ms},
+         "smem_bytes": group_smem, "q_bytes_per_launch": gbw_q_bytes, "copy_in_ms": copy_ms,
+         "cv": cv_out},
         {"name": "resident_solve", "route": "cuda", "source": RESIDENT_SRC,
          "replaces": "fastoptsolver_tpu/kernels/resident.py:103",
          "also_replaces": "fastoptsolver_tpu/kernels/fista_vmem.py:897 (the adaptive "

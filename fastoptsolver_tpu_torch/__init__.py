@@ -2,8 +2,11 @@
 
 A second package beside the JAX one, which stays the reference: every module
 here keeps its JAX counterpart's name and surface, and the tests feed both
-packages the same inputs. The slice ported so far is the certified
-batched-lasso surface (``batch.solve_lasso_batch``, ``batch.solve_gram_batch``):
+packages the same inputs. The slices ported so far are the certified
+batched-lasso surface (``batch.solve_lasso_batch``, ``batch.solve_gram_batch``),
+the regularization path and k-fold cross-validation built on it
+(``batch.lasso_path``, ``batch.cv_lasso``), and the ops and problems they
+use (``ops``, ``problems.LeastSquares`` and kin). Routing:
 the torch Gram-form FISTA driver (``batch.fista_gram``) runs on any device; on
 a CUDA tensor the router sends certified configurations with n ≤ 8, in every
 momentum mode (fixed, adaptive restart, greedy, Armijo), to one launch of the
@@ -13,7 +16,10 @@ kernels, ``kernels.gram_build``, and the burst kernel,
 ``kernels.fista_vmem``), certified configurations
 with 104 < n ≤ 168 to one launch of the resident kernel
 (``kernels.resident``), and wider ones to the Q-streaming kernel
-(``kernels.qstream``), one launch per burst.
+(``kernels.qstream``), one launch per burst. ``cv_lasso`` sends its
+(folds + 1)·α grid through ``solve_gram_batch``, so on a CUDA tensor it
+reaches the burst kernel at n ≤ 104 and the resident kernel up to n = 168;
+``lasso_path`` runs the torch driver, as the reference does.
 
 The package imports no JAX, and nothing that needs ``nvcc``, Triton or a GPU:
 CUDA kernels are compiled on first use (``kernels._build``).
@@ -47,5 +53,17 @@ from .batch import (  # noqa: E402
     make_gram_batch,
     solve_lasso_batch,
 )
-from .ops import soft_threshold  # noqa: E402
-from .problems import generate_scenario_batch_fm  # noqa: E402
+from .ops import (  # noqa: E402
+    soft_threshold,
+    prox_l1,
+    prox_elastic_net,
+    compute_objective,
+    estimate_lipschitz,
+)
+from .problems import (  # noqa: E402
+    LeastSquares,
+    GramLeastSquares,
+    LogisticRegression,
+    CustomProblem,
+    generate_scenario_batch_fm,
+)

@@ -1,2 +1,3 @@
-"""Measurement helpers (port of ``fastoptsolver_tpu.bench``; the stream
-ceiling so far)."""
+"""Measurement helpers (port of ``fastoptsolver_tpu.bench``): the stream
+ceiling, the wide-n bench and the headline bench (``bench.py``'s
+measurement)."""

@@ -239,9 +239,30 @@ def test_generator_shapes_and_block_correlations():
 
 
 def test_import_adds_no_jax_module():
-    code = ("import sys; before = set(sys.modules); import fastoptsolver_tpu_torch; "
-            "print(sorted(k for k in set(sys.modules) - before "
-            "if k == 'jax' or k.startswith(('jax.', 'jaxlib', 'fastoptsolver_tpu.'))))")
+    """Every module of the port imports with JAX and the JAX package
+    blocked (an import of either raises), and adds neither."""
+    modules = sorted(
+        ".".join(("fastoptsolver_tpu_torch",) + p.relative_to(PORT).with_suffix("").parts)
+        .removesuffix(".__init__") for p in PORT.rglob("*.py"))
+    assert {"fastoptsolver_tpu_torch.batch.cv", "fastoptsolver_tpu_torch.batch.path",
+            "fastoptsolver_tpu_torch.ops.lipschitz", "fastoptsolver_tpu_torch.ops.gap",
+            "fastoptsolver_tpu_torch.ops.objective", "fastoptsolver_tpu_torch.problems.base",
+            "fastoptsolver_tpu_torch.problems.least_squares",
+            "fastoptsolver_tpu_torch.bench.headline"} <= set(modules)
+    code = f"""
+import importlib, sys
+BLOCKED = ("jax", "jaxlib", "fastoptsolver_tpu")
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked: " + name)
+for k in [k for k in sys.modules if k.split(".")[0] in BLOCKED]:
+    del sys.modules[k]
+sys.meta_path.insert(0, Block())
+for mod in {modules!r}:
+    importlib.import_module(mod)
+print(sorted(k for k in sys.modules if k.split(".")[0] in BLOCKED))
+"""
     env = dict(os.environ, PYTHONPATH=str(PORT.parent))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120, check=True)
