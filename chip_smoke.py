@@ -217,6 +217,10 @@ W2_B = int(2e9 / (W2_N * W2_N * 4)) // 128 * 128  # 7552
 # phase 10: cv_lasso at the shape of UCI's YearPredictionMSD regression (515,345
 # rows × 90 features) with the reference's defaults: 5 folds × 50 alphas, 300 lanes
 CV_M, CV_N, CV_FOLDS, CV_ALPHAS = 515345, 90, 5, 50
+# the kernel route's x against the torch driver's on lanes both certify: on
+# this Gram (≈ m·I) the objective moves with the square of an error in x, so x
+# is held too, each lane against the grid's largest |x| (``max_rel_dx``)
+CV_X_RTOL = 1e-5
 # the fused kernel's modes besides fixed momentum, run at the bench configuration
 FUSED_MODES = {"restart": dict(adaptive_restart=True), "greedy": dict(momentum="greedy"),
                "armijo": dict(backtracking=True),
@@ -345,16 +349,6 @@ def small_problem(n: int, m: int, B: int, seed: int, device):
     a1 = 0.1 * np.abs(np.einsum("nmb,mb->nb", A, b)).max(axis=0)
     t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(device)
     return t(A), t(b), t(a1.astype(np.float32))
-
-
-def bench_problem(batch: int, m: int, device):
-    """The bench configuration's data, made on the card by the headline's
-    recipe (``bench.headline.build_problems``, seed 0)."""
-    import torch
-
-    from fastoptsolver_tpu_torch.bench.headline import build_problems
-
-    return build_problems(torch.Generator(device=device).manual_seed(0), batch, m)
 
 
 def compare_fused(res_k, res_t, check_every: int, label: str) -> float:
@@ -1459,25 +1453,47 @@ def cv_grid64(A, b, alphas, l1_ratio: float):
     return cv._grid(Q, c, btb, torch.ones_like(btb), a1, a2)
 
 
-def cv_lanes64(gb, res):
-    """Every lane's objective and relative gap of a ``cv_lasso`` result on
-    the float64 grid ``gb``, at its f32 x."""
+def cv_x(res):
+    """A ``cv_lasso`` result's x over its whole grid, (lanes, n), group-major."""
+    import torch
+
+    return torch.cat([res.coef_folds, res.coef_path[None]]).reshape(-1, CV_N)
+
+
+def cv_lanes64(gb, X):
+    """Every lane's objective and relative gap on the float64 grid ``gb`` at
+    the f32 x ``X`` (lanes, n)."""
     import torch
 
     from fastoptsolver_tpu_torch.batch.fista_gram import _rel_gap
 
-    X = torch.cat([res.coef_folds, res.coef_path[None]]).reshape(-1, CV_N).double().T
+    X = X.double().T
     QX = torch.einsum("ijb,jb->ib", gb.Q, X)
     f = (0.5 * (X * QX).sum(0) - (gb.c * X).sum(0) + 0.5 * gb.btb
          + 0.5 * gb.alpha2 * (X * X).sum(0) + gb.alpha1 * X.abs().sum(0))
     return f, _rel_gap(gb, X)
 
 
+def max_rel_dobj(fa, fb, lanes) -> float:
+    """max over ``lanes`` of |fa − fb| / max(|fb|, 1)."""
+    return float(((fa - fb).abs() / fb.abs().clamp_min(1.0))[lanes].max()) if lanes.any() else 0.0
+
+
+def max_rel_dx(Xa, Xb, lanes) -> float:
+    """max over ``lanes`` of ‖xa − xb‖∞ over the grid's largest |x|. f32
+    rounding moves every lane's x by about ε·α_max/λ_min(Q), which on this
+    Gram is ε times the grid's largest |x| whatever the lane's own size: a
+    lane near α_max holds one small entry, c_i − α₁ by cancellation."""
+    d = (Xa - Xb).abs().amax(-1) / Xb.abs().max()
+    return float(d[lanes].max()) if lanes.any() else 0.0
+
+
 def compare_cv(A, b, rk, rx, l1_ratio: float, label: str) -> dict:
     """The kernel route's CV result against the torch driver's on the same
-    data: certified counts within 1% of lanes, the per-lane objective on lanes
-    both certify within 1e-5 relative, ``mse_mean`` within 1e-5 relative, the
-    same ``best_idx`` unless the two minima tie within that tolerance, and the
+    data: certified counts within 1% of lanes; on lanes both certify, the
+    per-lane objective within 1e-5 relative and x within ``CV_X_RTOL``
+    (``max_rel_dx``); ``mse_mean`` within 1e-5 relative; the same
+    ``best_idx`` unless the two minima tie within that tolerance; and the
     refit lanes' float64 gap ≤ 1e-4."""
     import torch
 
@@ -1485,25 +1501,63 @@ def compare_cv(A, b, rk, rx, l1_ratio: float, label: str) -> dict:
     ck, cx = int(rk.converged_grid.sum()), int(rx.converged_grid.sum())
     require(bool(torch.equal(rk.alphas, rx.alphas)), f"cv {label}: the routes' ladders differ")
     gb64 = cv_grid64(A, b, rk.alphas, l1_ratio)
-    fk, gk = cv_lanes64(gb64, rk)
-    fx, _ = cv_lanes64(gb64, rx)
+    fk, gk = cv_lanes64(gb64, cv_x(rk))
+    fx, _ = cv_lanes64(gb64, cv_x(rx))
     both = (rk.converged_grid & rx.converged_grid).reshape(-1)
-    dobj = float(((fk - fx).abs() / fx.abs().clamp_min(1.0))[both].max()) if both.any() else 0.0
+    dobj = max_rel_dobj(fk, fx, both)
+    dx = max_rel_dx(cv_x(rk), cv_x(rx), both)
     dmse = float(((rk.mse_mean - rx.mse_mean).abs() / rx.mse_mean).max())
     ik, ix = int(rk.best_idx), int(rx.best_idx)
     # another index is allowed only where the driver's two minima tie
     tied = abs(float(rx.mse_mean[ik] - rx.mse_mean[ix])) <= 1e-5 * float(rx.mse_mean[ix])
     refit_gap64 = float(gk[-rk.alphas.numel():].max())
-    print(f"-- cv {label}: certified kernel {ck}/{lanes_n}, driver {cx}/{lanes_n} | max rel "
-          f"|dobj| {dobj:.3e} on {int(both.sum())} lanes both certify | max rel |dmse_mean| "
-          f"{dmse:.3e} | best_idx kernel {ik} driver {ix} | refit f64 max rel_gap "
-          f"{refit_gap64:.3e} | best alpha {float(rk.best_alpha):.6g}, iters max "
-          f"{int(rk.iters.max())}")
-    require(abs(ck - cx) <= 0.01 * lanes_n and dobj <= 1e-5 and dmse <= 1e-5
-            and (ik == ix or tied) and refit_gap64 <= 1e-4,
+    print(f"-- cv {label}: certified kernel {ck}/{lanes_n}, driver {cx}/{lanes_n} | on "
+          f"{int(both.sum())} lanes both certify: max rel |dobj| {dobj:.3e}, max rel |dx| "
+          f"{dx:.3e} (limit {CV_X_RTOL:g}) | max rel |dmse_mean| {dmse:.3e} | best_idx "
+          f"kernel {ik} driver {ix} | refit f64 max rel_gap {refit_gap64:.3e} | best alpha "
+          f"{float(rk.best_alpha):.6g}, iters max {int(rk.iters.max())}")
+    require(abs(ck - cx) <= 0.01 * lanes_n and dobj <= 1e-5 and dx <= CV_X_RTOL
+            and dmse <= 1e-5 and (ik == ix or tied) and refit_gap64 <= 1e-4,
             f"cv {label}: the kernel route disagrees with the torch driver")
     return dict(certified=ck, driver_certified=cx, lanes=lanes_n, max_rel_dobj=dobj,
-                max_rel_dmse=dmse, best_idx=ik, refit_gap64=refit_gap64)
+                max_rel_dx=dx, max_rel_dmse=dmse, best_idx=ik, refit_gap64=refit_gap64)
+
+
+def cv_controls(A, b, rk, l1_ratio: float, cfg) -> dict:
+    """Two faults the x hold must see and the objective hold may not: the
+    torch driver on ``rk``'s grid with Q read as a TF32 matvec reads it (a
+    10-bit mantissa, rounded to nearest), and with every lane's α₂ read 1%
+    high. Each is read against ``rk`` on the lanes ``rk`` certifies, by
+    ``compare_cv``'s two measures; printed, not held. (``allow_tf32`` alone
+    would change nothing here: the driver's batched (n × n)·(n × 1) matvec
+    runs without tensor cores.)"""
+    import dataclasses
+
+    import torch
+
+    from fastoptsolver_tpu_torch.batch import cv, fista_gram_batch
+    from fastoptsolver_tpu_torch.ops import estimate_lipschitz_gram
+
+    Ac, bc = A - A.mean(dim=0), b - b.mean()
+    folds = cv._folds(Ac, bc, CV_FOLDS)
+    Q, c, btb = cv._train_grams(Ac, bc, folds)
+    gb = cv._grid(Q, c, btb, estimate_lipschitz_gram(Q),
+                  *cv._penalties(rk.alphas, folds.sizes, CV_M, 0.0, l1_ratio))
+    q_tf32 = ((gb.Q.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+    x_tf32 = fista_gram_batch(dataclasses.replace(gb, Q=q_tf32), cfg).x
+    x_a2 = fista_gram_batch(dataclasses.replace(gb, alpha2=gb.alpha2 * 1.01), cfg).x
+    gb64 = cv_grid64(A, b, rk.alphas, l1_ratio)
+    xk = cv_x(rk)
+    fk, _ = cv_lanes64(gb64, xk)
+    lanes = rk.converged_grid.reshape(-1)
+    out = {}
+    for name, X in (("tf32_q", x_tf32), ("alpha2_1pct_high", x_a2)):
+        f, _ = cv_lanes64(gb64, X)
+        out[name] = dict(max_rel_dobj=max_rel_dobj(fk, f, lanes), max_rel_dx=max_rel_dx(xk, X, lanes))
+    print("-- cv controls (faults held against the kernel route's x on the lanes it "
+          "certifies): " + ", ".join(f"{k}: max rel |dobj| {v['max_rel_dobj']:.3e}, max rel "
+                                      f"|dx| {v['max_rel_dx']:.3e}" for k, v in out.items()))
+    return out
 
 
 def cv_path(dev, mods) -> dict:
@@ -1515,7 +1569,7 @@ def cv_path(dev, mods) -> dict:
     from fastoptsolver_tpu_torch.batch import (
         BatchFISTAConfig, cv, cv_lasso, fista_gram_batch, lasso_path, solve_gram_batch)
     from fastoptsolver_tpu_torch.kernels import fista_vmem
-    from fastoptsolver_tpu_torch.ops import estimate_lipschitz_gram
+    from fastoptsolver_tpu_torch.ops import estimate_lipschitz_gram, lipschitz
     from fastoptsolver_tpu_torch.problems import LeastSquares
 
     A, b = cv_problem(dev)
@@ -1539,6 +1593,8 @@ def cv_path(dev, mods) -> dict:
             require(float(a2.max() / a2.min()) > 100.0, "cv enet: α₂ does not vary by lane")
         rx = cv_lasso(A, b, l1_ratio=l1_ratio, backend="xla", **kw)
         out[label] = dict(compare_cv(A, b, rk, rx, l1_ratio, label), launches=counts["burst"])
+        if l1_ratio < 1.0:
+            out[label]["controls"] = cv_controls(A, b, rk, l1_ratio, cfg)
         print(f"-- cv {label}: {lanes} lanes at n={CV_N}, burst launches {counts['burst']}")
         del rk, rx
 
@@ -1547,7 +1603,18 @@ def cv_path(dev, mods) -> dict:
     Ac, bc = A - A.mean(dim=0), b - b.mean()
     grams_ms, _, (Q_all, c_all, btb_all) = med_ms(
         lambda: cv._train_grams(Ac, bc, cv._folds(Ac, bc, CV_FOLDS)))
-    lip_ms, _, L_all = med_ms(lambda: estimate_lipschitz_gram(Q_all))
+    # the loop reads its stop on the host every _STOP_EVERY steps; beside it,
+    # in turns, a read every step (the masks make both the same bits)
+    every = lipschitz._STOP_EVERY
+    lip = {every: [], 1: []}
+    try:
+        for k in (every, 1, 1, every):
+            lipschitz._STOP_EVERY = k
+            ms, _, L_all = med_ms(lambda: estimate_lipschitz_gram(Q_all))
+            lip[k].append(ms)
+    finally:
+        lipschitz._STOP_EVERY = every
+    lip_ms, lip1_ms = median(lip[every]), median(lip[1])
     folds = cv._folds(Ac, bc, CV_FOLDS)
     alphas = cv._ladder(c_all[-1].abs().amax(), CV_ALPHAS, 1e-3, A.dtype)
     gb = cv._grid(Q_all, c_all, btb_all, L_all, *cv._penalties(alphas, folds.sizes, CV_M,
@@ -1563,7 +1630,7 @@ def cv_path(dev, mods) -> dict:
     print(f"[10 cv] cv_lasso at ({CV_M}, {CV_N}), {CV_FOLDS} folds × {CV_ALPHAS} alphas = "
           f"{(CV_FOLDS + 1) * CV_ALPHAS} lanes: {cv_ms:.3f} ms median of 3 (trials "
           f"{[round(x, 3) for x in cv_trials]}) = folds and Grams {grams_ms:.3f} + Lipschitz "
-          f"loop {lip_ms:.3f} + burst solve {solve_ms:.3f} (bound {bnd[0]:.4f} ms by {bnd[1]}; "
+          f"loop {lip_ms:.3f} (a stop read every step: {lip1_ms:.3f}) + burst solve {solve_ms:.3f} (bound {bnd[0]:.4f} ms by {bnd[1]}; "
           f"its twin {plain_ms:.3f}, the torch driver on the same grid {driver_ms:.3f}) | "
           f"burst launches lasso {out['lasso']['launches']}, enet "
           f"{out['enet']['launches']} | certified lasso {out['lasso']['certified']}, enet "
@@ -1580,6 +1647,7 @@ def cv_path(dev, mods) -> dict:
     print(f"-- lasso_path at ({CV_M}, {CV_N}): {n_p}/{alphas_p.numel()} certified, "
           f"{path_ms:.3f} ms, iters max {int(rp.iters.max())} (the torch driver, no kernel)")
     return dict(out, e2e_ms=cv_ms, trials_ms=cv_trials, grams_ms=grams_ms, lipschitz_ms=lip_ms,
+                lipschitz_every_step_ms=lip1_ms,
                 solve_ms=solve_ms, plain_ms=plain_ms, driver_ms=driver_ms, bound_ms=bnd[0],
                 bound_by=bnd[1], lanes=(CV_FOLDS + 1) * CV_ALPHAS,
                 n=CV_N, m=CV_M, lasso_path_ms=path_ms, lasso_path_certified=n_p)
@@ -1665,7 +1733,7 @@ def main() -> int:
     print("[3 kernel vs twin] small shapes ok")
 
     m = 1000
-    A, b, alpha1 = bench_problem(BATCH, m, dev)
+    A, b, alpha1 = headline.build_problems(torch.Generator(device=dev).manual_seed(0), BATCH, m)
     torch.cuda.synchronize()
     cfg = BatchFISTAConfig(max_iter=1000, check_every=25, rel_gap_tol=1e-6)
     res_k = solve_lasso_fused(A, b, alpha1, 0.0, cfg=cfg)

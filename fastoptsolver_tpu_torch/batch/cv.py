@@ -152,7 +152,7 @@ def _scores(folds: _Folds, X_folds: torch.Tensor, one_se_rule: bool):
 
 def _cv_core(A, b, alphas_in, k_folds: int, n_alphas: int, eps: float, alpha2,
              cfg: BatchFISTAConfig, one_se_rule: bool, l1_ratio: float = 1.0,
-             backend: str = "auto", interpret: bool = False) -> CVResult:
+             backend: str = "auto") -> CVResult:
     from .api import solve_gram_batch
 
     m, n = A.shape
@@ -166,7 +166,7 @@ def _cv_core(A, b, alphas_in, k_folds: int, n_alphas: int, eps: float, alpha2,
     L_all = estimate_lipschitz_gram(Q_all)
     a1_grid, a2_grid = _penalties(alphas, folds.sizes, m, alpha2, l1_ratio)
     gb = _grid(Q_all, c_all, btb_all, L_all, a1_grid, a2_grid)
-    res = solve_gram_batch(gb, cfg, backend=backend, interpret=interpret)
+    res = solve_gram_batch(gb, cfg, backend=backend)
 
     X = res.x.reshape(k_folds + 1, K, n)
     X_folds, X_full = X[:k_folds], X[k_folds]
@@ -205,7 +205,6 @@ def cv_lasso(
     l1_ratio: float = 1.0,
     backend: str = "auto",
     device=None,
-    interpret: bool = False,
 ) -> CVResult:
     """Cross-validated lasso (elastic-net with ``alpha2 > 0`` for a fixed
     extra ridge, or ``l1_ratio < 1`` for a ladder-tied elastic-net grid:
@@ -218,9 +217,9 @@ def cv_lasso(
     (recommended for ordered data); folds are contiguous row blocks after
     the shuffle. ``one_se_rule=True`` applies the one-standard-error
     selection. ``fit_intercept=True`` centers ``A``'s columns and ``b`` first
-    and reports the intercept for the refit coefficients. ``backend`` and
-    ``interpret`` are ``solve_gram_batch``'s: ``"auto"`` takes a kernel on a
-    CUDA tensor where the router's guards allow it.
+    and reports the intercept for the refit coefficients. ``backend`` is
+    ``solve_gram_batch``'s: ``"auto"`` takes a kernel on a CUDA tensor where
+    the router's guards allow it.
     """
     A = as_tensor(A, dtype, device)
     b = as_tensor(b, dtype, A.device)
@@ -239,7 +238,7 @@ def cv_lasso(
     if not 0.0 < l1_ratio <= 1.0:
         raise ValueError(f"l1_ratio must be in (0, 1], got {l1_ratio}")
     res = _cv_core(A, b, alphas, k_folds, n_alphas, eps, alpha2, cfg, one_se_rule,
-                   l1_ratio=float(l1_ratio), backend=backend, interpret=interpret)
+                   l1_ratio=float(l1_ratio), backend=backend)
     if fit_intercept:
         res = res._replace(intercept=mu_b - mu_A @ res.coef)
     return res

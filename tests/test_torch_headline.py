@@ -4,9 +4,7 @@ replaced by stand-ins) and its JSON record. The timing itself needs the card
 (``python -m fastoptsolver_tpu_torch.bench.headline``); without one the entry
 raises.
 """
-import importlib.util
 import json
-from pathlib import Path
 
 import pytest
 import torch
@@ -17,7 +15,6 @@ from fastoptsolver_tpu_torch.problems import generate_scenario_batch_fm
 
 torch.set_num_threads(1)
 
-ROOT = Path(__file__).resolve().parents[1]
 B, M = 256, 1000
 
 
@@ -52,12 +49,8 @@ def test_build_problems_follows_the_recipe(problem):
 
 
 def test_build_problems_is_chip_smokes_recipe_bit_for_bit(problem):
-    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
-    chip_smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(chip_smoke)
-    for made in (_recipe(B, M, "cpu"), chip_smoke.bench_problem(B, M, "cpu")):
-        for x, y in zip(problem, made):
-            assert torch.equal(x, y)
+    for x, y in zip(problem, _recipe(B, M, "cpu")):
+        assert torch.equal(x, y)
 
 
 def _fake_meas(n_conv=B):

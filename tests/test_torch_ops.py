@@ -156,6 +156,29 @@ def test_stacked_power_iteration_stops_each_problem_like_vmap(rng):
     assert float(out[0]) < float(run_on) - 1e-4
 
 
+@pytest.mark.parametrize("tol", [1e-2, 1e-6])
+def test_power_iteration_reads_the_stop_every_few_steps(rng, tol, monkeypatch):
+    """The stop test is read on the host once every ``_STOP_EVERY`` steps:
+    the same bits as a read every step, and at most ``_STOP_EVERY - 1``
+    extra matvecs past the last problem's stop."""
+    from fastoptsolver_tpu_torch.ops import lipschitz
+
+    n = 8
+    TQ = torch.from_numpy(np.stack([np.diag(np.r_[10.0, 8.0, np.ones(n - 2)]),
+                                    _f32(rng, 12, n).T @ _f32(rng, 12, n)]).astype(np.float32))
+    v0 = torch.from_numpy(_f32(rng, n)).expand(2, n)
+
+    def run(every):
+        calls = []
+        monkeypatch.setattr(lipschitz, "_STOP_EVERY", every)
+        L = _power_iteration(lambda v: (calls.append(1), (TQ @ v[..., None])[..., 0])[1],
+                             v0, 100, tol)
+        return L, len(calls)
+    (L1, steps1), (L10, steps10) = run(1), run(10)
+    assert torch.equal(L1, L10)
+    assert steps1 <= steps10 <= min(steps1 + 9, 100)
+
+
 def test_lipschitz_estimates_match_jax_and_eigvalsh(rng):
     A = _f32(rng, 50, 9)
     Q = A.T @ A

@@ -15,6 +15,8 @@ have noise σ = 3 beside a signal of norm ~4: with less noise bᵀb dwarfs the
 objective and the f32 gap's own rounding (its floor, in both packages) reaches
 2-3× the tolerance, where a lane certifies or not by its last bits.
 """
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -30,6 +32,7 @@ from fastoptsolver_tpu_torch.batch import (
     lasso_path,
     path_gram_batch,
 )
+from fastoptsolver_tpu_torch.batch import api
 from fastoptsolver_tpu_torch.kernels import fista_vmem
 from fastoptsolver_tpu_torch.problems import LeastSquares
 
@@ -114,17 +117,21 @@ def test_cv_matches_jax(cv_pairs, case):
 def test_cv_grid_through_the_burst_twin(monkeypatch, l1_ratio):
     """The grid through ``solve_gram_batch(..., interpret=True)``: the burst
     engine's plain twin, with α₂ varying by lane under the elastic-net
-    ladder, against the driver on the same data."""
+    ladder, against the driver on the same data. ``cv_lasso`` reaches the
+    router as ``api.solve_gram_batch``; the stand-in adds ``interpret=True``,
+    which a CPU tensor needs to take the kernel route."""
     A, b = _data(seed=1)
     launches = []
     twin = fista_vmem._burst_reference
+    route = api.solve_gram_batch
 
     def counted(*args, **kw):
         launches.append(args[2].shape)
         return twin(*args, **kw)
     monkeypatch.setattr(fista_vmem, "_burst_reference", counted)
+    monkeypatch.setattr(api, "solve_gram_batch", functools.partial(route, interpret=True))
     kw = dict(k_folds=K_FOLDS, n_alphas=N_ALPHAS, l1_ratio=l1_ratio, device="cpu")
-    rk = cv_lasso(A, b, backend="kernel", interpret=True, **kw)
+    rk = cv_lasso(A, b, backend="kernel", **kw)
     rx = cv_lasso(A, b, backend="xla", **kw)
     assert launches and all(s == (N, N, (K_FOLDS + 1) * N_ALPHAS) for s in launches)
     np.testing.assert_allclose(rk.mse_mean.numpy(), rx.mse_mean.numpy(), rtol=1e-5)
