@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port (fastoptsolver_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py      # one H100; a few minutes including the nvcc build
+    python3 chip_smoke.py      # one H100; about 7 minutes including the nvcc build
 
 Phases, one line each (``--`` lines are detail):
 
@@ -139,6 +139,33 @@ Phases, one line each (``--`` lines are detail):
    burst twin and the driver on the same grid beside it), and
    ``lasso_path`` on the same data (the torch driver; every lane
    certified, no kernel launched).
+11. solve — the single-problem layer, which reaches no kernel: ``solve``
+   with each of its nine methods at its defaults on the YearPredictionMSD
+   shape with AR(1) columns at ρ = 0.9 (``ar1_problem``; α₁ = 0.1·‖Aᵀb‖∞,
+   lbfgs as ridge with α₂ = α₁, svrg and saga cut to one epoch): route
+   (Gram or raw), iterations, ms (CUDA events, median of 3; cd one call),
+   µs a step; each method held at its ``SOLVE_HOLDS`` limit on the relative
+   objective difference and ‖x − x_ref‖∞/‖x_ref‖∞, fista, fista_delta, cd,
+   owlqn and lbfgs against CD's float64 optimum (lbfgs: the ridge closed
+   form), ista, svrg and saga against the same call in float64 on the
+   card, admm against the same call on the CPU (its float64 run printed);
+   each against a control with α 1% high that its hold must refuse, and
+   fista and admm also read on Q rounded to TF32 (printed); fista, ista and
+   cd also against the same call on the CPU (``SOLVE_CPU_RTOL``, the α-high
+   call refused); ``solve_batch`` on the
+   reference's 80 scenarios in float64 (fista, ista, lbfgs), every lane
+   against its single solve (``SWEEP_RTOL``, iterations equal), both
+   timed; ``compat`` in float32 on the card against float64 on the CPU and
+   ``LBFGSSolver`` against ``scipy.optimize.fmin_l_bfgs_b``
+   (``COMPAT_RTOL``); every kernel count stays 0 over these; then
+   ``bench.large_lasso.run`` at 131072 × 2048 for 500 iterations (ms an
+   iteration against its 0.641 ms bound, the read ceiling on A's bytes:
+   the stream kernel launches there) with the timed run's x held as the
+   table's are against the same iterations in float64 (``LARGE_HOLD``, an
+   α-high control refused). Phase 6 also
+   times batched ``torch.linalg.eigvalsh`` on ``POWER_LIB_LANES`` of its
+   Grams, the library call for ``gram_power``'s λ_max, between two
+   launches of the kernel on the same lanes.
 
 Phases 6-8 hold each engine against its twin on the path's own Grams, where
 lanes near the f32 floor certify or not by the gap's last bits, which kernel
@@ -149,8 +176,8 @@ they are held at B = 300 and rel_gap_tol 1e-5 in phase 3.
 
 Launch counts are set to 0 just before each main-path call (phase 4's solve,
 phase 4's ceiling measurement, phases 6, 7 and 8's solves, phase 9's solve
-per mode and its checkpointed run, phase 10's two CV calls and its path)
-and read just after it. The script then
+per mode and its checkpointed run, phase 10's two CV calls and its path,
+phase 11's solves) and read just after it. The script then
 prints the per-kernel JSON line (``ms`` is the kernel's own time: the fused
 and stream launches, the two build launches, and one certified solve of the
 burst, resident and Q-streaming engines; ``e2e_ms`` is the routed call;
@@ -162,14 +189,18 @@ for the build; the build's entry also gives ``gram_pairs`` and
 ``gram_power`` apart (``pairs_*``, ``power_*``); the burst entry its
 ``group_lanes``, ``smem_bytes``, ``q_bytes_per_launch`` and ``copy_in_ms``;
 the build's ``power_group_lanes``, ``power_smem_bytes``,
-``power_smem_read_gbps`` and ``power_smem_floor_ms``; the resident entry its
+``power_smem_read_gbps``, ``power_smem_floor_ms`` and ``power_library_ms``
+(batched ``eigvalsh`` on ``power_library_lanes`` lanes, with
+``power_turns_ms`` and the kernel's ``power_ms_at_library_lanes``); the resident entry its
 ``group_lanes``, ``smem_bytes``, ``smem_read_gbps``, ``lane_matvecs``,
 ``smem_floor_ms`` and the adaptive entry's phase-3 times
 (``adaptive_entry``); the Q-streaming entry its ``cluster_size``,
 ``smem_bytes``, ``active_clusters``, ``q_bytes_per_launch``, ``copy_in_ms``,
 ``relayout_ms`` and phase 8's other splits; the fused entry's
 ``modes`` holds phase 9's times; the burst entry's ``cv`` phase 10's
-launches, holds and times), the card's name and power limit, and,
+launches, holds and times; phase 11, which launches no kernel, prints its
+record on a ``-- solve record`` line of its own), the card's name and power
+limit, and,
 last, ``{"ok": true, "device": {...}}``. It exits non-zero, printing no
 result, when there is no CUDA device or any phase fails.
 """
@@ -209,6 +240,9 @@ POWER_WIDTHS = (1, 5, 31, 32, 33, 96, 113, 118)
 # bench/wide_n.py's first width: n = 96, m = 2n, B sized to a 2 GB Gram
 WIDE_N = 96
 WIDE_B = int(2e9 / (WIDE_N * WIDE_N * 4)) // 128 * 128  # 54144
+# the lanes of phase 6's Grams on which batched eigvalsh (gram_power's library
+# call) and the kernel are timed in turns
+POWER_LIB_LANES = 1024
 # the next widths of bench/wide_n.py's default list, each sized to a 2 GB Gram:
 # the resident window (W1) and the Q-streaming engine (W2)
 W1_N, W2_N = 128, 256
@@ -221,6 +255,49 @@ CV_M, CV_N, CV_FOLDS, CV_ALPHAS = 515345, 90, 5, 50
 # this Gram (≈ m·I) the objective moves with the square of an error in x, so x
 # is held too, each lane against the grid's largest |x| (``max_rel_dx``)
 CV_X_RTOL = 1e-5
+# phase 11: the single-problem layer on the YearPredictionMSD shape with AR(1)
+# columns at ρ = 0.9 (a condition number near 361, where phase 10's i.i.d.
+# columns give a Gram ≈ m·I that every solver leaves at once)
+SOLVE_M, SOLVE_N, SOLVE_RHO = CV_M, CV_N, 0.9
+SOLVE_METHODS = ("fista", "fista_delta", "ista", "cd", "admm", "owlqn", "lbfgs", "svrg", "saga")
+# svrg and saga at their defaults run 50 epochs of m // 128 = 4026 steps: cut to 1
+SOLVE_EPOCHS = 1
+
+# each method's hold, (|f(x) − f_ref|/|f_ref|, ‖x − x_ref‖∞/‖x_ref‖∞) with f the
+# float64 objective: the converging methods against the float64 optimum (lbfgs:
+# ridge, against the closed form), ista, svrg and saga against the same call in
+# float64 on the card, and admm against the same call on the CPU: its scaled
+# dual (≈ α₁/ρ ≈ 1.5e3 against |x| ≤ 5) puts z on float32's 1.2e-4 grid, so
+# its float32 path leaves float64's (PERF.md §6, PR 12). Each limit is near the
+# geometric mean of the largest sound reading and the smallest α-1%-high
+# control over the card's run and the CPU rehearsals at m and m/10 (readings
+# and controls in PERF.md §6, PR 12)
+SOLVE_AGAINST_F64_RUN = ("ista", "svrg", "saga")
+SOLVE_AGAINST_CPU_RUN = ("admm",)
+SOLVE_HOLDS = {"fista": (5e-8, 5e-4), "fista_delta": (5e-8, 5e-4), "cd": (7e-9, 1.2e-4),
+               "owlqn": (1.5e-7, 7e-4), "lbfgs": (4e-7, 2e-3),
+               "ista": (6e-7, 1.4e-4), "admm": (3e-5, 1e-4), "svrg": (1.1e-6, 1.5e-4),
+               "saga": (2e-5, 3.4e-4)}
+# the methods also read on Q rounded to TF32's mantissa (printed, not held)
+SOLVE_TF32_CONTROL = ("fista", "admm")
+# methods whose converged or float64 hold is also checked against the same call
+# on the CPU: x within this share of max |x|, between the card's readings
+# (≤ 8.0e-6) and the α-high call's (≥ 1.4e-3 in the CPU rehearsals)
+SOLVE_ON_CPU = ("fista", "ista", "cd")
+SOLVE_CPU_RTOL = 1e-4
+# solve_batch's lanes against their single solves, float64 (max |dx| over
+# max |x|; the CPU rehearsal: ≤ 1.7e-14)
+SWEEP_RTOL = 1e-10
+# bench.large_lasso at its default shape: iterations, and the timed run held as
+# the table is against the same iterations in float64 (the CPU rehearsals at
+# 8192 × 256 and 32768 × 1024: sound ≤ 3.7e-14 and ≤ 1.2e-7, the α-high
+# control ≥ 8.3e-6 and ≥ 1.17e-3)
+LARGE_ITERS = 500
+LARGE_HOLD = (5e-10, 1e-5)
+
+# compat in float32 on the card against float64 on the CPU (rel |dx| of max |x|,
+# and LBFGSSolver's objective against SciPy's; the CPU rehearsal: ≤ 5.3e-7)
+COMPAT_RTOL = 1e-5
 # the fused kernel's modes besides fixed momentum, run at the bench configuration
 FUSED_MODES = {"restart": dict(adaptive_restart=True), "greedy": dict(momentum="greedy"),
                "armijo": dict(backtracking=True),
@@ -1523,6 +1600,13 @@ def compare_cv(A, b, rk, rx, l1_ratio: float, label: str) -> dict:
                 max_rel_dx=dx, max_rel_dmse=dmse, best_idx=ik, refit_gap64=refit_gap64)
 
 
+def round_tf32(Q):
+    """Q as a TF32 matmul reads it: a 10-bit mantissa, rounded to nearest."""
+    import torch
+
+    return ((Q.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
 def cv_controls(A, b, rk, l1_ratio: float, cfg) -> dict:
     """Two faults the x hold must see and the objective hold may not: the
     torch driver on ``rk``'s grid with Q read as a TF32 matvec reads it (a
@@ -1543,8 +1627,7 @@ def cv_controls(A, b, rk, l1_ratio: float, cfg) -> dict:
     Q, c, btb = cv._train_grams(Ac, bc, folds)
     gb = cv._grid(Q, c, btb, estimate_lipschitz_gram(Q),
                   *cv._penalties(rk.alphas, folds.sizes, CV_M, 0.0, l1_ratio))
-    q_tf32 = ((gb.Q.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
-    x_tf32 = fista_gram_batch(dataclasses.replace(gb, Q=q_tf32), cfg).x
+    x_tf32 = fista_gram_batch(dataclasses.replace(gb, Q=round_tf32(gb.Q)), cfg).x
     x_a2 = fista_gram_batch(dataclasses.replace(gb, alpha2=gb.alpha2 * 1.01), cfg).x
     gb64 = cv_grid64(A, b, rk.alphas, l1_ratio)
     xk = cv_x(rk)
@@ -1651,6 +1734,343 @@ def cv_path(dev, mods) -> dict:
                 solve_ms=solve_ms, plain_ms=plain_ms, driver_ms=driver_ms, bound_ms=bnd[0],
                 bound_by=bnd[1], lanes=(CV_FOLDS + 1) * CV_ALPHAS,
                 n=CV_N, m=CV_M, lasso_path_ms=path_ms, lasso_path_certified=n_p)
+
+
+# ---- phase 11: the single-problem layer ----
+
+def ar1_problem(dev, m: int, n: int, rho: float):
+    """A tall float32 lasso table on the card from seed 0: columns AR(1)
+    correlated, a_j = ρ·a_{j−1} + √(1−ρ²)·z_j with z ~ N(0, 1) (corr(a_i,
+    a_j) = ρ^|i−j|), a 10%-sparse x_true with N(0, 9) entries, noise σ = 9.
+    Returns ``(A, b)``. Phase 11 uses it at the YearPredictionMSD shape with
+    ρ = 0.9; the CV cell's correlated columns (ROADMAP) can take it as it is."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(0)
+    Z = torch.randn((m, n), generator=g, device=dev)
+    A = torch.empty_like(Z)
+    A[:, 0] = Z[:, 0]
+    for j in range(1, n):
+        A[:, j] = rho * A[:, j - 1] + (1.0 - rho * rho) ** 0.5 * Z[:, j]
+    del Z
+    keep = torch.rand((n,), generator=g, device=dev) < 0.1
+    x_true = torch.where(keep, 3.0 * torch.randn((n,), generator=g, device=dev), 0.0)
+    b = A @ x_true + 9.0 * torch.randn((m,), generator=g, device=dev)
+    return A, b
+
+
+def hold_reading(x, x_ref, f_of, f_ref) -> dict:
+    """A solution's distance from a float64 yardstick: the relative objective
+    difference |f(x) − f_ref|/|f_ref| (f the float64 objective) and
+    ‖x − x_ref‖∞/‖x_ref‖∞."""
+    gap = abs(float(f_of(x.double())) - float(f_ref)) / abs(float(f_ref))
+    dx = float((x.double() - x_ref).abs().max() / x_ref.abs().max())
+    return dict(rel_gap=gap, rel_dx=dx)
+
+
+def passes(reading: dict, limit) -> bool:
+    return reading["rel_gap"] <= limit[0] and reading["rel_dx"] <= limit[1]
+
+
+def verdict(reading: dict, limit) -> str:
+    return (f"rel gap {reading['rel_gap']:.3e}, rel |dx| {reading['rel_dx']:.3e}, "
+            + ("passes" if passes(reading, limit) else "refused"))
+
+
+def solve_table(dev) -> dict:
+    """Phase 11's table: ``solve`` with each of its nine methods at its
+    defaults on the AR(1) table (lbfgs as ridge), timed and held at its
+    ``SOLVE_HOLDS`` limit: the converging methods against the float64
+    optimum, ista, svrg and saga against the same call in float64 on the
+    card, admm against the same call on the CPU. Each hold must refuse its
+    control, the same call with α 1% high; fista and admm also read the
+    solver on Q rounded to TF32 (printed). fista, ista and cd are also held
+    against the same call on the CPU, with the α-high call as that hold's
+    control."""
+    import dataclasses
+
+    import torch
+
+    from fastoptsolver_tpu_torch import api, solve, solvers
+    from fastoptsolver_tpu_torch.ops import relative_gap
+    from fastoptsolver_tpu_torch.problems import LeastSquares
+    from fastoptsolver_tpu_torch.solvers import CDConfig, certified_optimum
+
+    m, n = SOLVE_M, SOLVE_N
+    A, b = ar1_problem(dev, m, n, SOLVE_RHO)
+    a1 = float(0.1 * (A.T @ b).abs().max())
+    a2 = a1  # the ridge weight of lbfgs' run: the same scale as α₁
+    # the yardsticks, float64 on the card: CD's certified lasso optimum, the
+    # ridge closed form
+    p64 = LeastSquares.create(A, b, "lasso", a1, dtype=torch.float64)
+    g64 = p64.to_gram()
+    x_star, f_star = certified_optimum(g64, CDConfig(max_sweeps=5000, tol=1e-12))
+    gap_star = float(relative_gap(g64, x_star))
+    Q64, c64 = g64.Q, g64.c
+    xr_star = torch.linalg.solve(Q64 + a2 * torch.eye(n, dtype=Q64.dtype, device=dev), c64)
+    ridge_f = lambda x: (0.5 * (x @ (Q64 @ x)) - c64 @ x + 0.5 * g64.btb + 0.5 * a2 * (x @ x))
+    fr_star = ridge_f(xr_star)
+    torch.cuda.synchronize()
+    print(f"-- solve yardsticks (float64 on the card): lasso f* {float(f_star):.10g} from CD "
+          f"(relative gap {gap_star:.2e}, {int((x_star != 0).sum())} nonzeros of {n}); ridge "
+          f"f* {float(fr_star):.10g} from the closed form; α₁ = α₂ = {a1:.6g}")
+    require(gap_star <= 1e-10, f"solve: CD's float64 optimum has a relative gap {gap_star:.3e}")
+    g_tf32 = LeastSquares.create(A, b, "lasso", a1).to_gram()
+    g_tf32 = dataclasses.replace(g_tf32, Q=round_tf32(g_tf32.Q))
+
+    out = {}
+    for method in SOLVE_METHODS:
+        ridge = method == "lbfgs"
+        reg, key, a = ("ridge", "alpha2", a2) if ridge else ("lasso", "alpha1", a1)
+        kw = dict(epochs=SOLVE_EPOCHS) if method in ("svrg", "saga") else {}
+        call = lambda s=1.0, A=A, b=b, **d: solve(A, b, reg, method=method, **{key: a * s},
+                                                  **kw, **d)
+        if method == "cd":  # all 1000 sweeps in float32 (its move never falls
+            # below tol 1e-12), ~11-14 s on the card: one timed call, not a median of 3
+            ms, res = cuda_ms(call)
+            trials = [ms]
+        else:
+            ms, trials, res = med_ms(call)
+        iters = int(res.n_iters)
+        steps = iters * (m // 128) if method in ("svrg", "saga") else iters
+        require(bool(torch.isfinite(res.x).all()) and res.x.shape == (n,),
+                f"solve {method}: x not finite of shape ({n},)")
+        on_cpu = method in SOLVE_ON_CPU or method in SOLVE_AGAINST_CPU_RUN
+        x_cpu = call(A=A.cpu(), b=b.cpu()).x if on_cpu else None
+        if method in SOLVE_AGAINST_F64_RUN:
+            x_ref, f_of, against = call(dtype=torch.float64).x, g64.objective, "the float64 run"
+            f_ref = f_of(x_ref)
+        elif method in SOLVE_AGAINST_CPU_RUN:
+            x_ref, f_of, against = x_cpu.to(dev).double(), g64.objective, "the same call on the CPU"
+            f_ref = f_of(x_ref)
+        elif ridge:
+            x_ref, f_of, f_ref, against = xr_star, ridge_f, fr_star, "the ridge closed form"
+        else:
+            x_ref, f_of, f_ref, against = x_star, g64.objective, f_star, "the float64 optimum"
+        limit = SOLVE_HOLDS[method]
+        reading = hold_reading(res.x, x_ref, f_of, f_ref)
+        x_high = call(1.01).x
+        control = hold_reading(x_high, x_ref, f_of, f_ref)
+        row = dict(route="gram" if api.uses_gram(method, m, n) else "raw", iters=iters,
+                   steps=steps, ms=ms, trials_ms=trials, us_per_step=ms * 1e3 / max(steps, 1),
+                   against=against, limit=limit, control=control, **reading)
+        require(passes(reading, limit), f"solve {method}: {reading} beyond its limit {limit}")
+        require(not passes(control, limit),
+                f"solve {method}: the control (α 1% high) passes the hold: {control}")
+        note = f"control (α 1% high) {verdict(control, limit)}"
+        if method in SOLVE_TF32_CONTROL:
+            row["tf32_q"] = hold_reading(getattr(solvers, method)(g_tf32).x, x_ref, f_of, f_ref)
+            note += f"; control (Q rounded to TF32) {verdict(row['tf32_q'], limit)}"
+        if method in SOLVE_AGAINST_CPU_RUN:
+            x64 = call(dtype=torch.float64).x
+            row["f64_run"] = hold_reading(res.x, x64, g64.objective, g64.objective(x64))
+            note += (f" | the float64 run (not held): rel gap {row['f64_run']['rel_gap']:.3e}, "
+                     f"rel |dx| {row['f64_run']['rel_dx']:.3e}")
+        if method in SOLVE_ON_CPU:
+            dx = lambda x: float((x.cpu() - x_cpu).abs().max() / x_cpu.abs().max())
+            row.update(cpu_rel_dx=dx(res.x), cpu_control_rel_dx=dx(x_high))
+            require(row["cpu_rel_dx"] <= SOLVE_CPU_RTOL,
+                    f"solve {method}: card and CPU differ by {row['cpu_rel_dx']:.3e} of max |x|")
+            require(row["cpu_control_rel_dx"] > SOLVE_CPU_RTOL,
+                    f"solve {method}: the α-high call passes the CPU hold "
+                    f"({row['cpu_control_rel_dx']:.3e})")
+            note += (f" | card vs CPU {row['cpu_rel_dx']:.3e} of max |x| (limit "
+                     f"{SOLVE_CPU_RTOL:g}; control {row['cpu_control_rel_dx']:.3e}, refused)")
+        out[method] = row
+        print(f"-- solve {method:11s} {row['route']:4s} iters {iters:5d} ({steps} steps) "
+              f"{ms:9.3f} ms ({row['us_per_step']:9.3f} us a step; trials "
+              f"{[round(t, 3) for t in trials]}) | against {against}: rel gap "
+              f"{reading['rel_gap']:.3e}, rel |dx| {reading['rel_dx']:.3e}, held at {limit}; "
+              + note)
+    return out
+
+
+def scenario_sweep(dev) -> dict:
+    """``solve_batch`` over the reference's 80 scenarios (``scenario_grid``
+    through ``generate_scenario_batch``, m = 1000, n = 5, columns
+    standardized, the sweep's α₁ = 1.0 lasso, α₂ = 0.5 ridge for lbfgs), each
+    lane held against the same solver on its own problem with the same L:
+    x and the iteration count. In float64: in float32 L-BFGS's factr rule
+    fires on a decrease of an ulp, so a lane and its single solve, rounded
+    apart by the batched matmul, stop at other iterations (66 of 80 lanes in
+    the CPU rehearsal, x apart by up to 4.6%)."""
+    import torch
+
+    from fastoptsolver_tpu_torch import solvers
+    from fastoptsolver_tpu_torch.batch import batch_lipschitz, solve_batch, stack_problems
+    from fastoptsolver_tpu_torch.problems import (
+        LeastSquares, generate_scenario_batch, scenario_grid)
+
+    grid = scenario_grid()
+    B = len(grid)
+    A, b, _ = generate_scenario_batch(torch.Generator(device=dev).manual_seed(0), B, m=1000,
+                                      noise_std=[g[1] for g in grid],
+                                      rho1=[g[2] for g in grid], rho2=[g[3] for g in grid],
+                                      dtype=torch.float64)
+    A = (A - A.mean(1, keepdim=True)) / A.std(1, unbiased=False, keepdim=True)
+    out = {}
+    for method in ("fista", "ista", "lbfgs"):
+        reg, a1, a2 = ("ridge", 0.0, 0.5) if method == "lbfgs" else ("lasso", 1.0, 0.0)
+        probs = [LeastSquares.create(A[i], b[i], reg, a1, a2, dtype=torch.float64)
+                 for i in range(B)]
+        pb = stack_problems(probs)
+        L = batch_lipschitz(pb) if method != "lbfgs" else None
+        batch_ms, trials, res = med_ms(lambda: solve_batch(pb, method, L=L))
+        single = getattr(solvers, method)
+        kw = (lambda i: {}) if method == "lbfgs" else (lambda i: dict(L=L[i]))
+        singles_ms, ones = cuda_ms(lambda: [single(p, **kw(i)) for i, p in enumerate(probs)])
+        X1 = torch.stack([r.x for r in ones])
+        d = float(((res.x - X1).abs().amax(1) / X1.abs().amax(1)).max())
+        it_eq = bool(torch.equal(res.n_iters, torch.stack([r.n_iters for r in ones])))
+        out[method] = dict(batch_ms=batch_ms, trials_ms=trials, singles_ms=singles_ms,
+                           max_rel_dx=d, iters_equal=it_eq,
+                           iters_max=int(res.n_iters.max()))
+        print(f"-- solve_batch {method}: {B} lanes in {batch_ms:.3f} ms (trials "
+              f"{[round(t, 3) for t in trials]}) vs the {B} single calls {singles_ms:.3f} ms | "
+              f"each lane against its single solve: max rel |dx| {d:.3e} (limit "
+              f"{SWEEP_RTOL:g}), iterations equal {it_eq}, max {int(res.n_iters.max())}")
+        require(d <= SWEEP_RTOL and it_eq,
+                f"solve_batch {method}: lanes part from their single solves ({d:.3e}, "
+                f"iterations equal {it_eq})")
+    return out
+
+
+def large_lasso_hold(dev) -> dict:
+    """``bench.large_lasso.run`` at its default 131072 × 2048 for
+    ``LARGE_ITERS`` iterations: the timed run's x held against the same
+    iterations in float64 on the card from the same data and L
+    (``LARGE_HOLD``), with the float32 run at α₁ 1% high as the control."""
+    import dataclasses
+
+    import torch
+
+    from fastoptsolver_tpu_torch.bench import large_lasso
+    from fastoptsolver_tpu_torch.problems import LeastSquares
+    from fastoptsolver_tpu_torch.solvers import FISTAConfig, fista
+
+    rec, p32, x32 = large_lasso.run(iters=LARGE_ITERS)
+    cfg = FISTAConfig(max_iter=LARGE_ITERS)
+    x_high = fista(dataclasses.replace(p32, alpha1=p32.alpha1 * 1.01), cfg, L=rec["L"]).x
+    p64 = LeastSquares(A=p32.A.double(), b=p32.b.double(), alpha1=p32.alpha1.double(),
+                       alpha2=torch.zeros((), dtype=torch.float64, device=dev))
+    x64 = fista(p64, cfg, L=rec["L"]).x
+    f64 = p64.objective(x64)
+    reading = hold_reading(x32, x64, p64.objective, f64)
+    control = hold_reading(x_high, x64, p64.objective, f64)
+    print(f"[11 large lasso] {rec['m']} x {rec['n']} float32 ({rec['a_bytes'] / 2 ** 30:.2f} "
+          f"GiB), {LARGE_ITERS} iterations: {rec['seconds'] * 1e3:.3f} ms, "
+          f"{rec['iters_per_s']:.1f} iterations/s, {rec['ms_per_iter']:.4f} ms an iteration "
+          f"against the {rec['bound_ms_per_iter']:.4f} ms bound ({rec['pct_of_bound']:.1f}%), "
+          f"{rec['achieved_gbps']:.1f} GB/s = {rec['pct_of_ceiling']:.1f}% of the "
+          f"{rec['stream_ceiling_gbps']:.1f} GB/s read ceiling | Lipschitz loop "
+          f"{rec['lipschitz_seconds'] * 1e3:.3f} ms | the timed run against the float64 run: "
+          f"rel gap {reading['rel_gap']:.3e}, rel |dx| {reading['rel_dx']:.3e}, held at "
+          f"{LARGE_HOLD}; control (α 1% high) {verdict(control, LARGE_HOLD)}")
+    require(passes(reading, LARGE_HOLD), f"large lasso: {reading} beyond {LARGE_HOLD}")
+    require(not passes(control, LARGE_HOLD),
+            f"large lasso: the control (α 1% high) passes the hold: {control}")
+    del p32, p64, x64
+    torch.cuda.empty_cache()
+    return dict(rec, hold=reading, control=control, limit=LARGE_HOLD)
+
+
+def lasso_closures(A, b, a1: float, device):
+    """The reference ISTA's closures ``g``, ``grad_g`` and ``prox_h`` for the
+    lasso on ``(A, b)``, over torch tensors on ``device`` in the default dtype."""
+    import torch
+
+    At = torch.as_tensor(A, dtype=torch.get_default_dtype(), device=device)
+    bt = torch.as_tensor(b, dtype=torch.get_default_dtype(), device=device)
+    return (lambda x: 0.5 * ((At @ x - bt) @ (At @ x - bt)),
+            lambda x: At.T @ (At @ x - bt),
+            lambda v, t: torch.sign(v) * torch.clamp_min(torch.abs(v) - t * a1, 0.0))
+
+
+def compat_checks(dev) -> dict:
+    """``compat`` on ``generate_correlated_boston_like_data(m=1000)`` (columns
+    standardized) in the default float32 on the card: fista, fista_delta and
+    ista with histories against the same calls in float64 on the CPU, and
+    ``LBFGSSolver("ridge")``'s final objective against
+    ``scipy.optimize.fmin_l_bfgs_b``, the upstream's own call."""
+    import numpy as np
+    import torch
+    from scipy.optimize import fmin_l_bfgs_b
+
+    from fastoptsolver_tpu_torch import compat
+
+    A, b, _ = compat.generate_correlated_boston_like_data(m=1000)
+    A = (A - A.mean(0)) / A.std(0)
+    L = compat.estimate_lipschitz(A)
+    a1 = 0.5
+    runs = {
+        "fista": lambda **d: compat.fista(A, b, "lasso", a1, 0.0, max_iter=200,
+                                          return_history=True, **d),
+        "fista_delta": lambda **d: compat.fista_delta(A, b, "lasso", a1, 0.0, 3.0, max_iter=200,
+                                                      return_history=True, **d),
+        "ista": lambda **d: compat.ista(np.zeros(5), *lasso_closures(A, b, a1, d.get("device", dev)),
+                                        L, max_iter=200, return_history=True, **d),
+    }
+    out, x = {}, None
+    old = torch.get_default_dtype()
+    for name, run in runs.items():
+        x, hist = run()
+        torch.set_default_dtype(torch.float64)
+        try:
+            x64, _ = run(device="cpu")
+        finally:
+            torch.set_default_dtype(old)
+        out[name] = dict(rel_dx=float(np.abs(x - x64).max() / np.abs(x64).max()),
+                         **{f"history_{k}": len(v) for k, v in hist.items()})
+
+    def fg(z):
+        r = A @ z - b
+        return 0.5 * r @ r + 0.5 * z @ z, A.T @ r + z
+
+    _, f_sp, _ = fmin_l_bfgs_b(fg, np.zeros(5))
+    solver = compat.LBFGSSolver("ridge", 0.0, 1.0).fit(A, b)
+    rel = abs(solver.final_obj_ - f_sp) / abs(f_sp)
+    out["lbfgs"] = dict(final_obj=solver.final_obj_, scipy_obj=float(f_sp), rel=rel,
+                        iters=len(solver.history_))
+    ok = (out["fista"]["history_x"] == 201 and out["fista"]["history_obj"] == 200
+          and out["fista_delta"]["history_x"] == 200 and out["fista_delta"]["history_obj"] == 200
+          and out["ista"]["history_x"] == 201
+          and out["ista"]["history_t"] == 201 and out["ista"]["history_delta"] == 200
+          and max(out[k]["rel_dx"] for k in ("fista", "fista_delta", "ista")) <= COMPAT_RTOL
+          and rel <= COMPAT_RTOL and x.dtype == np.float32)
+    print(f"-- compat (float32 on the card vs float64 on the CPU, rel |dx| of max |x|): fista "
+          f"{out['fista']['rel_dx']:.3e} (history x {out['fista']['history_x']}, obj "
+          f"{out['fista']['history_obj']}), fista_delta {out['fista_delta']['rel_dx']:.3e} "
+          f"(history x {out['fista_delta']['history_x']}), ista {out['ista']['rel_dx']:.3e} "
+          f"(history x {out['ista']['history_x']}, t {out['ista']['history_t']}, delta "
+          f"{out['ista']['history_delta']}) | LBFGSSolver ridge final objective "
+          f"{solver.final_obj_:.10g} vs scipy fmin_l_bfgs_b {f_sp:.10g}: rel {rel:.3e} "
+          f"({len(solver.history_)} iterations) | limit {COMPAT_RTOL:g}")
+    require(ok, f"compat: {out}")
+    return out
+
+
+def solve_path(dev, mods) -> dict:
+    """Phase 11: the single-problem layer on the card. No hand-written
+    kernel is on this path: every count stays 0 over the solves; the
+    large-lasso bench's read ceiling launches the stream kernel after them."""
+    t0 = time.perf_counter()
+    zero_counts(mods)
+    table = solve_table(dev)
+    sweep = scenario_sweep(dev)
+    comp = compat_checks(dev)
+    import torch
+
+    torch.cuda.synchronize()
+    counts = {k: m.LAUNCHES for k, m in mods.items()}
+    require(sum(counts.values()) == 0, f"phase 11 launched kernels: {counts}")
+    large = large_lasso_hold(dev)
+    print(f"[11 solve] AR(1) table ({SOLVE_M}, {SOLVE_N}), ρ = {SOLVE_RHO}: nine methods "
+          f"held ({len(SOLVE_AGAINST_F64_RUN)} against their float64 runs, "
+          f"{len(SOLVE_AGAINST_CPU_RUN)} against its CPU run), each control "
+          f"refused; solve_batch on 80 "
+          f"scenarios; compat; large lasso {large['pct_of_bound']:.1f}% of its bound | kernel "
+          f"launches over the solves {counts} | {time.perf_counter() - t0:.1f} s")
+    return dict(table=table, sweep=sweep, compat=comp, large_lasso=large, launches=counts)
 
 
 def main() -> int:
@@ -1899,6 +2319,23 @@ def main() -> int:
     build_ms, build_trials, _ = med_ms(lambda: gram_build._launch(Aw, bw, 96))
     pairs_ms, pairs_trials, (Qw, cw, _, _) = med_ms(lambda: gram_build._launch(Aw, bw, 0))
     power_ms, _, _ = med_ms(lambda: gram_build._launch_power(Qw, cw, 96))
+    # the library's function for the same λ_max, exact where the kernel runs 96
+    # power steps: batched eigvalsh, about 1.3 ms a lane (a minute on all of
+    # them), so timed on the first POWER_LIB_LANES lanes in turns with the
+    # kernel on the same lanes (kernel, library, kernel)
+    Qs = Qw[:, :, :POWER_LIB_LANES].contiguous()
+    cs = cw[:, :POWER_LIB_LANES].contiguous()
+    Qb = Qs.permute(2, 0, 1).contiguous()
+    power_turns = []
+    for fn in (lambda: gram_build._launch_power(Qs, cs, 96),
+               lambda: torch.linalg.eigvalsh(Qb)[..., -1],
+               lambda: gram_build._launch_power(Qs, cs, 96)):
+        power_turns.append(cuda_ms(fn))
+    power_lib_ms, lam_exact = power_turns[1]
+    lam_dev = float(((power_turns[0][1] - lam_exact).abs() / lam_exact).max())
+    power_at_lib_lanes_ms = (power_turns[0][0] + power_turns[2][0]) / 2
+    del Qs, cs, Qb, lam_exact
+    power_turns = [round(t[0], 3) for t in power_turns]
     build_plain_ms, _, _ = med_ms(lambda: gram_build.gram_build_reference(Aw, bw, 96))
     pairs_plain_ms, _, _ = med_ms(lambda: augmented_gram(Aw, bw))
     power_plain_ms, _, _ = med_ms(lambda: power_lambda_max(make_matvec(Qw, WIDE_N), cw, 96))
@@ -1994,7 +2431,10 @@ def main() -> int:
           f"burst solve {bounds['burst'][0]:.3f} ms by {bounds['burst'][1]}")
     print(f"-- gram_power at n={nw}: {power_group} lanes a CTA, {power_smem} bytes of shared "
           f"memory; its matvecs read {power_smem_read / 1e9:.1f} GB of Q from shared memory "
-          f"at {power_smem_gbps:.1f} GB/s (the shared-memory floor {power_floor_ms:.3f} ms)")
+          f"at {power_smem_gbps:.1f} GB/s (the shared-memory floor {power_floor_ms:.3f} ms) | "
+          f"the library's exact λ_max, batched torch.linalg.eigvalsh, in turns with the "
+          f"kernel on the first {POWER_LIB_LANES} lanes (kernel, library, kernel): "
+          f"{power_turns} ms; the kernel's 96 power steps within {lam_dev:.3e} of it")
 
     # ---- 7 and 8: the resident and Q-streaming paths, counted, then timed ----
     w1 = resident_path(dev, cfg, mods)
@@ -2009,6 +2449,11 @@ def main() -> int:
 
     # ---- 10: cross-validation through the burst kernel, counted, held, timed ----
     cv_out = cv_path(dev, mods)
+    torch.cuda.empty_cache()
+
+    # ---- 11: the single-problem layer: solve, solve_batch, compat, large lasso ----
+    solve_out = solve_path(dev, mods)
+    print("-- solve record " + json.dumps(solve_out))
 
     kernels = [
         {"name": "fused_lasso_solve", "route": "cuda", "source": FUSED_SRC,
@@ -2034,7 +2479,11 @@ def main() -> int:
          "power_bound_ms": bounds["power"][0], "power_bound_by": bounds["power"][1],
          "power_group_lanes": power_group, "power_smem_bytes": power_smem,
          "power_smem_read_gbps": power_smem_gbps, "power_smem_floor_ms": power_floor_ms,
-         "power_max_rel_dlam": power_rel},
+         "power_max_rel_dlam": power_rel, "power_library_ms": power_lib_ms,
+         "power_library": "torch.linalg.eigvalsh(Q)[..., -1] (exact λ_max)",
+         "power_library_lanes": POWER_LIB_LANES,
+         "power_ms_at_library_lanes": power_at_lib_lanes_ms,
+         "power_turns_ms": power_turns, "power_rel_to_exact": lam_dev},
         {"name": "fista_burst", "route": "cuda", "source": BURST_SRC,
          "replaces": "fastoptsolver_tpu/kernels/fista_vmem.py:92",
          "launches": launches["burst"], "max_abs_err": errs["burst"],

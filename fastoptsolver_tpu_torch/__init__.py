@@ -45,7 +45,8 @@ if (_os.environ.get("FOS_MATMUL_PRECISION", "highest") != "default"
     _torch.backends.cudnn.allow_tf32 = False
     _torch.set_float32_matmul_precision("highest")
 
-from . import batch, kernels, ops, problems  # noqa: E402
+from . import batch, kernels, ops, problems, solvers  # noqa: E402
+from .api import solve  # noqa: E402
 from .batch import (  # noqa: E402
     BatchFISTAConfig,
     BatchResult,
@@ -65,5 +66,15 @@ from .problems import (  # noqa: E402
     GramLeastSquares,
     LogisticRegression,
     CustomProblem,
+    generate_boston_like,
+    generate_scenario_batch,
     generate_scenario_batch_fm,
+)
+from .solvers import (  # noqa: E402
+    ISTAConfig,
+    FISTAConfig,
+    ista,
+    fista,
+    fista_with_history,
+    fista_delta_config,
 )

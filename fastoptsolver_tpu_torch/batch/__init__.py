@@ -1,6 +1,12 @@
-"""Instance-batched lasso: the torch Gram-form driver, the routed surface,
-regularization paths and cross-validation."""
-from .api import solve_gram_batch, solve_lasso_batch
+"""Instance-batched solving: the torch Gram-form driver, the routed surface,
+stacked single-problem solves, regularization paths and cross-validation."""
+from .api import (
+    batch_lipschitz,
+    solve_batch,
+    solve_gram_batch,
+    solve_lasso_batch,
+    stack_problems,
+)
 from .fista_gram import (
     BatchFISTAConfig,
     BatchResult,
@@ -14,6 +20,9 @@ from .path import lasso_path, alpha_ladder, alpha_max_for, path_gram_batch
 from .cv import cv_lasso, CVResult
 
 __all__ = [
+    "stack_problems",
+    "solve_batch",
+    "batch_lipschitz",
     "cv_lasso",
     "CVResult",
     "BatchFISTAConfig",

@@ -1,7 +1,8 @@
-"""The routed batched-lasso surface (port of the routing in
-``fastoptsolver_tpu/batch/api.py``: ``_kernel_route``, ``solve_gram_batch``,
-``solve_lasso_batch``, ``_resume_lasso_batch``, ``_solve_resident_routed``
-and ``_build_gram_routed``).
+"""The routed batched-lasso surface and the stacked single-problem solves
+(port of ``fastoptsolver_tpu/batch/api.py``: ``_kernel_route``,
+``solve_gram_batch``, ``solve_lasso_batch``, ``_resume_lasso_batch``,
+``_solve_resident_routed``, ``_build_gram_routed``, and ``stack_problems``,
+``batch_lipschitz``, ``solve_batch``).
 
 Routing follows the reference's "guards decide" rule, in its order:
 
@@ -377,3 +378,84 @@ def _resume_lasso_batch(A, b, alpha1, alpha2, cfg, backend, feature_major,
         f"state0 must be a FusedSolveState, ResidentSolveState, "
         f"VmemSolveState, or BatchState; got {type(state0).__name__}"
     )
+
+
+# ---------------------------------------------------------------------------
+# Stacked single-problem solves (the reference's vmapped ``solve_batch``)
+# ---------------------------------------------------------------------------
+
+
+def stack_problems(problems):
+    """Stack structurally identical problems (dataclasses of tensors) into
+    one problem of the same class whose tensors lead with the batch axis;
+    the fields that are not tensors must agree and are kept."""
+    first = problems[0]
+    fields = {}
+    for f in dataclasses.fields(first):
+        v = getattr(first, f.name)
+        if isinstance(v, torch.Tensor):
+            fields[f.name] = torch.stack([getattr(p, f.name) for p in problems])
+        elif any(getattr(p, f.name) != v for p in problems):
+            raise ValueError(f"problems differ in their static field '{f.name}'")
+    return dataclasses.replace(first, **fields)
+
+
+def batch_lipschitz(problem_batch, generator: torch.Generator | None = None,
+                    n_iter: int = 100, tol: float = 1e-6) -> torch.Tensor:
+    """Per-problem Lipschitz constants of a stacked least-squares batch:
+    the power iteration with each problem's own start vector (B rows drawn
+    from ``generator``, by default one seeded with 0 on the batch's device)
+    and its own stop, as ``jax.vmap(lipschitz_for)`` over split keys runs it;
+    plus α₂ where the ridge term is in the smooth part."""
+    from ..ops.lipschitz import _power_iteration
+
+    if hasattr(problem_batch, "Q"):
+        M = problem_batch.Q
+        matvec = lambda v: (M @ v[..., None])[..., 0]
+    else:
+        M = problem_batch.A
+        matvec = lambda v: (M.mT @ (M @ v[..., None]))[..., 0]
+    B, n = M.shape[0], M.shape[-1]
+    if generator is None:
+        generator = torch.Generator(device=M.device).manual_seed(0)
+    v0 = torch.randn((B, n), generator=generator, dtype=M.dtype,
+                     device=generator.device).to(M.device)
+    L = _power_iteration(matvec, v0, n_iter, tol)
+    if getattr(problem_batch, "ridge_in_smooth", True):
+        L = L + getattr(problem_batch, "alpha2", 0.0)
+    return L
+
+
+def solve_batch(problem_batch, method: str = "fista", config=None, history: bool = False,
+                L=None, generator: torch.Generator | None = None):
+    """Solve a stacked batch of problems in lockstep: each step of the
+    single-problem solver runs under ``torch.func.vmap`` over the batch, the
+    loop outside it, every problem frozen at its own stop, so each lane
+    follows its own single solve.
+
+    ``method`` ∈ {"fista", "ista", "lbfgs"}; ``config`` the matching config
+    dataclass. ``L`` may give per-problem Lipschitz constants (lbfgs ignores
+    it); without it they come from :func:`batch_lipschitz` with
+    ``generator``. Returns a ``SolveResult`` whose tensors lead with the
+    batch axis."""
+    from ..solvers.common import Run
+    from ..solvers.fista import FISTAConfig, _solve as fista_solve, init_state
+    from ..solvers.ista import ISTAConfig, _solve as ista_solve, init_state as ista_init
+    from ..solvers.lbfgs import LBFGSConfig, _solve as lbfgs_solve
+
+    solvers = {"fista": FISTAConfig, "ista": ISTAConfig, "lbfgs": LBFGSConfig}
+    if method not in solvers:
+        raise ValueError(f"Unknown method '{method}' (want one of {list(solvers)})")
+    if config is None:
+        config = solvers[method]()
+    run = Run(problem_batch, batched=True)
+    if method == "lbfgs":
+        return lbfgs_solve(run, config, None, history)
+    x = run(lambda p: p.x0())
+    if L is None:
+        L = batch_lipschitz(problem_batch, generator)
+    L = torch.as_tensor(L, dtype=x.dtype, device=x.device)
+    tau0 = config.t_init_factor / L
+    if method == "fista":
+        return fista_solve(run, config, init_state(None, config, x, tau0), L, history)
+    return ista_solve(run, config, ista_init(x, tau0), L, history)

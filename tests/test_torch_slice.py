@@ -248,7 +248,12 @@ def test_import_adds_no_jax_module():
             "fastoptsolver_tpu_torch.ops.lipschitz", "fastoptsolver_tpu_torch.ops.gap",
             "fastoptsolver_tpu_torch.ops.objective", "fastoptsolver_tpu_torch.problems.base",
             "fastoptsolver_tpu_torch.problems.least_squares",
-            "fastoptsolver_tpu_torch.bench.headline"} <= set(modules)
+            "fastoptsolver_tpu_torch.bench.headline", "fastoptsolver_tpu_torch.api",
+            "fastoptsolver_tpu_torch.compat", "fastoptsolver_tpu_torch.bench.large_lasso",
+            "fastoptsolver_tpu_torch.problems.generators"} | {
+        f"fastoptsolver_tpu_torch.solvers.{m}" for m in (
+            "common", "ista", "fista", "cd", "lbfgs", "owlqn", "admm", "svrg", "saga")
+    } <= set(modules)
     code = f"""
 import importlib, sys
 BLOCKED = ("jax", "jaxlib", "fastoptsolver_tpu")
