@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port (fastoptsolver_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py      # one H100; about 7 minutes including the nvcc build
+    python3 chip_smoke.py      # one H100; about 8 minutes including the nvcc build
 
 Phases, one line each (``--`` lines are detail):
 
@@ -162,7 +162,20 @@ Phases, one line each (``--`` lines are detail):
    iteration against its 0.641 ms bound, the read ceiling on A's bytes:
    the stream kernel launches there) with the timed run's x held as the
    table's are against the same iterations in float64 (``LARGE_HOLD``, an
-   α-high control refused). Phase 6 also
+   α-high control refused).
+12. estimators — the estimator surface on phase 11's table, moved once to
+   NumPy float64: ``LassoCV(cv=5, n_alphas=50)`` and
+   ``ElasticNetCV(l1_ratio=[0.5, 0.9], n_alphas=50)`` through the burst
+   kernel (its bursts a ``cv_lasso`` call and the lanes certified after
+   each, more than one burst required, every other engine 0), held against
+   the torch driver (``EST_CV_HOLD``) and against the same estimator in
+   float64 on the CPU (``EST_FIT_HOLD``), each against its controls, the
+   fit timed and split; the plain estimators (``EST_PLAIN_HOLDS``), the
+   problem families through fista (``EST_FAMILY_HOLDS``), a sparse lasso
+   at LIBSVM E2006-tfidf's shape (``SPARSE_HOLD``, ms an iteration against
+   its bound) and the generalized lasso (``GENLASSO_HOLDS``), each against
+   its float64 yardstick with a control refused; no kernel launches there.
+   Phase 6 also
    times batched ``torch.linalg.eigvalsh`` on ``POWER_LIB_LANES`` of its
    Grams, the library call for ``gram_power``'s λ_max, between two
    launches of the kernel on the same lanes.
@@ -177,7 +190,7 @@ they are held at B = 300 and rel_gap_tol 1e-5 in phase 3.
 Launch counts are set to 0 just before each main-path call (phase 4's solve,
 phase 4's ceiling measurement, phases 6, 7 and 8's solves, phase 9's solve
 per mode and its checkpointed run, phase 10's two CV calls and its path,
-phase 11's solves) and read just after it. The script then
+phase 11's solves, phase 12's fits) and read just after it. The script then
 prints the per-kernel JSON line (``ms`` is the kernel's own time: the fused
 and stream launches, the two build launches, and one certified solve of the
 burst, resident and Q-streaming engines; ``e2e_ms`` is the routed call;
@@ -198,8 +211,10 @@ the build's ``power_group_lanes``, ``power_smem_bytes``,
 ``smem_bytes``, ``active_clusters``, ``q_bytes_per_launch``, ``copy_in_ms``,
 ``relayout_ms`` and phase 8's other splits; the fused entry's
 ``modes`` holds phase 9's times; the burst entry's ``cv`` phase 10's
-launches, holds and times; phase 11, which launches no kernel, prints its
-record on a ``-- solve record`` line of its own), the card's name and power
+launches, holds and times, its ``estimators`` phase 12's CV part and the
+entry's ``launches`` phase 12's bursts too; phases 11 and 12 print their
+records on ``-- solve record`` and ``-- estimators record`` lines of their
+own), the card's name and power
 limit, and,
 last, ``{"ok": true, "device": {...}}``. It exits non-zero, printing no
 result, when there is no CUDA device or any phase fails.
@@ -294,6 +309,51 @@ SWEEP_RTOL = 1e-10
 # control ≥ 8.3e-6 and ≥ 1.17e-3)
 LARGE_ITERS = 500
 LARGE_HOLD = (5e-10, 1e-5)
+
+# phase 12: the estimator surface on phase 11's AR(1) table, moved once to NumPy
+# float64 as a user's table arrives. Each hold is (relative objective, relative
+# x) as phase 11's, its limit near the geometric mean of the largest sound
+# reading and the smallest control reading over the CPU rehearsal and the card
+# (readings in PERF.md §6). (a) LassoCV and ElasticNetCV: the kernel
+# route against the torch driver on lanes both certify, and the fit against
+# float64 on the CPU (mse_path_ over its least entry, coef_ over its largest,
+# intercept_ over std(y), the float64 mean MSE at the card's choice over its
+# minimum)
+EST_L1_RATIOS = (0.5, 0.9)
+EST_CV_HOLD = (5e-8, 4e-4)
+# selection has no control reading (the ladder 1% high chooses alike): its limit
+# lets the card choose an α whose float64 MSE is within 0.01% of the least
+EST_FIT_HOLD = {"mse_path": 1e-4, "coef": 7.4e-5, "intercept": 4e-8, "selection": 1e-4}
+# (b) the plain estimators against their float64 yardsticks, (c) the problem
+# families through fista against the same solve in float64
+EST_PLAIN_HOLDS = {"lasso": (3e-9, 1e-4), "elasticnet": (4e-9, 1.5e-4), "ridge": (7e-7, 2e-3),
+                   "lasso_positive": (2e-10, 4e-5), "lasso_weighted": (2e-9, 7e-5),
+                   "multitask": (5e-10, 4e-5)}
+EST_FAMILY_HOLDS = {"nnls": (3e-10, 4e-5), "group": (2.5e-9, 7e-5), "box": (5e-8, 2.5e-4),
+                    "slope": (4e-8, 2.4e-4), "weighted": (2e-9, 4.5e-5), "huber": (8e-9, 4e-5),
+                    "quantile": (8e-7, 1e-4), "poisson": (1.6e-7, 4e-5)}
+# fista's iterations a family (500, its default, unless named): the quantile
+# loss's clip, of slope 1/μ = 10, amplifies rounding through the momentum, so
+# its float32 and float64 runs part past ~200 iterations (x 5e-6 apart at 100,
+# 6e-5 at 200, 2e-3 at 500 in the CPU rehearsal); Poisson's Armijo search, the
+# reference's rule (τ never grows), collapses τ by iteration ~15-20 on this table
+# in both precisions (to 1e-16 in float64), and the runs part after it
+EST_FAMILY_ITERS = {"quantile": 100, "poisson": 10}
+# (d) a sparse lasso at the shape of LIBSVM's E2006-tfidf regression set (16,087 ×
+# 150,360), 1% of entries stored, 500 FISTA iterations against float64
+SPARSE_M, SPARSE_N, SPARSE_DENSITY, SPARSE_ITERS = 16087, 150360, 0.01, 500
+SPARSE_HOLD = (5e-9, 8e-5)
+# (e) the generalized lasso: fused lasso on the table (ρ the mean eigenvalue of
+# AᵀA, 2000 iterations, its default); TV denoising and trend
+# filtering on a piecewise signal of GENLASSO_N samples at the reference tests'
+# λ and ADMM's defaults (ρ = 1, 5000 iterations). The objective difference is
+# read but its limit set loose: on a flat stretch the f32 x carries rounding
+# noise that λ‖Dx‖₁ sums (the CPU rehearsal at n = 4096: TV's sound run 4.6e-5,
+# its control 5.3e-5), so x is the measure that refuses the controls
+GENLASSO_N = 4096
+GENLASSO_LAM = {"tv_denoise": 2.0, "trend_filter": 10.0}
+GENLASSO_HOLDS = {"fused_lasso": (4.4e-7, 3.5e-4), "tv_denoise": (1e-3, 8.9e-5),
+                  "trend_filter": (1e-3, 1.4e-4)}
 
 # compat in float32 on the card against float64 on the CPU (rel |dx| of max |x|,
 # and LBFGSSolver's objective against SciPy's; the CPU rehearsal: ≤ 5.3e-7)
@@ -2073,6 +2133,609 @@ def solve_path(dev, mods) -> dict:
     return dict(table=table, sweep=sweep, compat=comp, large_lasso=large, launches=counts)
 
 
+# ---- phase 12: the estimator surface, the problem families, sparse, genlasso ----
+
+def burst_recorder(calls: list):
+    """A stand-in for ``fista_vmem._launch_burst`` that launches it and keeps
+    each launch's gap row; a launch at iteration 0 opens a new solve in
+    ``calls``. Returns ``(install, remove)``."""
+    from fastoptsolver_tpu_torch.kernels import fista_vmem
+
+    launch = fista_vmem._launch_burst
+
+    def recorded(*args, **kw):
+        out = launch(*args, **kw)
+        if args[1] == 0:
+            calls.append([])
+        calls[-1].append(out[-1][0].clone())
+        return out
+
+    def install():
+        fista_vmem._launch_burst = recorded
+
+    def remove():
+        fista_vmem._launch_burst = launch
+    return install, remove
+
+
+def certified_by_burst(gaps, tol: float) -> list:
+    """Lanes certified after each burst of one solve (a lane certifies at the
+    first burst whose gap is ≤ ``tol``, as ``_solve_on_device`` counts)."""
+    done, out = None, []
+    for g in gaps:
+        ok = g <= tol
+        done = ok if done is None else done | ok
+        out.append(int(done.sum()))
+    return out
+
+
+def est_cv_grid(Ap, bp, alphas, l1_ratio: float, cfg, scale: float = 1.0, tf32: bool = False):
+    """The f32 CV grid of ``cv_lasso(fit_intercept=True)`` on rows already
+    permuted, by ``batch.cv``'s own rules; α₁ (and the ladder's α₂) times
+    ``scale``, Q rounded to TF32 if asked: the controls' grids."""
+    import dataclasses
+
+    from fastoptsolver_tpu_torch.batch import cv
+    from fastoptsolver_tpu_torch.ops import estimate_lipschitz_gram
+
+    Ac, bc = Ap - Ap.mean(dim=0), bp - bp.mean()
+    folds = cv._folds(Ac, bc, CV_FOLDS)
+    Q, c, btb = cv._train_grams(Ac, bc, folds)
+    gb = cv._grid(Q, c, btb, estimate_lipschitz_gram(Q),
+                  *cv._penalties(alphas * scale, folds.sizes, Ap.shape[0], 0.0, l1_ratio))
+    return dataclasses.replace(gb, Q=round_tf32(gb.Q)) if tf32 else gb
+
+
+def est_cv_reading(gb64, rk, fk, X, lanes) -> dict:
+    """``X`` (lanes, n) against the kernel route's x on ``lanes``: the
+    float64 objective on the grid ``gb64`` (``fk`` the kernel route's) and
+    x (``max_rel_dobj``, ``max_rel_dx``)."""
+    f, _ = cv_lanes64(gb64, X)
+    return dict(max_rel_dobj=max_rel_dobj(fk, f, lanes), max_rel_dx=max_rel_dx(cv_x(rk), X, lanes))
+
+
+def est_cv_passes(r: dict) -> bool:
+    return r["max_rel_dobj"] <= EST_CV_HOLD[0] and r["max_rel_dx"] <= EST_CV_HOLD[1]
+
+
+def est_fit_reading(mse_by_ratio: dict, fit, ratio: float, fits64: dict, Xp, yp) -> dict:
+    """A CV fit's attributes against the float64 fits on the CPU (``fits64``,
+    one a ratio): every ratio's ``mse_path_`` (max |Δ| over the least MSE),
+    and at the fit's chosen (ratio, α index) its ``coef_`` (over the largest
+    |coef|), ``intercept_`` (over std(y)) and the float64 mean MSE there over
+    the float64 minimum (``selection``: 0 where both choose alike)."""
+    import numpy as np
+
+    mse = max(float(np.abs(mse_by_ratio[r] - f.mse_path_).max() / f.mse_path_.min())
+              for r, f in fits64.items())
+    e64 = fits64[ratio]
+    idx = int(np.argmin(mse_by_ratio[ratio].mean(1)))
+    c64 = e64.coef_path_[idx]
+    best64 = min(float(f.mse_path_.mean(1).min()) for f in fits64.values())
+    return dict(
+        mse_path=mse, coef=float(np.abs(fit.coef_ - c64).max() / np.abs(c64).max()),
+        intercept=abs(fit.intercept_ - float(np.mean(yp) - np.mean(Xp, 0) @ c64)) / float(np.std(yp)),
+        selection=(float(e64.mse_path_.mean(1)[idx]) - best64) / best64, alpha_index=idx)
+
+
+def est_fit_passes(r: dict) -> bool:
+    return all(r[k] <= v for k, v in EST_FIT_HOLD.items())
+
+
+def est_fit_line(r: dict) -> str:
+    return (f"max |dmse_path_| / min mse {r['mse_path']:.3e}, coef_ {r['coef']:.3e} of max |coef|, "
+            f"intercept_ {r['intercept']:.3e} of std(y), selection {r['selection']:.3e} "
+            f"(α index {r['alpha_index']})")
+
+
+def est_cv(dev, mods, A, b, X, y, perm, iid_cv_ms=None) -> dict:
+    """Phase 12 (a): ``LassoCV`` and ``ElasticNetCV`` on the AR(1) table, the
+    burst kernel counted and read burst by burst; each ``cv_lasso`` call of
+    the fit repeated directly (the estimator's attributes are its bits), held
+    against the torch driver on the same grid (``EST_CV_HOLD``, with an
+    α₁-1%-high and a TF32-Q control), the fitted attributes against the same
+    estimator in float64 on the CPU, and the fit timed and split, the
+    ``cv_lasso`` call beside phase 10's on i.i.d. columns (``iid_cv_ms``)."""
+    import numpy as np
+    import torch
+
+    from fastoptsolver_tpu_torch import ElasticNetCV, LassoCV
+    from fastoptsolver_tpu_torch.batch import (
+        BatchFISTAConfig, cv_lasso, fista_gram_batch, solve_gram_batch)
+    from fastoptsolver_tpu_torch.kernels import fista_vmem
+    from fastoptsolver_tpu_torch.problems.base import as_tensor
+
+    # the CV estimators' grid configuration (estimators._CVRegressor._cv)
+    cfg = BatchFISTAConfig(max_iter=2000, check_every=25, rel_gap_tol=1e-7)
+    Ap, bp = A[perm], b[perm]
+    perm_np = perm.cpu().numpy()
+    Xp, yp = X[perm_np], y[perm_np]
+    out = {}
+    for label, cls, ratios in (("lassocv", LassoCV, (1.0,)),
+                               ("enetcv", ElasticNetCV, EST_L1_RATIOS)):
+        kw = dict(cv=CV_FOLDS, n_alphas=CV_ALPHAS)
+        if cls is ElasticNetCV:
+            kw["l1_ratio"] = list(ratios)
+        make = lambda **d: cls(**kw, **d)
+        calls = []
+        install, remove = burst_recorder(calls)
+        zero_counts(mods)
+        install()
+        try:
+            est = make().fit(X, y)
+            torch.cuda.synchronize()
+        finally:
+            remove()
+        counts = {k: m.LAUNCHES for k, m in mods.items()}
+        bursts = [len(c) for c in calls]
+        cert = [certified_by_burst(c, cfg.rel_gap_tol) for c in calls]
+        lanes_n = (CV_FOLDS + 1) * CV_ALPHAS
+        print(f"-- {label}: burst launches {counts['burst']} over {len(calls)} cv_lasso "
+              f"call(s), bursts a call {bursts}; lanes certified (of {lanes_n}) after each "
+              f"burst: {cert}")
+        require(len(calls) == len(ratios) and counts["burst"] == sum(bursts)
+                and sum(counts.values()) == counts["burst"],
+                f"{label}: launches {counts} over {len(calls)} cv_lasso calls (want the burst "
+                f"kernel in each of {len(ratios)}, every other engine 0)")
+        require(min(bursts) > 1,
+                f"{label}: a cv_lasso call certified every lane in one burst ({bursts}): the "
+                "AR(1) table is not doing its job")
+        row = dict(launches=counts["burst"], bursts=bursts, certified_by_burst=cert, ratios={})
+        for r in ratios:
+            gen = lambda: torch.Generator(device=dev).manual_seed(0)
+            ckw = dict(k_folds=CV_FOLDS, n_alphas=CV_ALPHAS, eps=1e-3, cfg=cfg,
+                       fit_intercept=True, l1_ratio=r)
+            rk = cv_lasso(A, b, generator=gen(), **ckw)
+            rx = cv_lasso(A, b, generator=gen(), backend="xla", **ckw)
+            i = ratios.index(r)
+            mse = est.mse_path_[i] if len(ratios) > 1 else est.mse_path_
+            require(np.array_equal(mse, rk.mse_path.double().cpu().numpy().T),
+                    f"{label} ratio {r}: the estimator's mse_path_ is not its cv_lasso call's")
+            # lanes both routes certify at the same iteration: there the two x
+            # differ by rounding alone (a lane certified a burst apart differs by
+            # a burst's progress, up to sqrt(2·gap·f/λ_min) ≈ 4e-3 of |x| here)
+            both_any = (rk.converged_grid & rx.converged_grid).reshape(-1)
+            both = both_any & (rk.iters == rx.iters).reshape(-1)
+            gb64 = cv_grid64(Ap, bp, rk.alphas, r)
+            fk, _ = cv_lanes64(gb64, cv_x(rk))
+            reading = est_cv_reading(gb64, rk, fk, cv_x(rx), both)
+            mine = rk.converged_grid.reshape(-1)
+            controls = {}
+            for name, kwc in (("alpha1_1pct_high", dict(scale=1.01)), ("tf32_q", dict(tf32=True))):
+                gbc = est_cv_grid(Ap, bp, rk.alphas, r, cfg, **kwc)
+                controls[name] = est_cv_reading(gb64, rk, fk, fista_gram_batch(gbc, cfg).x, mine)
+                del gbc
+            del gb64
+            ck, cx = int(rk.converged_grid.sum()), int(rx.converged_grid.sum())
+            print(f"-- {label} ratio {r}: kernel route vs the torch driver (same generator): "
+                  f"certified {ck}/{lanes_n} vs {cx}/{lanes_n}; on {int(both.sum())} lanes both "
+                  f"certify at the same iteration (of {int(both_any.sum())} both certify) max rel "
+                  f"|dobj| {reading['max_rel_dobj']:.3e}, max rel |dx| "
+                  f"{reading['max_rel_dx']:.3e}, held at {EST_CV_HOLD} | controls on the "
+                  f"kernel's certified lanes: " + ", ".join(
+                      f"{k} dobj {v['max_rel_dobj']:.3e} dx {v['max_rel_dx']:.3e} "
+                      f"({'passes' if est_cv_passes(v) else 'refused'})"
+                      for k, v in controls.items()))
+            require(both.sum() > 0 and est_cv_passes(reading),
+                    f"{label} ratio {r}: the kernel route disagrees with the torch driver: {reading}")
+            require(not any(est_cv_passes(v) for v in controls.values()),
+                    f"{label} ratio {r}: a control passes the hold: {controls}")
+            row["ratios"][r] = dict(hold=reading, controls=controls, certified=ck,
+                                    driver_certified=cx, held_lanes=int(both.sum()),
+                                    both_certified=int(both_any.sum()),
+                                    iters_max=int(rk.iters.max()))
+            if r == 1.0:
+                lasso_alphas = rk.alphas
+            del rk, rx
+
+        t_f64 = time.perf_counter()
+        # the fitted attributes against float64 on the CPU, on the same folds
+        # (rows permuted here as the card's generator permuted them); the
+        # control: the card's fit on each ratio's ladder 1% high
+        mse_of = lambda e, i: e.mse_path_[i] if e.mse_path_.ndim == 3 else e.mse_path_
+        fits64, highs = {}, {}
+        for i, r in enumerate(ratios):
+            one = dict(l1_ratio=r) if cls is ElasticNetCV else {}
+            fits64[r] = cls(**dict(kw, **one, shuffle_seed=None, dtype=torch.float64,
+                                   device="cpu")).fit(Xp, yp)
+            ladder = est.alphas_[i] if est.alphas_.ndim == 2 else est.alphas_
+            highs[r] = cls(**dict(kw, **one, alphas=1.01 * ladder)).fit(X, y)
+        ratio = getattr(est, "l1_ratio_", 1.0)
+        reading64 = est_fit_reading({r: mse_of(est, i) for i, r in enumerate(ratios)},
+                                    est, ratio, fits64, Xp, yp)
+        control64 = est_fit_reading({r: highs[r].mse_path_ for r in ratios}, highs[ratio], ratio,
+                                    fits64, Xp, yp)
+        print(f"-- {label} against float64 on the CPU: alpha_ {est.alpha_:.6g} vs "
+              f"{float(fits64[ratio].alpha_):.6g}, l1_ratio_ {ratio}; " + est_fit_line(reading64)
+              + f" | limits {EST_FIT_HOLD} | control (ladder 1% high) " + est_fit_line(control64)
+              + (" passes" if est_fit_passes(control64) else " refused"))
+        require(est_fit_passes(reading64), f"{label}: the card's fit leaves the float64 fit: "
+                f"{reading64}")
+        require(not est_fit_passes(control64), f"{label}: the control passes: {control64}")
+        row.update(float64=reading64, float64_control=control64,
+                   float64_seconds=time.perf_counter() - t_f64)
+        del fits64, highs
+
+        # time the fit, and its parts: the copy to the card, the cv_lasso calls
+        fit_ms, fit_trials, _ = med_ms(lambda: make().fit(X, y))
+        copy_ms, _, _ = med_ms(lambda: (as_tensor(X, torch.float32, dev),
+                                        as_tensor(y, torch.float32, dev)))
+        cv_ms = 0.0
+        for r in ratios:
+            ms, _, _ = med_ms(lambda: cv_lasso(
+                A, b, k_folds=CV_FOLDS, n_alphas=CV_ALPHAS, eps=1e-3, cfg=cfg, fit_intercept=True,
+                l1_ratio=r, generator=torch.Generator(device=dev).manual_seed(0)))
+            cv_ms += ms
+        # each cv_lasso call of the fit copies the table to the card
+        copies = len(ratios) * copy_ms
+        row.update(fit_ms=fit_ms, fit_trials_ms=fit_trials, copy_ms=copies, cv_lasso_ms=cv_ms,
+                   host_ms=fit_ms - copies - cv_ms)
+        print(f"-- {label} fit {fit_ms:.3f} ms median of 3 (trials "
+              f"{[round(t, 3) for t in fit_trials]}) = host→card copy {len(ratios)} × "
+              f"{copy_ms:.3f} + cv_lasso on the card {cv_ms:.3f} ({len(ratios)} call(s)) + host "
+              f"{row['host_ms']:.3f} (phase 10's cv_lasso on i.i.d. columns: "
+              f"{'not run' if iid_cv_ms is None else f'{iid_cv_ms:.3f} ms'}) | the float64 fits "
+              f"on the CPU and the controls {row['float64_seconds']:.1f} s")
+        out[label] = row
+        del est
+
+    # the lasso grid's solve alone: the multi-burst kernel beside its bound
+    gb = est_cv_grid(Ap, bp, lasso_alphas, 1.0, cfg)
+    zero_counts(mods)
+    res = solve_gram_batch(gb, cfg)
+    torch.cuda.synchronize()
+    launches = fista_vmem.LAUNCHES
+    solve_ms, solve_trials, _ = med_ms(lambda: solve_gram_batch(gb, cfg))
+    B = gb.c.shape[1]
+    bnd = bound(4 * (CV_N * CV_N * B + 2 * CV_N * B + 6 * B),
+                solve_ops(CV_N, B * int(res.n_iters_total), cfg.check_every))
+    out["solve"] = dict(ms=solve_ms, trials_ms=solve_trials, launches=launches,
+                        iters=int(res.n_iters_total), certified=int(res.converged.sum()),
+                        bound_ms=bnd[0], bound_by=bnd[1], lanes=B)
+    print(f"-- lassocv grid solve alone (solve_gram_batch, {B} lanes, n={CV_N}): {solve_ms:.3f} ms "
+          f"median of 3 (trials {[round(t, 3) for t in solve_trials]}), {launches} burst "
+          f"launches, {int(res.n_iters_total)} iterations, certified {int(res.converged.sum())}"
+          f"/{B} | bound {bnd[0]:.4f} ms by {bnd[1]}")
+    return out
+
+
+def est_alpha(Xc, yc) -> float:
+    """sklearn's α for phase 11's α₁ = 0.1·‖Xcᵀyc‖∞ on the centered table:
+    α₁ = n_samples·α."""
+    import numpy as np
+
+    return float(0.1 * np.abs(Xc.T @ yc).max() / Xc.shape[0])
+
+
+def est_plain(dev, X, y, Y, w) -> dict:
+    """Phase 12 (b): the plain estimators on the table, each against its
+    float64 yardstick (CD's certified optimum for the L1 fits, the closed
+    form for Ridge, the same estimator in float64 on the card for the
+    positive and multi-task fits) at its ``EST_PLAIN_HOLDS`` limit, with the
+    fit at α 1% high as the control; µs a step."""
+    import numpy as np
+    import torch
+
+    from fastoptsolver_tpu_torch import ElasticNet, Lasso, MultiTaskLasso, Ridge
+    from fastoptsolver_tpu_torch.problems import (
+        LeastSquares, MultiTaskLeastSquares, NonNegativeLeastSquares)
+    from fastoptsolver_tpu_torch.solvers import CDConfig, certified_optimum
+
+    m = X.shape[0]
+    Xc, yc = X - X.mean(0), y - y.mean()
+    alpha = est_alpha(Xc, yc)
+    a1 = m * alpha
+    wn = w * (m / w.sum())
+    Xw = X - np.average(X, 0, weights=wn)
+    yw = y - np.average(y, weights=wn)
+    Xw, yw = Xw * np.sqrt(wn)[:, None], yw * np.sqrt(wn)
+    t = lambda v: torch.as_tensor(v, dtype=torch.float64, device=dev)
+
+    def cd_optimum(Xd, yd, reg, a1_, a2_=0.0):
+        g = LeastSquares.create(t(Xd), t(yd), reg, a1_, a2_, dtype=torch.float64).to_gram()
+        g_cpu = type(g)(*(v.cpu() for v in (g.Q, g.c, g.btb, g.alpha1, g.alpha2)))
+        x, f = certified_optimum(g_cpu, CDConfig(max_sweeps=5000, tol=1e-12))
+        return x.to(dev), g.objective, f.to(dev)
+
+    Q64 = t(Xc).T @ t(Xc)
+    c64 = t(Xc).T @ t(yc)
+    ridge_f = lambda x: 0.5 * (x @ (Q64 @ x)) - c64 @ x + 0.5 * float(yc @ yc) + 0.5 * a1 * (x @ x)
+    xr = torch.linalg.solve(Q64 + a1 * torch.eye(X.shape[1], dtype=torch.float64, device=dev), c64)
+    Yc = Y - Y.mean(0)
+    cases = {
+        "lasso": (lambda s: Lasso(alpha=alpha * s), {}, lambda: cd_optimum(Xc, yc, "lasso", a1)),
+        "elasticnet": (lambda s: ElasticNet(alpha=alpha * s, l1_ratio=0.5), {},
+                       lambda: cd_optimum(Xc, yc, "elasticnet", a1 / 2, a1 / 2)),
+        "ridge": (lambda s: Ridge(alpha=a1 * s), {}, lambda: (xr, ridge_f, ridge_f(xr))),
+        "lasso_positive": (lambda s, **d: Lasso(alpha=alpha * s, positive=True, **d), {}, None),
+        "lasso_weighted": (lambda s: Lasso(alpha=alpha * s), dict(sample_weight=w),
+                           lambda: cd_optimum(Xw, yw, "lasso", a1)),
+        "multitask": (lambda s, **d: MultiTaskLasso(alpha=alpha * s, **d), {}, None),
+    }
+    out = {}
+    for name, (make, fit_kw, yard) in cases.items():
+        target = Y if name == "multitask" else y
+        ms, est = cuda_ms(lambda: make(1.0).fit(X, target, **fit_kw))
+        high = make(1.01).fit(X, target, **fit_kw)
+        if yard is not None:
+            x_ref, f_of, f_ref = yard()
+            against = "the closed form" if name == "ridge" else "CD's float64 optimum"
+        else:  # the same estimator in float64 on the card, its objective
+            e64 = make(1.0, dtype=torch.float64, device=dev).fit(X, target, **fit_kw)
+            if name == "multitask":
+                p64 = MultiTaskLeastSquares.create(t(Xc), t(Yc), alpha1=a1, dtype=torch.float64)
+                x_ref = t(e64.coef_.T)
+            else:
+                p64 = NonNegativeLeastSquares.create(t(Xc), t(yc), alpha1=a1, dtype=torch.float64)
+                x_ref = t(e64.coef_)
+            f_of, f_ref, against = p64.objective, p64.objective(x_ref), "its float64 run"
+        coef = lambda e: t(e.coef_.T if name == "multitask" else e.coef_)
+        reading = hold_reading(coef(est), x_ref, f_of, f_ref)
+        control = hold_reading(coef(high), x_ref, f_of, f_ref)
+        limit = EST_PLAIN_HOLDS[name]
+        steps = max(int(est.n_iter_), 1)
+        out[name] = dict(reading, control=control, limit=limit, ms=ms, iters=int(est.n_iter_),
+                         us_per_step=ms * 1e3 / steps, against=against)
+        print(f"-- {name:14s} iters {int(est.n_iter_):5d} {ms:9.3f} ms ({ms * 1e3 / steps:8.3f} us "
+              f"a step) | against {against}: rel gap {reading['rel_gap']:.3e}, rel |dx| "
+              f"{reading['rel_dx']:.3e}, held at {limit}; control (α 1% high) "
+              f"{verdict(control, limit)}")
+        require(passes(reading, limit), f"estimator {name}: {reading} beyond {limit}")
+        require(not passes(control, limit), f"estimator {name}: the control passes: {control}")
+    return out
+
+
+def est_families(dev, A, b) -> dict:
+    """Phase 12 (c): each problem family through ``fista`` on the table in
+    float32, held against the same solve in float64 (``EST_FAMILY_HOLDS``),
+    α at 0.1·‖∇g(0)‖∞ for each family's own loss, the control the same solve
+    with α 1% high (the box: its bounds 1% wider); µs a step."""
+    import dataclasses
+
+    import torch
+
+    from fastoptsolver_tpu_torch import problems as P
+    from fastoptsolver_tpu_torch.ops import lipschitz_for
+    from fastoptsolver_tpu_torch.solvers import FISTAConfig, fista
+
+    m, n = A.shape
+    g = torch.Generator(device=dev).manual_seed(12)
+    w = 0.5 + 1.5 * torch.rand((m,), generator=g, device=dev)
+    keep = torch.rand((n,), generator=g, device=dev) < 0.1
+    x_p = torch.where(keep, torch.randn((n,), generator=g, device=dev), 0.0)
+    x_p = x_p * (3.0 / (A @ x_p).abs().max())  # |A·x_p| ≤ 3
+    counts = torch.poisson(torch.exp(A @ x_p), generator=g)
+    bh = P.slope_lambda_bh(n, device=dev, dtype=torch.float32)
+
+    def grad0_inf(p):
+        return float(p.smooth_grad(p.x0()).abs().max())
+
+    fams = {
+        "nnls": lambda a, s: P.NonNegativeLeastSquares.create(A, b, alpha1=a * s),
+        "group": lambda a, s: P.GroupLassoLeastSquares.create(A, b, alpha_g=a * s, group_size=9),
+        "box": lambda a, s: P.BoxConstrainedLeastSquares.create(A, b, lower=-1.0 * s, upper=1.0 * s),
+        "slope": lambda a, s: P.SlopeLeastSquares.create(A, b, lam=bh / bh[0] * a * s),
+        "weighted": lambda a, s: P.WeightedLeastSquares.create(A, b, w, "lasso", alpha1=a * s),
+        "huber": lambda a, s: P.HuberRegression.create(A, b, delta=9.0, alpha1=a * s),
+        "quantile": lambda a, s: P.QuantileRegression.create(A, b, tau=0.5, mu=0.1, alpha1=a * s),
+        "poisson": lambda a, s: P.PoissonRegression.create(A, counts, alpha1=a * s),
+    }
+    to64 = lambda p: dataclasses.replace(p, **{
+        f.name: getattr(p, f.name).double() for f in dataclasses.fields(p)
+        if isinstance(getattr(p, f.name), torch.Tensor)})
+    out = {}
+    for name, make in fams.items():
+        a = 0.1 * grad0_inf(make(0.0, 1.0))
+        cfg = FISTAConfig(backtracking=name == "poisson", max_iter=EST_FAMILY_ITERS.get(name, 500))
+        p = make(a, 1.0)
+        L = lipschitz_for(p)  # one L for the three runs: they differ by rounding alone
+        ms, res = cuda_ms(lambda: fista(p, cfg, L=L))
+        r64 = fista(to64(p), cfg, L=L.double())
+        high = fista(make(a, 1.01), cfg, L=L)
+        f_of = to64(p).objective
+        reading = hold_reading(res.x, r64.x, f_of, f_of(r64.x))
+        control = hold_reading(high.x, r64.x, f_of, f_of(r64.x))
+        limit = EST_FAMILY_HOLDS[name]
+        steps = int(res.n_iters)
+        out[name] = dict(reading, control=control, limit=limit, ms=ms, iters=steps,
+                         us_per_step=ms * 1e3 / steps, alpha=a, ls_trials=int(res.metrics.ls_iters_total))
+        print(f"-- family {name:8s} α {a:.6g} iters {steps} {ms:9.3f} ms ({ms * 1e3 / steps:8.3f} "
+              f"us a step) | against its float64 run: rel gap {reading['rel_gap']:.3e}, rel |dx| "
+              f"{reading['rel_dx']:.3e}, held at {limit}; control ("
+              f"{'bounds 1% wider' if name == 'box' else 'α 1% high'}) {verdict(control, limit)}")
+        require(bool(torch.isfinite(res.x).all()), f"family {name}: x not finite")
+        require(passes(reading, limit), f"family {name}: {reading} beyond {limit}")
+        require(not passes(control, limit), f"family {name}: the control passes: {control}")
+    return out
+
+
+def sparse_problem(dev, m: int, n: int, density: float, seed: int = 0):
+    """A float32 CSR design made on the card from ``seed``: ``density``·m·n
+    entries at uniform positions (duplicates summed), N(0, 1) values; b from
+    a 1%-sparse x_true (N(0, 1) entries) plus noise σ = 0.1."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    nnz = int(density * m * n)
+    rows = torch.randint(m, (nnz,), generator=g, device=dev)
+    cols = torch.randint(n, (nnz,), generator=g, device=dev)
+    vals = torch.randn((nnz,), generator=g, device=dev)
+    A = torch.sparse_coo_tensor(torch.stack([rows, cols]), vals, (m, n)).coalesce()
+    del rows, cols, vals
+    keep = torch.rand((n,), generator=g, device=dev) < 0.01
+    x_true = torch.where(keep, torch.randn((n,), generator=g, device=dev), 0.0)
+    b = torch.mv(A, x_true) + 0.1 * torch.randn((m,), generator=g, device=dev)
+    return A, b
+
+
+def est_sparse(dev) -> dict:
+    """Phase 12 (d): ``SparseLeastSquares`` at LIBSVM E2006-tfidf's shape,
+    ``SPARSE_ITERS`` FISTA iterations in float32 held against the same run in
+    float64 on the card (``SPARSE_HOLD``; α 1% high the control), ms an
+    iteration against its bound: A's and Aᵀ's values and indices read once
+    an iteration each at 3.35 TB/s."""
+    import dataclasses
+
+    import torch
+
+    from fastoptsolver_tpu_torch.problems import SparseLeastSquares
+    from fastoptsolver_tpu_torch.solvers import FISTAConfig, fista
+
+    m, n = SPARSE_M, SPARSE_N
+    A, b = sparse_problem(dev, m, n, SPARSE_DENSITY)
+    p0 = SparseLeastSquares.create(A, b)
+    del A
+    a1 = float(0.1 * (p0.At @ b).abs().max())
+    p = dataclasses.replace(p0, alpha1=p0.alpha1.new_tensor(a1))
+    L = p.lipschitz()
+    cfg = FISTAConfig(max_iter=SPARSE_ITERS)
+    ms, res = cuda_ms(lambda: fista(p, cfg, L=L))
+    p64 = SparseLeastSquares.create(p.A.to(torch.float64), b.double(), "lasso", a1,
+                                    dtype=torch.float64)
+    x64 = fista(p64, cfg, L=L.double()).x
+    high = fista(dataclasses.replace(p, alpha1=p.alpha1 * 1.01), cfg, L=L).x
+    reading = hold_reading(res.x, x64, p64.objective, p64.objective(x64))
+    control = hold_reading(high, x64, p64.objective, p64.objective(x64))
+    idx_bytes = p.A.col_indices().element_size()
+    a_bytes = p.nnz * (4 + idx_bytes) + (m + 1) * idx_bytes
+    at_bytes = p.nnz * (4 + idx_bytes) + (n + 1) * idx_bytes
+    bound_ms = (a_bytes + at_bytes) / PEAK_BYTES_PER_S * 1e3
+    it_ms = ms / SPARSE_ITERS
+    out = dict(reading, control=control, limit=SPARSE_HOLD, m=m, n=n, nnz=p.nnz,
+               density=p.density, ms=ms, ms_per_iter=it_ms, bound_ms_per_iter=bound_ms,
+               pct_of_bound=100.0 * bound_ms / it_ms, nonzeros=int((res.x != 0).sum()))
+    print(f"-- sparse {m} x {n}, {p.nnz} stored entries (density {p.density:.5f}), CSR with Aᵀ "
+          f"its own CSR: {SPARSE_ITERS} FISTA iterations {ms:.3f} ms, {it_ms:.4f} ms an iteration "
+          f"against the {bound_ms:.4f} ms bound ({out['pct_of_bound']:.1f}%) | against its "
+          f"float64 run: rel gap {reading['rel_gap']:.3e}, rel |dx| {reading['rel_dx']:.3e}, "
+          f"held at {SPARSE_HOLD}; control (α 1% high) {verdict(control, SPARSE_HOLD)} | "
+          f"{out['nonzeros']} nonzeros in x")
+    require(passes(reading, SPARSE_HOLD), f"sparse: {reading} beyond {SPARSE_HOLD}")
+    require(not passes(control, SPARSE_HOLD), f"sparse: the control passes: {control}")
+    return out
+
+
+def piecewise_signal(dev, n: int):
+    """A float32 piecewise-linear signal of ``n`` samples (8 segments of
+    random level and slope, seed 3) plus N(0, 0.3²) noise, on the card."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(3)
+    t = torch.arange(n, device=dev, dtype=torch.float32) / n
+    knots = torch.sort(torch.rand((7,), generator=g, device=dev)).values
+    seg = torch.bucketize(t, knots)
+    level = torch.randn((8,), generator=g, device=dev)
+    slope = 4.0 * torch.randn((8,), generator=g, device=dev)
+    y = level[seg] + slope[seg] * (t - torch.cat([t.new_zeros(1), knots])[seg])
+    return y + 0.3 * torch.randn((n,), generator=g, device=dev)
+
+
+def est_genlasso(dev, A, b) -> dict:
+    """Phase 12 (e): ``fused_lasso`` on the table (ρ the mean eigenvalue of
+    AᵀA, α_fuse = α₁ = 0.1·‖Aᵀb‖∞, α_sparse = α₁/10), ``tv_denoise`` and
+    ``trend_filter(order=2)`` on a piecewise signal of ``GENLASSO_N``
+    samples at ``GENLASSO_LAM``, each in float32 held against its float64
+    run on the card (``GENLASSO_HOLDS``), the penalty 1% high the control."""
+    import numpy as np
+    import torch
+
+    from fastoptsolver_tpu_torch.solvers import (
+        GenLassoConfig, difference_matrix, fused_lasso, trend_filter, tv_denoise)
+
+    n = A.shape[1]
+    a1 = float(0.1 * (A.T @ b).abs().max())
+    rho = float(torch.trace(A.T @ A) / n)
+    y = piecewise_signal(dev, GENLASSO_N)
+    t = lambda v: torch.as_tensor(v, dtype=torch.float64, device=dev)
+    D_fused = t(np.vstack([difference_matrix(n, 1, np.float64), np.eye(n)]))
+    w_fused = t(np.concatenate([np.full(n - 1, a1), np.full(n, 0.1 * a1)]))
+    A64, b64, y64 = A.double(), b.double(), y.double()
+    Ds = {name: t(difference_matrix(GENLASSO_N, order, np.float64))
+          for name, order in (("tv_denoise", 1), ("trend_filter", 2))}
+    objective = {
+        "fused_lasso": lambda x: (0.5 * ((A64 @ x - b64) ** 2).sum()
+                                  + (w_fused * (D_fused @ x).abs()).sum()),
+        **{name: (lambda x, name=name: 0.5 * ((x - y64) ** 2).sum()
+                  + GENLASSO_LAM[name] * (Ds[name] @ x).abs().sum()) for name in Ds},
+    }
+    calls = {
+        "fused_lasso": lambda s=1.0, dtype=torch.float32: fused_lasso(
+            A, b, alpha_fuse=a1 * s, alpha_sparse=0.1 * a1 * s, config=GenLassoConfig(rho=rho),
+            dtype=dtype),
+        "tv_denoise": lambda s=1.0, dtype=torch.float32: tv_denoise(
+            y, GENLASSO_LAM["tv_denoise"] * s, dtype=dtype),
+        "trend_filter": lambda s=1.0, dtype=torch.float32: trend_filter(
+            y, GENLASSO_LAM["trend_filter"] * s, order=2, dtype=dtype),
+    }
+    out = {}
+    for name, call in calls.items():
+        ms, res = cuda_ms(call)
+        high = call(1.01)
+        x64 = call(dtype=torch.float64).x
+        f_of = objective[name]
+        reading = hold_reading(res.x, x64, f_of, f_of(x64))
+        control = hold_reading(high.x, x64, f_of, f_of(x64))
+        limit = GENLASSO_HOLDS[name]
+        steps = int(res.n_iters)
+        out[name] = dict(reading, control=control, limit=limit, ms=ms, iters=steps,
+                         converged=bool(res.converged), us_per_step=ms * 1e3 / steps)
+        print(f"-- {name:12s} iters {steps} (converged {bool(res.converged)}) {ms:9.3f} ms "
+              f"({ms * 1e3 / steps:8.3f} us a step, the eigh included) | against its float64 run: "
+              f"rel gap {reading['rel_gap']:.3e}, rel |dx| {reading['rel_dx']:.3e}, held at "
+              f"{limit}; control (penalty 1% high) {verdict(control, limit)}")
+        require(bool(torch.isfinite(res.x).all()), f"{name}: x not finite")
+        require(passes(reading, limit), f"{name}: {reading} beyond {limit}")
+        require(not passes(control, limit), f"{name}: the control passes: {control}")
+    return out
+
+
+def estimators_path(dev, mods, iid_cv_ms=None) -> dict:
+    """Phase 12: the estimator surface on phase 11's AR(1) table, moved once
+    to NumPy float64 as a user's table arrives: the CV estimators through the
+    burst kernel (the only launches of the phase), the plain estimators, the
+    problem families, a sparse problem and the generalized lasso."""
+    import torch
+
+    t0 = time.perf_counter()
+    A, b = ar1_problem(dev, SOLVE_M, SOLVE_N, SOLVE_RHO)
+    X, y = A.double().cpu().numpy(), b.double().cpu().numpy()
+    perm = torch.randperm(SOLVE_M, generator=torch.Generator(device=dev).manual_seed(0),
+                          device=dev)
+    secs = {}
+    cv_out = est_cv(dev, mods, A, b, X, y, perm, iid_cv_ms)
+    torch.cuda.empty_cache()
+    secs["cv"] = time.perf_counter() - t0
+    g = torch.Generator(device=dev).manual_seed(11)
+    keep = torch.rand((SOLVE_N, 1), generator=g, device=dev) < 0.1
+    W = torch.where(keep, 3.0 * torch.randn((SOLVE_N, 4), generator=g, device=dev), 0.0)
+    Y = (A @ W + 9.0 * torch.randn((SOLVE_M, 4), generator=g, device=dev)).double().cpu().numpy()
+    w = (0.5 + 1.5 * torch.rand((SOLVE_M,), generator=g, device=dev)).double().cpu().numpy()
+    zero_counts(mods)
+    parts = {}
+    for name, run in (("plain", lambda: est_plain(dev, X, y, Y, w)),
+                      ("families", lambda: est_families(dev, A, b)),
+                      ("sparse", lambda: est_sparse(dev)),
+                      ("genlasso", lambda: est_genlasso(dev, A, b))):
+        t1 = time.perf_counter()
+        parts[name] = run()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        secs[name] = time.perf_counter() - t1
+    plain, fams, sparse, gl = (parts[k] for k in ("plain", "families", "sparse", "genlasso"))
+    counts = {k: m.LAUNCHES for k, m in mods.items()}
+    require(sum(counts.values()) == 0, f"phase 12 (b)-(e) launched kernels: {counts}")
+    secs["all"] = time.perf_counter() - t0
+    print(f"[12 estimators] AR(1) table ({SOLVE_M}, {SOLVE_N}), ρ = {SOLVE_RHO}: LassoCV "
+          f"{cv_out['lassocv']['bursts']} bursts, ElasticNetCV {cv_out['enetcv']['bursts']} "
+          f"bursts, burst launches {cv_out['lassocv']['launches'] + cv_out['enetcv']['launches']} "
+          f"(every other engine 0), held against the torch driver and float64; {len(plain)} plain "
+          f"estimators, {len(fams)} problem families, sparse at {SPARSE_M} x {SPARSE_N}, "
+          f"{len(gl)} generalized-lasso solves held, every control refused | kernel launches "
+          f"over (b)-(e) {counts} | {secs['all']:.1f} s (" + ", ".join(
+              f"{k} {v:.1f}" for k, v in secs.items() if k != "all") + ")")
+    return dict(cv=cv_out, plain=plain, families=fams, sparse=sparse, genlasso=gl, seconds=secs)
+
+
 def main() -> int:
     import torch
 
@@ -2454,6 +3117,12 @@ def main() -> int:
     # ---- 11: the single-problem layer: solve, solve_batch, compat, large lasso ----
     solve_out = solve_path(dev, mods)
     print("-- solve record " + json.dumps(solve_out))
+    torch.cuda.empty_cache()
+
+    # ---- 12: the estimators (the CV ones through the burst kernel), families ----
+    est_out = estimators_path(dev, mods, cv_out["e2e_ms"])
+    print("-- estimators record " + json.dumps(est_out, default=str))
+    launches["burst"] += est_out["cv"]["lassocv"]["launches"] + est_out["cv"]["enetcv"]["launches"]
 
     kernels = [
         {"name": "fused_lasso_solve", "route": "cuda", "source": FUSED_SRC,
@@ -2491,7 +3160,7 @@ def main() -> int:
          "bound_by": bounds["burst"][1], "library_ms": None, "e2e_ms": wide_ms,
          "driver_ms": driver_ms, "launches_only_ms": launches_ms, "group_lanes": group,
          "smem_bytes": group_smem, "q_bytes_per_launch": gbw_q_bytes, "copy_in_ms": copy_ms,
-         "cv": cv_out},
+         "cv": cv_out, "estimators": est_out["cv"]},
         {"name": "resident_solve", "route": "cuda", "source": RESIDENT_SRC,
          "replaces": "fastoptsolver_tpu/kernels/resident.py:103",
          "also_replaces": "fastoptsolver_tpu/kernels/fista_vmem.py:897 (the adaptive "

@@ -5,8 +5,13 @@ here keeps its JAX counterpart's name and surface, and the tests feed both
 packages the same inputs. The slices ported so far are the certified
 batched-lasso surface (``batch.solve_lasso_batch``, ``batch.solve_gram_batch``),
 the regularization path and k-fold cross-validation built on it
-(``batch.lasso_path``, ``batch.cv_lasso``), and the ops and problems they
-use (``ops``, ``problems.LeastSquares`` and kin). Routing:
+(``batch.lasso_path``, ``batch.cv_lasso``), the single-problem solvers and
+``solve``, the scikit-learn-style estimators (``Lasso``, ``ElasticNet``,
+``Ridge``, ``MultiTaskLasso``, ``LassoCV``, ``ElasticNetCV``), every problem
+family (``problems``: least squares and its Gram form, logistic, the
+extensions, sparse CSR, Boston) and the generalized lasso
+(``solvers.genlasso``); only the out-of-memory Gram reduction
+(``problems.streaming``, ``solvers.gram_dense``) is still to come. Routing:
 the torch Gram-form FISTA driver (``batch.fista_gram``) runs on any device; on
 a CUDA tensor the router sends certified configurations with n ≤ 8, in every
 momentum mode (fixed, adaptive restart, greedy, Armijo), to one launch of the
@@ -19,7 +24,11 @@ with 104 < n ≤ 168 to one launch of the resident kernel
 (``kernels.qstream``), one launch per burst. ``cv_lasso`` sends its
 (folds + 1)·α grid through ``solve_gram_batch``, so on a CUDA tensor it
 reaches the burst kernel at n ≤ 104 and the resident kernel up to n = 168;
-``lasso_path`` runs the torch driver, as the reference does.
+``lasso_path`` runs the torch driver, as the reference does. ``LassoCV``
+and ``ElasticNetCV`` call ``cv_lasso`` and so take its routing: on the card
+their grid runs on the burst kernel at n ≤ 104 and the resident kernel to
+n = 168; the plain estimators run ``solve`` (eager torch, no hand-written
+kernel).
 
 The package imports no JAX, and nothing that needs ``nvcc``, Triton or a GPU:
 CUDA kernels are compiled on first use (``kernels._build``).
@@ -47,6 +56,14 @@ if (_os.environ.get("FOS_MATMUL_PRECISION", "highest") != "default"
 
 from . import batch, kernels, ops, problems, solvers  # noqa: E402
 from .api import solve  # noqa: E402
+from .estimators import (  # noqa: E402
+    Lasso,
+    ElasticNet,
+    Ridge,
+    LassoCV,
+    ElasticNetCV,
+    MultiTaskLasso,
+)
 from .batch import (  # noqa: E402
     BatchFISTAConfig,
     BatchResult,

@@ -388,11 +388,15 @@ def _resume_lasso_batch(A, b, alpha1, alpha2, cfg, backend, feature_major,
 def stack_problems(problems):
     """Stack structurally identical problems (dataclasses of tensors) into
     one problem of the same class whose tensors lead with the batch axis;
-    the fields that are not tensors must agree and are kept."""
+    the fields that are not tensors must agree and are kept. Sparse tensors
+    are refused: ``torch.func.vmap``, which runs the stack, takes none."""
     first = problems[0]
     fields = {}
     for f in dataclasses.fields(first):
         v = getattr(first, f.name)
+        if isinstance(v, torch.Tensor) and v.layout != torch.strided:
+            raise ValueError(f"field '{f.name}' is a sparse tensor: a stacked solve runs "
+                             "under torch.func.vmap, which takes no sparse tensor")
         if isinstance(v, torch.Tensor):
             fields[f.name] = torch.stack([getattr(p, f.name) for p in problems])
         elif any(getattr(p, f.name) != v for p in problems):
@@ -457,5 +461,5 @@ def solve_batch(problem_batch, method: str = "fista", config=None, history: bool
     L = torch.as_tensor(L, dtype=x.dtype, device=x.device)
     tau0 = config.t_init_factor / L
     if method == "fista":
-        return fista_solve(run, config, init_state(None, config, x, tau0), L, history)
-    return ista_solve(run, config, ista_init(x, tau0), L, history)
+        return fista_solve(run, config, init_state(None, config, x, tau0, lead=1), L, history)
+    return ista_solve(run, config, ista_init(x, tau0, lead=1), L, history)

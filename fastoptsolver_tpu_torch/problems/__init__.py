@@ -1,8 +1,21 @@
-"""Problem definitions and generators (port of
-``fastoptsolver_tpu.problems``; so far the protocol, the least-squares and
-logistic problems, and the generators)."""
+"""Problem definitions and generators (port of ``fastoptsolver_tpu.problems``:
+all of it but ``streaming``, the out-of-memory Gram reduction)."""
 from .base import CustomProblem, fold_alphas, REG_TYPES
 from .least_squares import LeastSquares, GramLeastSquares, LogisticRegression
+from .sparse import SparseLeastSquares
+from .boston import load_boston_csv, synthetic_boston
+from .extensions import (
+    HuberRegression,
+    WeightedLeastSquares,
+    NonNegativeLeastSquares,
+    GroupLassoLeastSquares,
+    BoxConstrainedLeastSquares,
+    SlopeLeastSquares,
+    slope_lambda_bh,
+    QuantileRegression,
+    PoissonRegression,
+    MultiTaskLeastSquares,
+)
 from .generators import (
     X_TRUE,
     generate_boston_like,
@@ -13,6 +26,19 @@ from .generators import (
 )
 
 __all__ = [
+    "SparseLeastSquares",
+    "HuberRegression",
+    "WeightedLeastSquares",
+    "NonNegativeLeastSquares",
+    "GroupLassoLeastSquares",
+    "BoxConstrainedLeastSquares",
+    "SlopeLeastSquares",
+    "slope_lambda_bh",
+    "QuantileRegression",
+    "PoissonRegression",
+    "MultiTaskLeastSquares",
+    "load_boston_csv",
+    "synthetic_boston",
     "CustomProblem",
     "fold_alphas",
     "REG_TYPES",

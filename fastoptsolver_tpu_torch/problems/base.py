@@ -60,13 +60,19 @@ def as_tensor(x, dtype: torch.dtype, device=None) -> torch.Tensor:
     CPU, so without a card this raises rather than carry on there."""
     if isinstance(x, torch.Tensor):
         return x.to(dtype=dtype, device=x.device if device is None else device)
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device for a numpy input; pass device='cpu' to run "
-                "on the CPU, or hand in tensors on the device to use")
-        device = torch.device("cuda", torch.cuda.current_device())
-    return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+    return torch.as_tensor(np.asarray(x), dtype=dtype, device=target_device(device))
+
+
+def target_device(device=None) -> torch.device:
+    """Where input that is not a tensor goes: ``device``, or, when none is
+    named, the current CUDA device (raising without one)."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device for a numpy input; pass device='cpu' to run "
+            "on the CPU, or hand in tensors on the device to use")
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 @dataclasses.dataclass(frozen=True)

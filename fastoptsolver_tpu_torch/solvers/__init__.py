@@ -1,5 +1,5 @@
-"""Single-problem solvers (port of ``fastoptsolver_tpu.solvers``; ``genlasso``
-and ``gram_dense`` are not ported yet)."""
+"""Single-problem solvers (port of ``fastoptsolver_tpu.solvers``: all of it
+but ``gram_dense``, the out-of-memory Gram solve)."""
 from .common import Metrics, History, SolveResult, LineSearchConfig, ARMIJO_C
 from .admm import ADMMConfig, ADMMResult, admm
 from .cd import CDConfig, cd, certified_optimum
@@ -7,6 +7,15 @@ from .lbfgs import LBFGSConfig, lbfgs, lbfgs_with_history
 from .owlqn import OWLQNConfig, owlqn, owlqn_with_history
 from .svrg import SVRGConfig, prox_svrg
 from .saga import SAGAConfig, prox_saga
+from .genlasso import (
+    GenLassoConfig,
+    GenLassoResult,
+    gen_lasso,
+    fused_lasso,
+    tv_denoise,
+    trend_filter,
+    difference_matrix,
+)
 from .ista import ISTAConfig, ista, ista_with_history
 from .fista import (
     FISTAConfig,
@@ -34,6 +43,13 @@ __all__ = [
     "prox_svrg",
     "SAGAConfig",
     "prox_saga",
+    "GenLassoConfig",
+    "GenLassoResult",
+    "gen_lasso",
+    "fused_lasso",
+    "tv_denoise",
+    "trend_filter",
+    "difference_matrix",
     "Metrics",
     "History",
     "SolveResult",

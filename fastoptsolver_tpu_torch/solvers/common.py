@@ -58,7 +58,7 @@ class History(NamedTuple):
     """Fixed-length per-iteration trace, ``max_iter`` rows preallocated;
     rows with ``valid == False`` repeat the last real iterate."""
 
-    x: torch.Tensor  # (max_iter, n)
+    x: torch.Tensor  # (max_iter, *one iterate's shape)
     obj: torch.Tensor  # (max_iter,)
     step_norm: torch.Tensor  # (max_iter,)
     valid: torch.Tensor  # (max_iter,) bool
@@ -138,6 +138,20 @@ def norm(v: torch.Tensor) -> torch.Tensor:
     return torch.linalg.vector_norm(v, dim=-1)
 
 
+# The prox-gradient solvers take an iterate of any rank (a matrix for
+# ``MultiTaskLeastSquares``), as the reference's ``jnp.vdot`` and Frobenius
+# norm do: ``vdot`` reduces one problem's whole iterate, ``vnorm`` every axis
+# past the first ``lead``, the stacked problems' (0 for one problem). The
+# quasi-Newton solvers, vector-only in the reference too, keep ``dot``/``norm``.
+
+def vdot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return torch.sum(u * v, dim=tuple(range(u.dim())))
+
+
+def vnorm(v: torch.Tensor, lead: int = 0) -> torch.Tensor:
+    return torch.linalg.vector_norm(v, dim=tuple(range(lead, v.dim())))
+
+
 @dataclasses.dataclass(frozen=True)
 class LineSearchConfig:
     backtracking: bool = False
@@ -148,7 +162,7 @@ class LineSearchConfig:
 
 def _armijo_trial(problem, y, g_y, grad, t, armijo_c: float):
     x_new = problem.prox(y - t * grad, t)
-    ok = problem.smooth_value(x_new) <= g_y + armijo_c * dot(grad, x_new - y)
+    ok = problem.smooth_value(x_new) <= g_y + armijo_c * vdot(grad, x_new - y)
     return x_new, ok
 
 

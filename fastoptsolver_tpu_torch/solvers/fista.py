@@ -36,11 +36,11 @@ from .common import (
     SolveResult,
     armijo_prox_search,
     grad_part,
-    norm,
     objective,
     prox_step,
     run_loop,
     tree_where,
+    vnorm,
 )
 
 
@@ -86,28 +86,32 @@ class FISTAState(NamedTuple):
     done: torch.Tensor  # bool: a stopping rule fired
 
 
-def init_state(problem, config: FISTAConfig, x0: torch.Tensor | None, tau0) -> FISTAState:
+def init_state(problem, config: FISTAConfig, x0: torch.Tensor | None, tau0,
+               lead: int = 0) -> FISTAState:
+    """The state at ``x0`` (or ``problem.x0()``); ``lead`` counts the stacked
+    problems' leading axes of the iterate, whose other axes are one problem's."""
     x = problem.x0() if x0 is None else x0
-    lead, kw = x.shape[:-1], dict(dtype=x.dtype, device=x.device)
+    stack, kw = x.shape[:lead], dict(dtype=x.dtype, device=x.device)
     return FISTAState(
         x=x,
         y=x,
-        t=torch.ones(lead, **kw),
-        tau=torch.as_tensor(tau0, **kw).expand(lead).clone(),
-        k=torch.zeros(lead, dtype=torch.int32, device=x.device),
-        prev_step=torch.zeros(lead, **kw),
-        done=torch.zeros(lead, dtype=torch.bool, device=x.device),
+        t=torch.ones(stack, **kw),
+        tau=torch.as_tensor(tau0, **kw).expand(stack).clone(),
+        k=torch.zeros(stack, dtype=torch.int32, device=x.device),
+        prev_step=torch.zeros(stack, **kw),
+        done=torch.zeros(stack, dtype=torch.bool, device=x.device),
     )
 
 
 def _fista_step(run: Run, config: FISTAConfig, state: FISTAState, metrics: Metrics):
     x_k, y_k = state.x, state.y
+    lead = state.k.dim()  # the stacked problems' axes; the rest is one iterate
     g_y, grad = run(grad_part, y_k, config.backtracking)
     metrics = metrics._replace(n_grad_evals=metrics.n_grad_evals + 1)
 
     # Stopping rule 1: gradient norm, checked before the update. Like the
     # reference's static config, a rule that is off costs no ops.
-    grad_stop = norm(grad) < config.tol if config.tol > 0.0 else None
+    grad_stop = vnorm(grad, lead) < config.tol if config.tol > 0.0 else None
 
     if config.backtracking:
         x_next, tau, bt_steps = armijo_prox_search(run.problem, y_k, g_y, grad, state.tau,
@@ -118,13 +122,14 @@ def _fista_step(run: Run, config: FISTAConfig, state: FISTAState, metrics: Metri
         tau = state.tau
         x_next = run(prox_step, y_k, grad, tau)
 
-    this_step = norm(x_next - x_k)
+    this_step = vnorm(x_next - x_k, lead)
     ratio = None
     if config.adaptive_restart or config.tol_ratio > 0.0:
         ratio = torch.where(state.prev_step > 0.0,
                             this_step / torch.clamp_min(state.prev_step, 1e-38),
                             torch.full_like(this_step, float("inf")))
-    col = lambda s: s[..., None]  # a per-problem scalar against (..., n)
+    # a per-problem scalar (0-d, or (B,) over a stack) against the iterate
+    col = lambda s: s.reshape(s.shape + (1,) * (x_k.dim() - s.dim()))
 
     if config.momentum == "delta":
         k_ref = (state.k + 1).to(x_k.dtype)  # the reference counts k from 1
@@ -190,8 +195,8 @@ def _solve(run: Run, config: FISTAConfig, state0: FISTAState, L, history: bool) 
         carry = run_loop(step, carry, config.max_iter, live, stops=stops)
     else:
         x = state0.x
-        lead = x.shape[:-1]
-        xs = x.new_empty(lead + (config.max_iter, x.shape[-1]))
+        lead = state0.k.shape
+        xs = x.new_empty(lead + (config.max_iter,) + x.shape[len(lead):])
         objs = x.new_empty(lead + (config.max_iter,))
         steps, taus = torch.empty_like(objs), torch.empty_like(objs)
         valid = torch.empty(objs.shape, dtype=torch.bool, device=x.device)
@@ -199,7 +204,7 @@ def _solve(run: Run, config: FISTAConfig, state0: FISTAState, L, history: bool) 
             on = live(carry)
             new_state, metrics, _, applied = _fista_step(run, config, carry.state, carry.metrics)
             carry = tree_where(on, _Carry(new_state, metrics), carry)
-            xs[..., k, :] = carry.state.x
+            xs.select(len(lead), k).copy_(carry.state.x)
             objs[..., k] = run(objective, carry.state.x)
             steps[..., k] = carry.state.prev_step
             valid[..., k] = on & applied

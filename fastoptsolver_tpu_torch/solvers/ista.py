@@ -24,11 +24,11 @@ from .common import (
     SolveResult,
     armijo_prox_search,
     grad_part,
-    norm,
     objective,
     prox_step,
     run_loop,
     tree_where,
+    vnorm,
 )
 
 
@@ -76,7 +76,7 @@ def _ista_step(run: Run, config: ISTAConfig, state: ISTAState, metrics: Metrics)
     else:
         tau = state.tau
         x_new = run(prox_step, x, grad, tau)
-    delta = norm(x_new - x)
+    delta = vnorm(x_new - x, state.k.dim())
     done = (delta < config.tol) if config.tol > 0.0 else torch.zeros_like(state.done)
     return ISTAState(x=x_new, tau=tau, k=state.k + 1, last_step=delta, done=done), metrics
 
@@ -86,14 +86,15 @@ def ista_step(problem, config: ISTAConfig, state: ISTAState, metrics: Metrics):
     return _ista_step(Run(problem), config, state, metrics)
 
 
-def init_state(x: torch.Tensor, tau0) -> ISTAState:
-    lead = x.shape[:-1]
+def init_state(x: torch.Tensor, tau0, lead: int = 0) -> ISTAState:
+    """The state at ``x``; ``lead`` counts the stacked problems' leading axes."""
+    stack = x.shape[:lead]
     return ISTAState(
         x=x,
-        tau=torch.as_tensor(tau0, dtype=x.dtype, device=x.device).expand(lead).clone(),
-        k=torch.zeros(lead, dtype=torch.int32, device=x.device),
-        last_step=torch.zeros(lead, dtype=x.dtype, device=x.device),
-        done=torch.zeros(lead, dtype=torch.bool, device=x.device),
+        tau=torch.as_tensor(tau0, dtype=x.dtype, device=x.device).expand(stack).clone(),
+        k=torch.zeros(stack, dtype=torch.int32, device=x.device),
+        last_step=torch.zeros(stack, dtype=x.dtype, device=x.device),
+        done=torch.zeros(stack, dtype=torch.bool, device=x.device),
     )
 
 
@@ -117,15 +118,15 @@ def _solve(run: Run, config: ISTAConfig, state0: ISTAState, L, history: bool) ->
         carry = run_loop(step, carry, config.max_iter, live, stops=config.tol > 0.0)
     else:
         x = state0.x
-        lead = x.shape[:-1]
-        xs = x.new_empty(lead + (config.max_iter, x.shape[-1]))
+        lead = state0.k.shape
+        xs = x.new_empty(lead + (config.max_iter,) + x.shape[len(lead):])
         objs = x.new_empty(lead + (config.max_iter,))
         steps, taus = torch.empty_like(objs), torch.empty_like(objs)
         valid = torch.empty(objs.shape, dtype=torch.bool, device=x.device)
         for k in range(config.max_iter):
             on = live(carry)
             carry = tree_where(on, step(carry), carry)
-            xs[..., k, :] = carry.state.x
+            xs.select(len(lead), k).copy_(carry.state.x)
             objs[..., k] = run(objective, carry.state.x)
             steps[..., k] = carry.state.last_step
             valid[..., k] = on
