@@ -10,8 +10,10 @@ the regularization path and k-fold cross-validation built on it
 ``Ridge``, ``MultiTaskLasso``, ``LassoCV``, ``ElasticNetCV``), every problem
 family (``problems``: least squares and its Gram form, logistic, the
 extensions, sparse CSR, Boston) and the generalized lasso
-(``solvers.genlasso``); only the out-of-memory Gram reduction
-(``problems.streaming``, ``solvers.gram_dense``) is still to come. Routing:
+(``solvers.genlasso``), the out-of-memory Gram reduction and its dense
+solve (``problems.streaming``, ``solvers.gram_dense``), checkpoints and
+profiling (``utils``), the native host runtime (``runtime``) and the A/B
+harness (``bench.ablate``); ``parallel`` is still to come. Routing:
 the torch Gram-form FISTA driver (``batch.fista_gram``) runs on any device; on
 a CUDA tensor the router sends certified configurations with n ≤ 8, in every
 momentum mode (fixed, adaptive restart, greedy, Armijo), to one launch of the

@@ -29,8 +29,10 @@ from typing import NamedTuple
 import torch
 
 from ..ops.prox import soft_threshold
+from ..utils.pytree import register_dataclass
 
 
+@register_dataclass
 @dataclasses.dataclass(frozen=True)
 class GramBatch:
     """A batch of Gram-form instances in feature-major layout."""

@@ -35,19 +35,23 @@ METRIC = "batched_lasso_instances_solved_to_1e-6_rel_gap_per_s"
 BATCH, M = 262144, 1000
 
 
-def build_problems(generator: torch.Generator, batch: int, m: int):
+def build_problems(generator: torch.Generator, batch: int, m: int,
+                   sort_noise: bool = False):
     """The bench configuration's data (``bench.py:_build_problems``) on
     ``generator``'s device, feature-leading: per-instance noise/ρ drawn from
     the reference grid, the ported generator, features standardised per
     instance, α₁ = 0.1·‖Aᵀb‖∞. Returns ``A (5, m, batch)``, ``b (m, batch)``
     and ``alpha1 (batch,)``; torch's generator gives other numbers than
-    ``jax.random`` from the same seed."""
+    ``jax.random`` from the same seed. ``sort_noise`` sorts the drawn noise
+    levels before generation (``bench/ablate.py:_build_problems_sorted``)."""
     from ..problems import generate_scenario_batch_fm
 
     device = generator.device
     pick = lambda vals: torch.tensor(vals, device=device)[
         torch.randint(len(vals), (batch,), generator=generator, device=device)]
     noise, rho1, rho2 = pick([0.5, 1.0, 2.0, 5.0]), pick([0.5, 0.8]), pick([0.7, 0.9])
+    if sort_noise:
+        noise = torch.sort(noise).values
     A, b, _ = generate_scenario_batch_fm(generator, batch, m=m, noise_std=noise,
                                          rho1=rho1, rho2=rho2)
     mu = A.mean(dim=1, keepdim=True)

@@ -1,5 +1,7 @@
-"""Problem definitions and generators (port of ``fastoptsolver_tpu.problems``:
-all of it but ``streaming``, the out-of-memory Gram reduction)."""
+"""Problem definitions and generators (port of ``fastoptsolver_tpu.problems``),
+the one-pass Gram reduction of an out-of-memory A (``streaming``) included.
+``streaming.merge_grams``, the reference's merge of the hosts' partial Grams,
+needs a process group and comes with the port of ``parallel/``."""
 from .base import CustomProblem, fold_alphas, REG_TYPES
 from .least_squares import LeastSquares, GramLeastSquares, LogisticRegression
 from .sparse import SparseLeastSquares
@@ -16,6 +18,7 @@ from .extensions import (
     PoissonRegression,
     MultiTaskLeastSquares,
 )
+from .streaming import DenseGram, stream_gram, chunk_rows, generator_chunks
 from .generators import (
     X_TRUE,
     generate_boston_like,
@@ -26,6 +29,10 @@ from .generators import (
 )
 
 __all__ = [
+    "DenseGram",
+    "stream_gram",
+    "chunk_rows",
+    "generator_chunks",
     "SparseLeastSquares",
     "HuberRegression",
     "WeightedLeastSquares",

@@ -22,6 +22,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..utils.pytree import register_dataclass
+
 # Regularization types accepted by the reference
 # (objective_functions.py:17-28, lbfgs.py:11-35).
 REG_TYPES = ("lasso", "ridge", "elasticnet")
@@ -75,6 +77,8 @@ def target_device(device=None) -> torch.device:
     return torch.device("cuda", torch.cuda.current_device())
 
 
+@register_dataclass(static=("smooth_value_fn", "smooth_grad_fn", "prox_fn",
+                            "nonsmooth_value_fn", "n_dim"))
 @dataclasses.dataclass(frozen=True)
 class CustomProblem:
     """Fully generic problem from user-supplied closures, the counterpart of

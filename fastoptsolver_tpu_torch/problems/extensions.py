@@ -38,6 +38,7 @@ from ..ops.prox import (
     soft_threshold,
 )
 from .base import as_tensor, fold_alphas
+from ..utils.pytree import register_dataclass
 
 
 def _tensors(A, dtype, device, **fields):
@@ -80,6 +81,7 @@ class _LSBase:
         return self.A.new_zeros(self.dim)
 
 
+@register_dataclass
 @dataclasses.dataclass(frozen=True)
 class NonNegativeLeastSquares(_LSBase):
     """``min ½‖Ax−b‖² + ½α₂‖x‖² + α₁‖x‖₁  s.t. x ≥ 0`` (α₁ = α₂ = 0 gives
@@ -115,6 +117,7 @@ class NonNegativeLeastSquares(_LSBase):
         return _l1(self, x)
 
 
+@register_dataclass(static=("group_size",))
 @dataclasses.dataclass(frozen=True)
 class GroupLassoLeastSquares(_LSBase):
     """``min ½‖Ax−b‖² + α_g Σ_g ‖x_g‖₂`` over contiguous groups of
@@ -142,6 +145,7 @@ class GroupLassoLeastSquares(_LSBase):
         return self.alpha_g * torch.sum(torch.linalg.vector_norm(self._grouped(x), dim=-1))
 
 
+@register_dataclass
 @dataclasses.dataclass(frozen=True)
 class BoxConstrainedLeastSquares(_LSBase):
     """``min ½‖Ax−b‖²  s.t. lower ≤ x ≤ upper`` (bounds scalar or (n,))."""
@@ -163,6 +167,7 @@ class BoxConstrainedLeastSquares(_LSBase):
         return prox_box(self.A.new_zeros(self.dim), lower=self.lower, upper=self.upper)
 
 
+@register_dataclass
 @dataclasses.dataclass(frozen=True)
 class MultiTaskLeastSquares:
     """Multi-task (joint-sparsity) regression with a coefficient matrix
@@ -270,6 +275,7 @@ class _SmoothL1:
         return self.A.new_zeros(self.dim)
 
 
+@register_dataclass
 @dataclasses.dataclass(frozen=True)
 class QuantileRegression(_SmoothL1):
     """Smoothed quantile regression: ``g(x) = Σᵢ ρ_τ^μ(aᵢᵀx − bᵢ) + ½α₂‖x‖²``,
@@ -321,6 +327,7 @@ class QuantileRegression(_SmoothL1):
         return torch.sum(torch.maximum((1.0 - self.tau_q) * r, -self.tau_q * r))
 
 
+@register_dataclass
 @dataclasses.dataclass(frozen=True)
 class PoissonRegression(_SmoothL1):
     """L1/L2-regularized Poisson regression (log-linear counts):
@@ -364,6 +371,7 @@ def slope_lambda_bh(n: int, q: float = 0.1, sigma: float = 1.0,
     return sigma * torch.special.ndtri(1.0 - q * i / (2.0 * n))
 
 
+@register_dataclass
 @dataclasses.dataclass(frozen=True)
 class SlopeLeastSquares(_LSBase):
     """SLOPE / OWL regression: ``min ½‖Ax−b‖² + Σ_i λ_i |x|_(i)`` with a
@@ -387,6 +395,7 @@ class SlopeLeastSquares(_LSBase):
         return slope_norm(x, self.lam)
 
 
+@register_dataclass
 @dataclasses.dataclass(frozen=True)
 class WeightedLeastSquares(_SmoothL1):
     """Per-row sample weights: ``g(x) = ½ Σᵢ wᵢ(aᵢᵀx − bᵢ)² + ½α₂‖x‖²``,
@@ -426,6 +435,7 @@ class WeightedLeastSquares(_SmoothL1):
                                 alpha1=self.alpha1, alpha2=self.alpha2)
 
 
+@register_dataclass
 @dataclasses.dataclass(frozen=True)
 class HuberRegression(_SmoothL1):
     """Robust regression: ``g(x) = Σᵢ huber_δ(aᵢᵀx − bᵢ) + ½α₂‖x‖²``,

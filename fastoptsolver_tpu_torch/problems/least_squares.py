@@ -22,8 +22,10 @@ import torch
 
 from ..ops.prox import prox_elastic_net, soft_threshold
 from .base import as_tensor, fold_alphas
+from ..utils.pytree import register_dataclass
 
 
+@register_dataclass(static=("en_prox",))
 @dataclasses.dataclass(frozen=True)
 class LeastSquares:
     """``g(x) = ½||Ax−b||² + ½·α₂||x||²``, ``h(x) = α₁||x||₁``.
@@ -106,6 +108,7 @@ class LeastSquares:
                                 alpha2=self.alpha2)
 
 
+@register_dataclass
 @dataclasses.dataclass(frozen=True)
 class GramLeastSquares:
     """Normal-equation form: ``g(x) = ½ xᵀQx − cᵀx + ½ btb + ½·α₂||x||²``."""
@@ -153,6 +156,7 @@ class GramLeastSquares:
         return self.Q.new_zeros(self.dim)
 
 
+@register_dataclass
 @dataclasses.dataclass(frozen=True)
 class LogisticRegression:
     """Smooth L2-regularized logistic regression, labels in {−1, +1}:

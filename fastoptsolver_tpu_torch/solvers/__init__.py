@@ -1,5 +1,5 @@
-"""Single-problem solvers (port of ``fastoptsolver_tpu.solvers``: all of it
-but ``gram_dense``, the out-of-memory Gram solve)."""
+"""Single-problem solvers (port of ``fastoptsolver_tpu.solvers``), the
+certified solve of one streamed Gram (``gram_dense``) included."""
 from .common import Metrics, History, SolveResult, LineSearchConfig, ARMIJO_C
 from .admm import ADMMConfig, ADMMResult, admm
 from .cd import CDConfig, cd, certified_optimum
@@ -16,6 +16,7 @@ from .genlasso import (
     trend_filter,
     difference_matrix,
 )
+from .gram_dense import DenseGramConfig, DenseResult, fista_gram_dense
 from .ista import ISTAConfig, ista, ista_with_history
 from .fista import (
     FISTAConfig,
@@ -50,6 +51,9 @@ __all__ = [
     "tv_denoise",
     "trend_filter",
     "difference_matrix",
+    "DenseGramConfig",
+    "DenseResult",
+    "fista_gram_dense",
     "Metrics",
     "History",
     "SolveResult",

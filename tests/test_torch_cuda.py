@@ -625,3 +625,52 @@ def test_qstream_refuses_launches_it_cannot_take(cuda):
             qstream._launch_qstream(*args, cluster=C, **static)
     with pytest.raises(ValueError, match="Qt"):
         qstream._launch_qstream(*args, Qt=qstream.relayout(args[2], 4), **static)
+
+
+def test_stream_gram_feed_gives_the_same_bits_for_every_ring_depth(cuda):
+    """The pinned ring and side-stream copies of ``stream_gram`` on the card:
+    prefetch 1, 2 and 3 reduce the same chunks (float64 cast in the copy,
+    ragged sizes that grow a slot past its first size) to the same bits, and
+    agree with the float64 reduction to 2e-5 of each entry's scale."""
+    from fastoptsolver_tpu_torch.problems import stream_gram
+
+    rng = np.random.default_rng(4)
+    sizes = (1000, 3000, 500, 7000, 70, 6500, 4096)
+    chunks = [(rng.normal(size=(r, 33)), rng.normal(size=r)) for r in sizes]
+    grams = [stream_gram(iter(chunks), n=33, prefetch=p, device=cuda) for p in (1, 2, 3)]
+    for g in grams[1:]:
+        for f in ("Q", "c", "btb", "m"):
+            assert torch.equal(getattr(g, f), getattr(grams[0], f)), f
+    A = np.concatenate([a for a, _ in chunks]).astype(np.float32).astype(np.float64)
+    b = np.concatenate([v for _, v in chunks]).astype(np.float32).astype(np.float64)
+    g = grams[0]
+    assert g.Q.is_cuda and g.m.dtype == torch.int64 and int(g.m) == sum(sizes)
+    scale = np.abs(A).T @ np.abs(A)
+    assert np.all(np.abs(g.Q.cpu().numpy() - A.T @ A) <= 2e-5 * scale)
+    np.testing.assert_allclose(float(g.btb), float(b @ b), rtol=2e-6)
+
+
+def test_fista_gram_dense_on_the_card_matches_the_cpu(cuda):
+    """The dense solve on the card against the same solve on the CPU, both
+    from the CPU generator's start vector: x to 1e-5, iterations and
+    ``converged`` equal (the matvecs sum in other orders)."""
+    from fastoptsolver_tpu_torch.problems import DenseGram
+    from fastoptsolver_tpu_torch.solvers import DenseGramConfig
+    from fastoptsolver_tpu_torch.solvers.gram_dense import _solve
+
+    rng = np.random.default_rng(5)
+    A = rng.normal(size=(4000, 64)) / 8.0
+    b = A[:, :8] @ rng.normal(size=8) * 3.0 + 0.1 * rng.normal(size=4000)
+    a1 = 0.1 * float(np.abs(A.T @ b).max())
+    t = lambda v, dev: torch.as_tensor(v, dtype=torch.float32, device=dev)
+    cfg = DenseGramConfig(max_iter=3000, check_every=50, rel_gap_tol=1e-6)
+    v0 = torch.randn(64, generator=torch.Generator().manual_seed(0))
+    out = []
+    for dev in (torch.device("cpu"), cuda):
+        g = DenseGram(Q=t(A.T @ A, dev), c=t(A.T @ b, dev), btb=t(b @ b, dev),
+                      m=torch.tensor(4000, device=dev))
+        out.append(_solve(g, a1, 0.0, v0.to(dev), cfg))
+    cpu, card = out
+    assert bool(card.converged) and bool(cpu.converged) and card.x.is_cuda
+    assert int(card.iters) == int(cpu.iters)
+    np.testing.assert_allclose(card.x.cpu().numpy(), cpu.x.numpy(), rtol=1e-5, atol=1e-5)

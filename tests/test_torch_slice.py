@@ -250,7 +250,14 @@ def test_import_adds_no_jax_module():
             "fastoptsolver_tpu_torch.problems.least_squares",
             "fastoptsolver_tpu_torch.bench.headline", "fastoptsolver_tpu_torch.api",
             "fastoptsolver_tpu_torch.compat", "fastoptsolver_tpu_torch.bench.large_lasso",
-            "fastoptsolver_tpu_torch.problems.generators"} | {
+            "fastoptsolver_tpu_torch.problems.generators",
+            "fastoptsolver_tpu_torch.problems.streaming",
+            "fastoptsolver_tpu_torch.solvers.gram_dense",
+            "fastoptsolver_tpu_torch.bench.streaming_lasso",
+            "fastoptsolver_tpu_torch.bench.ablate", "fastoptsolver_tpu_torch.utils",
+            "fastoptsolver_tpu_torch.utils.checkpoint",
+            "fastoptsolver_tpu_torch.utils.profiling", "fastoptsolver_tpu_torch.utils.pytree",
+            "fastoptsolver_tpu_torch.runtime", "fastoptsolver_tpu_torch.runtime.host"} | {
         f"fastoptsolver_tpu_torch.solvers.{m}" for m in (
             "common", "ista", "fista", "cd", "lbfgs", "owlqn", "admm", "svrg", "saga")
     } <= set(modules)
