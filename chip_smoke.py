@@ -247,6 +247,7 @@ result, when there is no CUDA device or any phase fails.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -419,6 +420,17 @@ STREAM_X_HOLD = (1e-9, 2e-5)
 ABLATE_BATCH = 65536
 ABLATE_MODES = "routed,fused1,burst,adaptive,build-only"
 LOADER_BATCH = 16384
+# phase 15: four ranks on the one card, gloo among them (NCCL takes one rank a
+# card), each set of ranks started with this timeout; merge_grams at the streamed
+# cell's width n = 1280 with m cut from 2^21 to 2^19 (each rank's host buffers and
+# the phase's time), 2^17 rows a rank in chunks of the cell's 65536 rows. Its
+# shapes: the cells of phases 4 and 6-8, the merge, the large lasso, the CV table
+MESH_RANKS = 4
+MESH_CHILD_TIMEOUT = 400
+MERGE_M, MERGE_CUT_FROM, MERGE_CHUNK = 2 ** 19, 2 ** 21, 65536
+MESH_SIZES = dict(bench=(5, 1000, BATCH), w1=(W1_N, W1_B), w2=(W2_N, W2_B),
+                  wide=(WIDE_N, WIDE_B), merge=(MERGE_M, 1280, MERGE_CHUNK),
+                  lasso=(131072, 2048), admm=(CV_M, CV_N), resume=100)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 # shared memory serves an SM 128 bytes a clock (32 banks of 4 bytes); the floor
@@ -3101,6 +3113,558 @@ def ablate_runtime_path(dev, mods, disk: dict) -> dict:
     return out
 
 
+# ---- phase 15: the multi-device layer, in child processes ----
+
+def mesh_counted(counts: dict, name: str, mods, fn):
+    """``fn()`` with every launch count set to 0 just before it and read just
+    after it (this rank's launches, under ``name``)."""
+    import torch
+
+    torch.cuda.synchronize()
+    zero_counts(mods)
+    out = fn()
+    torch.cuda.synchronize()
+    counts[name] = {k: m.LAUNCHES for k, m in mods.items()}
+    return out
+
+
+def mesh_same(a, b, fields=("x", "iters", "converged")) -> bool:
+    import torch
+
+    return all(bool(torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu())) for f in fields)
+
+
+def mesh_certified_hold(res, ref) -> dict:
+    """A mesh result against the one-rank call where only the lane grouping
+    differs: each lane's trajectory up to its certification is its own, so
+    ``converged`` and ``iters`` must be identical, and x (which a group
+    carries on past a lane's certification to the group's exit) agrees to
+    rtol 2e-4/atol 2e-5 on the lanes both certify at the same iteration."""
+    import torch
+
+    same_it = res.converged & ref.converged & (res.iters == ref.iters)
+    ok = bool(same_it.any()) and bool(torch.allclose(
+        res.x[same_it], ref.x[same_it], rtol=2e-4, atol=2e-5))
+    return dict(converged_equal=bool(torch.equal(res.converged, ref.converged)),
+                iters_equal=bool(torch.equal(res.iters, ref.iters)),
+                lanes_held=int(same_it.sum()), x_ok=ok,
+                max_dx=float((res.x - ref.x)[same_it].abs().max()) if ok else float("inf"))
+
+
+def mesh_child_one(dev, mods, outdir: str) -> dict:
+    """(a) One rank: the port's own one-rank NCCL group (``make_mesh`` on a
+    process that joined none), the bench cell through ``mesh=``, bit-equal
+    to the plain call; its x, iters and converged saved for (b)."""
+    import torch
+    import torch.distributed as dist
+
+    from fastoptsolver_tpu_torch.batch import solve_lasso_batch
+    from fastoptsolver_tpu_torch.bench import headline
+    from fastoptsolver_tpu_torch.parallel import make_mesh
+
+    n, m, B = MESH_SIZES["bench"]
+    A, b, a1 = headline.build_problems(torch.Generator(device=dev).manual_seed(0), B, m)
+    cfg = headline.bench_config()
+    plain = solve_lasso_batch(A, b, a1, 0.0, cfg=cfg, feature_major=True)
+    mesh = make_mesh(batch=1, device_type=dev.type)
+    counts = {}
+    res = mesh_counted(counts, "bench", mods, lambda: solve_lasso_batch(
+        A, b, a1, 0.0, cfg=cfg, feature_major=True, mesh=mesh))
+    torch.save({k: getattr(res, k).cpu() for k in ("x", "iters", "converged")},
+               os.path.join(outdir, "one.pt"))
+    return dict(backend=dist.get_backend(), world=dist.get_world_size(), counts=counts,
+                bits_equal=mesh_same(res, plain), certified=int(res.converged.sum()),
+                failed=int(res.failed.sum()), B=B)
+
+
+def mesh_four_bench(dev, mods, mesh, outdir, r, counts):
+    """(b)1: the bench cell over the batch axis, bit-equal to (a); every
+    lane certified, a float64 recheck, and a 100 + 900 mesh resume."""
+    import dataclasses
+
+    import torch
+
+    from fastoptsolver_tpu_torch.batch import solve_lasso_batch
+    from fastoptsolver_tpu_torch.batch.fista_gram import _rel_gap, make_gram_batch
+    from fastoptsolver_tpu_torch.bench import headline
+
+    n, m, B = MESH_SIZES["bench"]
+    A, b, a1 = headline.build_problems(torch.Generator(device=dev).manual_seed(0), B, m)
+    cfg = headline.bench_config()
+    t0 = time.perf_counter()
+    res = mesh_counted(counts, "bench", mods, lambda: solve_lasso_batch(
+        A, b, a1, 0.0, cfg=cfg, feature_major=True, mesh=mesh))
+    r["bench_s"] = time.perf_counter() - t0
+    one = torch.load(os.path.join(outdir, "one.pt"))
+    r["bench_bits_equal_one_rank"] = all(bool(torch.equal(getattr(res, k).cpu(), v))
+                                         for k, v in one.items())
+    r["bench_certified"], r["bench_failed"] = int(res.converged.sum()), int(res.failed.sum())
+    r["bench_max_gap"] = float(res.rel_gap.max())
+    g = torch.Generator(device=dev).manual_seed(1)
+    idx = torch.randperm(B, generator=g, device=dev)[:4096]
+    gb64 = make_gram_batch(A[:, :, idx].double().permute(2, 1, 0), b[:, idx].double().T,
+                           a1[idx].double(), 0.0,
+                           L=torch.ones(idx.numel(), dtype=torch.float64, device=dev))
+    r["bench_gap64"] = float(_rel_gap(gb64, res.x[idx].double().T).max())
+    del gb64
+    half = dataclasses.replace(cfg, max_iter=MESH_SIZES["resume"])
+
+    def resume():
+        _, mid = solve_lasso_batch(A, b, a1, 0.0, cfg=half, feature_major=True, mesh=mesh,
+                                   return_state=True)
+        return solve_lasso_batch(A, b, a1, 0.0, cfg=cfg, feature_major=True, mesh=mesh,
+                                 state0=mid), type(mid).__name__
+
+    resumed, r["bench_state"] = mesh_counted(counts, "bench_resume", mods, resume)
+    r["bench_resume_bit_exact"] = mesh_same(resumed, res, ("x", "iters", "converged",
+                                                           "rel_gap"))
+
+
+def mesh_four_wide(dev, mods, mesh, r, counts, rank):
+    """(b)2: W1 through the mesh resume on the resident engine against the
+    one-rank routed call, and W2 fresh through the Q-streaming engine."""
+    import dataclasses
+
+    import torch
+
+    from fastoptsolver_tpu_torch.batch import BatchFISTAConfig, solve_lasso_batch
+    from fastoptsolver_tpu_torch.bench.wide_n import build_problems
+
+    cfg = BatchFISTAConfig(max_iter=1000, check_every=25, rel_gap_tol=1e-6)
+    sizes = MESH_SIZES
+    n, B = sizes["w1"]
+    A, b, a1 = build_problems(torch.Generator(device=dev).manual_seed(0), B, 2 * n, n)
+    half = dataclasses.replace(cfg, max_iter=sizes["resume"])
+
+    def w1():
+        _, mid = solve_lasso_batch(A, b, a1, 0.0, cfg=half, feature_major=True, mesh=mesh,
+                                   return_state=True)
+        return solve_lasso_batch(A, b, a1, 0.0, cfg=cfg, feature_major=True, mesh=mesh,
+                                 state0=mid), type(mid).__name__
+
+    t0 = time.perf_counter()
+    res, r["w1_state"] = mesh_counted(counts, "w1_resume", mods, w1)
+    r["w1_s"] = time.perf_counter() - t0
+    if rank == 0:
+        ref = solve_lasso_batch(A, b, a1, 0.0, cfg=cfg, feature_major=True)
+        r["w1_hold"] = mesh_certified_hold(res, ref)
+        r["w1_certified"], r["w1_ref_certified"] = (int(res.converged.sum()),
+                                                    int(ref.converged.sum()))
+        r["w1_check"] = mesh_check_wide(res, A, b, a1, B)
+    del A, b
+    n, B = sizes["w2"]
+    A, b, a1 = build_problems(torch.Generator(device=dev).manual_seed(0), B, 2 * n, n)
+    t0 = time.perf_counter()
+    res = mesh_counted(counts, "w2", mods, lambda: solve_lasso_batch(
+        A, b, a1, 0.0, cfg=cfg, feature_major=True, mesh=mesh))
+    r["w2_s"] = time.perf_counter() - t0
+    r["w2_bursts"] = int(res.n_iters_total) // cfg.check_every
+    if rank == 0:
+        r["w2_check"] = mesh_check_wide(res, A, b, a1, B)
+
+
+def mesh_check_wide(res, A, b, a1, B) -> dict:
+    """``check_wide``'s readings, without its holds (the parent holds them)."""
+    import torch
+
+    from fastoptsolver_tpu_torch.batch.fista_gram import _rel_gap, make_gram_batch
+
+    dev = A.device
+    conv = res.converged
+    idx = torch.randperm(B, generator=torch.Generator(device=dev).manual_seed(1),
+                         device=dev)[:4096]
+    gb64 = make_gram_batch(A[:, :, idx].double().permute(2, 1, 0), b[:, idx].double().T,
+                           a1[idx].double(), 0.0,
+                           L=torch.ones(idx.numel(), dtype=torch.float64, device=dev))
+    return dict(share=float(conv.float().mean()), failed=int(res.failed.sum()),
+                finite=bool(torch.isfinite(res.x).all()),
+                gap_ok=float(res.rel_gap[conv].max()) if bool(conv.any()) else float("inf"),
+                max_gap=float(res.rel_gap.max()),
+                gap64=float(_rel_gap(gb64, res.x[idx].double().T).max()))
+
+
+def mesh_four_engines(dev, mods, mesh, r, counts, rank):
+    """(b)3: the wide-n cell through ``fista_gram_vmem_sharded`` against
+    ``fista_gram_vmem``, and ``solve_pipeline_sharded`` in restart mode (the
+    build kernels and the adaptive entry per rank) against the same
+    pipeline on one rank."""
+    import torch
+
+    from fastoptsolver_tpu_torch.batch import BatchFISTAConfig
+    from fastoptsolver_tpu_torch.bench.wide_n import build_problems
+    from fastoptsolver_tpu_torch.kernels import (
+        fista_gram_vmem, fista_gram_vmem_adaptive, fista_gram_vmem_sharded,
+        make_gram_batch_fused, solve_pipeline_sharded)
+
+    n, B = MESH_SIZES["wide"]
+    A, b, a1 = build_problems(torch.Generator(device=dev).manual_seed(0), B, 2 * n, n)
+    gb = make_gram_batch_fused(A, b, a1, 0.0)
+    cfg = BatchFISTAConfig(max_iter=1000, check_every=25, rel_gap_tol=1e-6)
+    t0 = time.perf_counter()
+    res = mesh_counted(counts, "vmem_sharded", mods, lambda: fista_gram_vmem_sharded(
+        gb, mesh, cfg))
+    r["vmem_s"] = time.perf_counter() - t0
+    r["vmem_n_iters_total"] = int(res.n_iters_total)
+    if rank == 0:
+        ref = fista_gram_vmem(gb, cfg)
+        r["vmem_converged_equal"] = bool(torch.equal(res.converged, ref.converged))
+        r["vmem_certified"] = int(res.converged.sum())
+        r["vmem_ref_n_iters_total"] = int(ref.n_iters_total)
+        r["vmem_x_ok"] = bool(torch.allclose(res.x, ref.x, rtol=2e-3, atol=1e-4))
+        r["vmem_max_dx"] = float((res.x - ref.x).abs().max())
+    del gb
+    rcfg = BatchFISTAConfig(max_iter=1000, check_every=25, rel_gap_tol=1e-6,
+                            adaptive_restart=True)
+    t0 = time.perf_counter()
+    res = mesh_counted(counts, "pipeline", mods, lambda: solve_pipeline_sharded(
+        A, b, a1, 0.0, mesh, rcfg))
+    r["pipeline_s"] = time.perf_counter() - t0
+    if rank == 0:
+        gb = make_gram_batch_fused(A, b, a1, 0.0)
+        ref = fista_gram_vmem_adaptive(gb, rcfg)
+        r["pipeline_hold"] = mesh_certified_hold(res, ref)
+        r["pipeline_share"] = float(res.converged.float().mean())
+
+
+def mesh_four_merge(dev, mods, mesh, outdir, r, counts, rank):
+    """(b)4: each rank streams its own rows of the streamed cell's recipe at
+    n = 1280 and ``merge_grams`` sums them. The yardstick takes no
+    collective: rank 0 makes every chunk again from the seed and sums AᵀA,
+    Aᵀb and bᵀb over all rows in float64 (and in TF32, the control), and
+    every rank holds its merged triple against that sum, read from a file.
+    ``fista_gram_dense`` on the merged Gram, x bit-equal across ranks."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from fastoptsolver_tpu_torch.bench.streaming_lasso import make_chunks
+    from fastoptsolver_tpu_torch.problems import generator_chunks, merge_grams, stream_gram
+    from fastoptsolver_tpu_torch.solvers import DenseGramConfig, fista_gram_dense
+
+    world = dist.get_world_size()
+    m, n, rows = MESH_SIZES["merge"]
+    make_chunk, n_chunks = make_chunks(m, n, rows)
+    mine = list(range(rank * n_chunks // world, (rank + 1) * n_chunks // world))
+    t0 = time.perf_counter()
+    local = stream_gram(generator_chunks(lambda i: make_chunk(mine[i]), len(mine)), n=n,
+                        device=dev)
+    r["merge_stream_s"] = time.perf_counter() - t0
+    merged = mesh_counted(counts, "merge", mods, lambda: merge_grams(local, mesh, "batch"))
+
+    def rel(got, want):
+        return max(float(torch.linalg.vector_norm(g.double() - w) / torch.linalg.vector_norm(w))
+                   for g, w in zip(got, want))
+
+    path = os.path.join(outdir, "merge_f64.pt")
+    if rank == 0:
+        t0 = time.perf_counter()
+        z = lambda dt: [torch.zeros(s, dtype=dt, device=dev) for s in ((n, n), (n,), ())]
+        ref, ctl = z(torch.float64), z(torch.float32)
+        for i in range(n_chunks):
+            A_i, b_i = make_chunk(i)
+            A = torch.from_numpy(np.ascontiguousarray(A_i)).to(dev)
+            bb = torch.from_numpy(np.ascontiguousarray(b_i)).to(dev)
+            A64, b64 = A.double(), bb.double()
+            for k, p in enumerate((A64.T @ A64, A64.T @ b64, torch.dot(b64, b64))):
+                ref[k].add_(p)
+            At, bt = round_tf32(A), round_tf32(bb)
+            for k, p in enumerate((At.T @ At, At.T @ bt, torch.dot(bt, bt))):
+                ctl[k].add_(p)
+            del A, bb, A64, b64, At, bt
+        torch.save([t.cpu() for t in ref], path + ".part")
+        os.replace(path + ".part", path)
+        r["merge_rel_tf32"] = rel(ctl, ref)
+        r["merge_yardstick_s"] = time.perf_counter() - t0
+    dist.barrier()
+    ref = [t.to(dev) for t in torch.load(path)]
+    r["merge_rel"] = rel((merged.Q, merged.c, merged.btb), ref)
+    r["merge_m"] = int(merged.m)
+    a1 = 0.1 * float(torch.max(torch.abs(merged.c)))
+    res = fista_gram_dense(merged, a1, 0.0, DenseGramConfig(max_iter=3000, check_every=100,
+                                                           rel_gap_tol=STREAM_TOL))
+    xs = [torch.empty_like(res.x) for _ in range(world)]
+    dist.all_gather(xs, res.x)
+    r["merge_converged"] = bool(res.converged)
+    r["merge_rel_gap"] = float(res.rel_gap)
+    r["merge_x_same_on_every_rank"] = all(bool(torch.equal(x, xs[0])) for x in xs)
+
+
+def mesh_four_model(dev, mods, r, counts, rank, world):
+    """(b)5: ``DistributedLeastSquares`` row and col at the large lasso's
+    shape against a float64 yardstick beside the one-rank ``api.solve``,
+    α₁ 1% high refused; ``consensus_admm`` on the CV table against CD's
+    certified optimum."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from fastoptsolver_tpu_torch import api
+    from fastoptsolver_tpu_torch.bench import large_lasso
+    from fastoptsolver_tpu_torch.parallel import (
+        DistributedLeastSquares, consensus_admm, make_mesh)
+    from fastoptsolver_tpu_torch.problems import LeastSquares
+    from fastoptsolver_tpu_torch.solvers import FISTAConfig, certified_optimum, fista
+    from fastoptsolver_tpu_torch.solvers.admm import ADMMConfig
+    from fastoptsolver_tpu_torch.solvers.cd import CDConfig
+
+    mesh = make_mesh(batch=1, model=world, device_type=dev.type)
+    m, n = MESH_SIZES["lasso"]
+    A, b, a1 = large_lasso.build(m, n, torch.Generator(device=dev).manual_seed(0))
+    a1 = float(a1)
+    cfg = FISTAConfig(max_iter=LARGE_ITERS)
+    one = api.solve(A, b, "lasso", alpha1=a1, method="fista", max_iter=LARGE_ITERS)
+    L = one.L
+    xs = {"api": one.x}
+    for layout in ("row", "col"):
+        prob = DistributedLeastSquares.create(A, b, mesh, "lasso", a1, layout=layout)
+        t0 = time.perf_counter()
+        x = fista(prob, cfg, L=L).x
+        if layout == "col":  # the list all_gather, which gloo takes on CUDA tensors
+            parts = [torch.empty_like(x.to_local()) for _ in range(world)]
+            dist.all_gather(parts, x.to_local(), group=mesh.get_group("model"))
+            x = torch.cat(parts)
+        xs[layout] = x
+        r[f"lasso_{layout}_s"] = time.perf_counter() - t0
+        if layout == "row":
+            r["lasso_row_L_rel"] = float(abs(fista(prob, FISTAConfig(max_iter=0)).L - L) / L)
+            high = dataclasses.replace(prob, alpha1=prob.alpha1 * 1.01)
+            xs["control"] = fista(high, cfg, L=L).x
+    if rank == 0:
+        p64 = LeastSquares(A=A.double(), b=b.double(),
+                           alpha1=torch.tensor(a1, dtype=torch.float64, device=dev),
+                           alpha2=torch.zeros((), dtype=torch.float64, device=dev))
+        x64 = fista(p64, cfg, L=L.double()).x
+        f64 = p64.objective(x64)
+        r["lasso"] = {k: hold_reading(v, x64, p64.objective, f64) for k, v in xs.items()}
+        del p64, x64
+    del A, b, xs
+    torch.cuda.empty_cache()
+
+    A, b = (t.double() for t in cv_problem(dev))
+    a1 = 0.1 * float((A.T @ b).abs().max())
+    t0 = time.perf_counter()
+    res = consensus_admm(A, b, mesh, "lasso", alpha1=a1,
+                         config=ADMMConfig(max_iter=4000, abstol=1e-9, reltol=1e-8),
+                         dtype=torch.float64)
+    r["admm_s"] = time.perf_counter() - t0
+    r["admm_iters"], r["admm_converged"] = int(res.n_iters), bool(res.converged)
+    r["admm_x_smooth_shape"] = list(res.x_smooth.shape)
+    if rank == 0:
+        p = LeastSquares(A=A, b=b, alpha1=torch.tensor(a1, dtype=torch.float64, device=dev),
+                         alpha2=torch.zeros((), dtype=torch.float64, device=dev))
+        _, f_star = certified_optimum(p.to_gram(), CDConfig(max_sweeps=20000, tol=1e-14))
+        r["admm_rel_obj"] = float(abs(p.objective(res.x) - f_star) / abs(f_star))
+
+
+def mesh_child_four(dev, mods, rank: int, world: int, outdir: str) -> dict:
+    """(b) Four ranks over gloo, all on one card: (b)1-(b)5."""
+    import torch
+
+    from fastoptsolver_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(batch=world, device_type=dev.type)
+    r, counts, secs = {}, {}, {}
+    for name, fn in (("bench", lambda: mesh_four_bench(dev, mods, mesh, outdir, r, counts)),
+                     ("wide", lambda: mesh_four_wide(dev, mods, mesh, r, counts, rank)),
+                     ("engines", lambda: mesh_four_engines(dev, mods, mesh, r, counts, rank)),
+                     ("merge", lambda: mesh_four_merge(dev, mods, mesh, outdir, r, counts,
+                                                       rank)),
+                     ("model", lambda: mesh_four_model(dev, mods, r, counts, rank, world))):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.empty_cache()
+        secs[name] = time.perf_counter() - t0
+        print(f"rank {rank}: {name} {secs[name]:.1f} s", flush=True)
+    return dict(r, counts=counts, part_s=secs)
+
+
+def mesh_child(part: str, rank: int, world: int, port: int, outdir: str) -> None:
+    """A rank of phase 15, started by ``spawn_mesh``: its readings go to
+    ``outdir/<part><rank>.json``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    t0 = time.perf_counter()
+    import fastoptsolver_tpu_torch  # noqa: F401  (numerics contract)
+    from fastoptsolver_tpu_torch.bench import stream as stream_mod
+    from fastoptsolver_tpu_torch.kernels import (
+        _build, fista_vmem, fused_solve, gram_build, qstream, resident)
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.zeros(1, device=dev)  # the context
+    _build.library()  # phase 2's build, loaded
+    ready_s = time.perf_counter() - t0
+    mods = {"fused": fused_solve, "stream": stream_mod, "gram": gram_build,
+            "burst": fista_vmem, "resident": resident, "qstream": qstream}
+    if part == "four":  # several ranks on one card: gloo (NCCL takes one rank a card)
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                                world_size=world, timeout=datetime.timedelta(seconds=300))
+        out = mesh_child_four(dev, mods, rank, world, outdir)
+    else:
+        out = mesh_child_one(dev, mods, outdir)
+    out["ready_s"], out["child_s"] = ready_s, time.perf_counter() - t0
+    with open(os.path.join(outdir, f"{part}{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def spawn_mesh(part: str, world: int, outdir: str, timeout: float) -> list:
+    """Start ``world`` ranks of ``mesh_child`` (``bench.scaling.spawn_ranks``:
+    one deadline, every rank killed on expiry) and return their readings; a
+    rank's failure fails the phase with the end of its output."""
+    from fastoptsolver_tpu_torch.bench.scaling import free_port, spawn_ranks
+
+    port = free_port()
+    argvs = [[sys.executable, os.path.abspath(__file__), "--mesh-child", part, str(r),
+              str(world), str(port), outdir] for r in range(world)]
+    try:
+        ranks = spawn_ranks(argvs, timeout)
+    except TimeoutError as e:
+        raise PhaseFailed(f"phase 15 ({part}): {e}") from None
+    for r, (rc, log) in enumerate(ranks):
+        if rc != 0:
+            raise PhaseFailed(f"phase 15 ({part}) rank {r} exited {rc}: {log[-3000:]}")
+    out = []
+    for r in range(world):
+        with open(os.path.join(outdir, f"{part}{r}.json")) as f:
+            out.append(json.load(f))
+    return out
+
+
+def mesh_path(smi: str) -> dict:
+    """Phase 15: the multi-device layer in child processes, (a) one NCCL
+    rank, (b) four gloo ranks on the one card, then ``bench.scaling``; the
+    children's launches summed per kernel."""
+    import tempfile
+
+    from fastoptsolver_tpu_torch.bench import scaling
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as outdir:
+        one = spawn_mesh("one", 1, outdir, MESH_CHILD_TIMEOUT)[0]
+        four = spawn_mesh("four", MESH_RANKS, outdir, MESH_CHILD_TIMEOUT)
+    r = four[0]
+    launches = {}
+    for child in [one] + four:
+        for c in child["counts"].values():
+            for k, v in c.items():
+                launches[k] = launches.get(k, 0) + v
+    B = one["B"]
+    print(f"[15 mesh] (a) one rank, {one['backend']} (world {one['world']}): bench cell "
+          f"through mesh=, bit-equal to the plain call {one['bits_equal']}, certified "
+          f"{one['certified']}/{B}, failed {one['failed']}, launches {one['counts']['bench']} "
+          f"| child {one['child_s']:.1f} s ({one['ready_s']:.1f} s to the card) | {smi}")
+    require(one["backend"] == "nccl", f"(a) ran on {one['backend']}")
+    require(one["bits_equal"] and one["certified"] == B and one["failed"] == 0,
+            f"(a): bits equal {one['bits_equal']}, {one['certified']}/{B} certified")
+    require(one["counts"]["bench"]["fused"] == 1, f"(a) launches {one['counts']['bench']}")
+    per_rank = [c["counts"] for c in four]
+    print(f"-- (b) {MESH_RANKS} ranks, gloo on one card: children {[round(c['child_s'], 1) for c in four]} s "
+          f"({[round(c['ready_s'], 1) for c in four]} s to the card); parts of rank 0 "
+          f"{ {k: round(v, 1) for k, v in r['part_s'].items()} } s")
+    print(f"-- (b)1 bench cell, batch axis of 4 (65536 lanes a rank): bit-equal to (a) "
+          f"{r['bench_bits_equal_one_rank']} on every rank "
+          f"{all(c['bench_bits_equal_one_rank'] for c in four)}, certified "
+          f"{r['bench_certified']}/{B}, failed {r['bench_failed']}, max rel_gap "
+          f"{r['bench_max_gap']:.3e}, f64 recheck {r['bench_gap64']:.3e} on 4096 lanes; "
+          f"100 + 900 resume ({r['bench_state']}) bit-exact {r['bench_resume_bit_exact']} | "
+          f"{r['bench_s']:.3f} s | launches a rank {per_rank[0]['bench']}, resume "
+          f"{per_rank[0]['bench_resume']}")
+    require(all(c["bench_bits_equal_one_rank"] and c["bench_resume_bit_exact"] for c in four),
+            "(b)1: the mesh bench cell is not (a)'s bits, or its resume is not bit-exact")
+    require(r["bench_certified"] == B and r["bench_failed"] == 0 and r["bench_gap64"] <= 1e-4,
+            f"(b)1: {r['bench_certified']}/{B} certified, f64 {r['bench_gap64']:.3e}")
+    require(all(c["bench"] == dict(c["bench"], fused=1) and sum(c["bench"].values()) == 1
+                and c["bench_resume"]["fused"] == 2 == sum(c["bench_resume"].values())
+                for c in per_rank), f"(b)1 launches {per_rank}")
+    w1, w2 = r["w1_check"], r["w2_check"]
+    h = r["w1_hold"]
+    print(f"-- (b)2 W1 n={MESH_SIZES['w1'][0]} 100 + 900 mesh resume ({r['w1_state']}): "
+          f"certified {w1['share']:.4f} (one rank {r['w1_ref_certified']}), failed "
+          f"{w1['failed']}, f64 recheck {w1['gap64']:.3e}; against the one-rank call: "
+          f"converged equal {h['converged_equal']}, iters equal {h['iters_equal']}, x on "
+          f"{h['lanes_held']} lanes both certify at one iteration max|dx| {h['max_dx']:.3e} | "
+          f"{r['w1_s']:.3f} s, launches a rank {per_rank[0]['w1_resume']} | W2 "
+          f"n={MESH_SIZES['w2'][0]} fresh: certified {w2['share']:.4f}, failed {w2['failed']}, "
+          f"f64 recheck {w2['gap64']:.3e}, {r['w2_bursts']} bursts, {r['w2_s']:.3f} s, "
+          f"launches a rank {per_rank[0]['w2']}")
+    for label, chk, share in (("W1", w1, 0.80), ("W2", w2, 0.75)):
+        require(chk["finite"] and chk["share"] >= share and chk["failed"] == 0
+                and chk["gap_ok"] <= 1e-6 and chk["max_gap"] <= 1e-5 and chk["gap64"] <= 1e-4,
+                f"(b)2 {label}: {chk}")
+    require(r["w1_state"] == "ResidentSolveState" and h["converged_equal"]
+            and h["iters_equal"] and h["x_ok"], f"(b)2 W1 against the one-rank call: {h}")
+    require(all(c["w1_resume"]["resident"] == 2 and sum(c["w1_resume"].values()) == 2
+                and 0 < c["w2"]["qstream"] == sum(c["w2"].values()) for c in per_rank)
+            and max(c["w2"]["qstream"] for c in per_rank) == r["w2_bursts"],
+            f"(b)2 launches {per_rank}")
+    ph = r["pipeline_hold"]
+    print(f"-- (b)3 wide-n n={MESH_SIZES['wide'][0]}: fista_gram_vmem_sharded "
+          f"n_iters_total {r['vmem_n_iters_total']} (one rank, with its early exit, "
+          f"{r['vmem_ref_n_iters_total']}), converged equal {r['vmem_converged_equal']}, "
+          f"certified {r['vmem_certified']}, max|dx| {r['vmem_max_dx']:.3e} (rtol 2e-3/atol "
+          f"1e-4: {r['vmem_x_ok']}), {r['vmem_s']:.3f} s, launches a rank "
+          f"{per_rank[0]['vmem_sharded']} | solve_pipeline_sharded (restart): certified "
+          f"{r['pipeline_share']:.4f}, against one rank converged equal "
+          f"{ph['converged_equal']}, iters equal {ph['iters_equal']}, x on {ph['lanes_held']} "
+          f"lanes max|dx| {ph['max_dx']:.3e}, {r['pipeline_s']:.3f} s, launches a rank "
+          f"{per_rank[0]['pipeline']}")
+    require(r["vmem_converged_equal"] and r["vmem_x_ok"] and r["vmem_certified"] > 0,
+            "(b)3: fista_gram_vmem_sharded disagrees with fista_gram_vmem")
+    require(ph["converged_equal"] and ph["iters_equal"] and ph["x_ok"]
+            and r["pipeline_share"] >= 0.80, f"(b)3 pipeline against one rank: {ph}")
+    bursts = r["vmem_n_iters_total"] // 25
+    require(all(c["vmem_sharded"]["burst"] == bursts == sum(c["vmem_sharded"].values())
+                and c["pipeline"]["gram"] == 2 and c["pipeline"]["resident"] == 1
+                and sum(c["pipeline"].values()) == 3 for c in per_rank),
+            f"(b)3 launches {per_rank}")
+    mm, mn, _ = MESH_SIZES["merge"]
+    merge_rel = [c["merge_rel"] for c in four]
+    print(f"-- (b)4 merge_grams n={mn}, {mm} rows (m cut from {MERGE_CUT_FROM}, reduced), "
+          f"{mm // MESH_RANKS} a rank streamed in {r['merge_stream_s']:.2f} s: merged m "
+          f"{r['merge_m']}, each rank's triple against rank 0's float64 sum over every "
+          f"row, made again from the seed without a collective in "
+          f"{r['merge_yardstick_s']:.2f} s: {[f'{v:.3e}' for v in merge_rel]} (limit "
+          f"{STREAM_REL_HOLD}; TF32 control {r['merge_rel_tf32']:.3e}), fista_gram_dense "
+          f"converged {r['merge_converged']} at {r['merge_rel_gap']:.3e}, x the same bits on "
+          f"every rank {all(c['merge_x_same_on_every_rank'] for c in four)}")
+    require(all(c["merge_m"] == mm for c in four) and max(merge_rel) <= STREAM_REL_HOLD
+            and r["merge_rel_tf32"] > STREAM_REL_HOLD and r["merge_converged"]
+            and all(c["merge_x_same_on_every_rank"] for c in four),
+            f"(b)4 merge: {merge_rel}, control {r['merge_rel_tf32']:.3e}")
+    lasso = r["lasso"]
+    print(f"-- (b)5 DistributedLeastSquares {MESH_SIZES['lasso']} f32, {LARGE_ITERS} "
+          f"iterations, against float64 at {LARGE_HOLD}: row {verdict(lasso['row'], LARGE_HOLD)} "
+          f"({r['lasso_row_s']:.2f} s), col {verdict(lasso['col'], LARGE_HOLD)} "
+          f"({r['lasso_col_s']:.2f} s), one-rank api.solve {verdict(lasso['api'], LARGE_HOLD)}; "
+          f"control (α₁ 1% high, row) {verdict(lasso['control'], LARGE_HOLD)}; the row "
+          f"layout's own power iteration within {r['lasso_row_L_rel']:.2e} of api.solve's L | "
+          f"consensus_admm {MESH_SIZES['admm']} float64: {r['admm_iters']} iterations, "
+          f"converged {r['admm_converged']}, x_smooth {r['admm_x_smooth_shape']}, objective "
+          f"within {r['admm_rel_obj']:.3e} of CD's certified optimum (limit 1e-8), "
+          f"{r['admm_s']:.2f} s")
+    require(all(passes(lasso[k], LARGE_HOLD) for k in ("row", "col", "api"))
+            and not passes(lasso["control"], LARGE_HOLD), f"(b)5 lasso holds: {lasso}")
+    require(r["admm_converged"] and r["admm_rel_obj"] <= 1e-8
+            and r["admm_x_smooth_shape"][0] == MESH_RANKS, "(b)5 consensus_admm")
+    t1 = time.perf_counter()
+    reports = scaling.run_scaling([1, 2, 4], ("dp", "model"), device="cuda",
+                                timeout=MESH_CHILD_TIMEOUT)
+    print(f"-- (b)6 bench.scaling --mode dp model --devices 1 2 4, both modes in one set of "
+          f"ranks a count ({time.perf_counter() - t1:.1f} s) | {smi}")
+    for mode, rep in reports.items():
+        print(f"-- (b)6 {mode}: {json.dumps(rep)}")
+    seconds = time.perf_counter() - t0
+    print(f"-- phase 15 {seconds:.1f} s; launches of its children, summed: {launches}")
+    return dict(launches=launches, seconds=seconds, one=one, four=r,
+                scaling=reports, counts=per_rank)
+
+
 def main() -> int:
     import torch
 
@@ -3503,6 +4067,13 @@ def main() -> int:
         launches["fused"] += ab_out[part]["launches"]["fused"]
     print("-- ablate record " + json.dumps(ab_out, default=str))
 
+    # ---- 15: the multi-device layer, in child processes ----
+    torch.cuda.empty_cache()
+    mesh_out = mesh_path(smi)
+    for k, v in mesh_out["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+    print("-- mesh record " + json.dumps(mesh_out, default=str))
+
     kernels = [
         {"name": "fused_lasso_solve", "route": "cuda", "source": FUSED_SRC,
          "replaces": "fastoptsolver_tpu/kernels/fused_solve.py:120",
@@ -3556,7 +4127,8 @@ def main() -> int:
          "adaptive_entry": adaptive},
         {"name": "qstream_burst", "route": "cuda", "source": QSTREAM_SRC,
          "replaces": "fastoptsolver_tpu/kernels/qstream.py:90",
-         "launches": w2["launches"], "max_abs_err": errs["qstream"], "ms": w2["ms"],
+         "launches": w2["launches"] + launches.get("qstream", 0),
+         "max_abs_err": errs["qstream"], "ms": w2["ms"],
          "plain_ms": w2["plain_ms"], "bound_ms": w2["bound_ms"], "bound_by": w2["bound_by"],
          "library_ms": None, "plain_lanes": w2["plain_lanes"],
          "ms_at_plain_lanes": w2["ms_at_plain_lanes"], "e2e_ms": w2["e2e_ms"],
@@ -3575,6 +4147,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-child"]:  # a rank of phase 15
+        part, rank, world, port, outdir = sys.argv[2:7]
+        mesh_child(part, int(rank), int(world), int(port), outdir)
+        sys.exit(0)
     try:
         sys.exit(main())
     except PhaseFailed as e:

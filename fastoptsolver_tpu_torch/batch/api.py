@@ -38,7 +38,11 @@ cannot serve the call, including a CPU tensor without ``interpret``.
 ``state0`` pins the route to the engine whose state it is
 (``ResidentSolveState`` → resident engine, ``FusedSolveState`` → fused
 kernel, ``VmemSolveState`` → burst or Q-streaming engine, ``BatchState`` →
-driver); ``mesh=`` is not ported.
+driver).
+
+``mesh=`` (a ``torch.distributed`` ``DeviceMesh``, ``parallel.make_mesh``)
+runs this routed surface on every rank of the mesh's ``mesh_axis`` over its
+own lanes (``_solve_lasso_batch_sharded``); every rank calls it.
 """
 from __future__ import annotations
 
@@ -270,14 +274,19 @@ def solve_lasso_batch(
     the ``torch.Generator`` for the driver's power-iteration start (the
     reference takes a ``jax.random`` key there). Returns a ``BatchResult``,
     or ``(result, state)`` with ``return_state``; ``state0`` resumes on the
-    engine whose state it is."""
-    if mesh is not None:  # mesh_axis alone is ignored, as the reference does
-        raise NotImplementedError(
-            "solve_lasso_batch(mesh=) is not ported yet (ROADMAP Queue 1 "
-            "item 7: torch.distributed)"
-        )
+    engine whose state it is.
+
+    ``mesh``: every rank of the mesh calls with the same arguments (the
+    whole batch, or DTensors sharded on the instance axis over
+    ``mesh_axis``, default ``"batch"``); each solves its lanes on the routed
+    surface, and every rank gets the whole result (see
+    :func:`_solve_lasso_batch_sharded`)."""
     if cfg is None:
         cfg = _default_cfg()
+    if mesh is not None:  # mesh_axis alone is ignored, as the reference does
+        return _solve_lasso_batch_sharded(A, b, alpha1, alpha2, cfg, backend,
+                                          feature_major, key, interpret, mesh,
+                                          mesh_axis, state0, return_state)
     n = A.shape[0] if feature_major else A.shape[-1]
     if state0 is not None:
         return _resume_lasso_batch(A, b, alpha1, alpha2, cfg, backend,
@@ -320,6 +329,149 @@ def solve_lasso_batch(
         return fista_gram_vmem(gb, cfg, interpret=interpret,
                                return_state=return_state)
     return fista_gram_batch(gb, cfg, return_state=return_state)
+
+
+def _mesh_state_engine(n: int, m: int, cfg, backend: str, interpret: bool,
+                       on_cuda: bool) -> str:
+    """The per-lane-k engine a mesh checkpoint/resume rides: the fused
+    kernel first, the resident engine in the wide window; raises
+    ``NotImplementedError`` (the reference's messages) for anything else."""
+    from ..kernels.fista_vmem import plan_gram_solve
+    from ..kernels.fused_solve import _check_fused_cfg, auto_tiles_fused
+
+    if backend not in ("auto", "kernel"):
+        # the mesh state path IS a per-lane-k kernel engine; refuse rather
+        # than silently override the caller's forced driver
+        raise NotImplementedError(
+            f"mesh checkpoint/resume rides the per-lane-k kernel "
+            f"engines; it cannot honor backend={backend!r} — drop the "
+            "mesh or the backend forcing"
+        )
+    try:
+        _kernel_route(n, cfg, "kernel", interpret, on_cuda)
+        try:
+            _check_fused_cfg(cfg)
+            auto_tiles_fused(n, m)
+            return "fused"
+        except (ValueError, NotImplementedError):
+            if plan_gram_solve(n, cfg)[0] != "resident":
+                raise NotImplementedError(
+                    "this configuration lands on a scalar-k engine "
+                    "(the burst kernel, qstream, or the torch driver), "
+                    "whose host-sized burst schedule cannot differ per shard"
+                )
+            return "resident"
+    except (ValueError, NotImplementedError) as e:
+        raise NotImplementedError(
+            "mesh-routed checkpoint/resume needs a per-lane-k engine "
+            "(fused single-launch, or resident in the wide window); "
+            f"this configuration cannot run one: {e}"
+        ) from e
+
+
+def _solve_lasso_batch_sharded(A, b, alpha1, alpha2, cfg, backend,
+                               feature_major, key, interpret, mesh, mesh_axis,
+                               state0=None, return_state=False):
+    """Mesh-routed :func:`solve_lasso_batch`: the single-device routed
+    surface runs on every rank of ``mesh[mesh_axis]`` over that rank's lanes.
+    Each rank owns whole instances, so the solve needs no communication;
+    the routing is the same on every rank.
+
+    The batch is padded to a multiple of 128 lanes a rank
+    (``parallel.lanes.LaneLayout``; padded lanes have A = b = 0 and certify
+    at once) and the results are gathered to every rank as plain tensors.
+
+    Checkpoint/resume over the mesh rides the per-lane-k engines (the fused
+    kernel; the resident engine in the wide window), whose state is per lane,
+    ``k`` included, so ranks evolve independently. The other engines carry
+    one iteration counter that sizes a burst schedule on the host, and mesh
+    state on them raises. A resumed ``state0`` is the whole state, as a
+    returned one is; its ``k`` must be uniform within each rank's lane
+    tiles, the port's groupings (``fused_solve.auto_tiles_fused``'s
+    ``b_tile``; ``resident.kernel_group``, the resident engine's lanes a
+    group on that device, where the reference's 128-lane
+    ``auto_b_tile_resident`` tiles are its TPU grouping), else the
+    checkpoint was cut under another grouping and the call raises
+    ``ValueError``."""
+    from ..kernels.fused_solve import FusedSolveState, solve_lasso_fused
+    from ..kernels.resident import ResidentSolveState
+    from ..parallel.lanes import LaneLayout
+    from ..parallel.mesh import BATCH_AXIS, local
+
+    axis = BATCH_AXIS if mesh_axis is None else mesh_axis
+    lane_dim = -1 if feature_major else 0
+    n = A.shape[0] if feature_major else A.shape[-1]
+    m, B = A.shape[1], A.shape[lane_dim]
+    lay = LaneLayout(mesh, axis, B, 128)
+    on_cuda = local(A).is_cuda
+
+    state_engine = None
+    if state0 is not None or return_state:
+        state_engine = _mesh_state_engine(n, m, cfg, backend, interpret, on_cuda)
+        want = FusedSolveState if state_engine == "fused" else ResidentSolveState
+        if state0 is not None and not isinstance(state0, want):
+            raise NotImplementedError(
+                f"mesh-routed resume for this configuration rides the "
+                f"{state_engine} engine and carries {want.__name__}; "
+                f"got {type(state0).__name__} — resume it per shard through "
+                "the single-device surface"
+            )
+
+    A_blk, b_blk = lay.take(A, lane_dim), lay.take(b, lane_dim)
+    if not feature_major:
+        A_blk, b_blk = _feature_major(A_blk, b_blk, False)
+    a1_blk, a2_blk = lay.take_vector(alpha1, A_blk), lay.take_vector(alpha2, A_blk)
+
+    st = None
+    if state0 is not None:
+        from ..kernels._common import assert_tile_k_uniform
+        from ..kernels.fused_solve import auto_tiles_fused
+        from ..kernels.resident import kernel_group
+
+        bt = (min(auto_tiles_fused(n, m)[0], lay.per_rank) if state_engine == "fused"
+              else kernel_group(n, A_blk.device))
+        k = torch.as_tensor(local(state0.k)).reshape(-1)
+        for d in range(lay.size):
+            # each rank's tiles, clamped to the rank's end and the batch's
+            lo, hi = d * lay.per_rank, min((d + 1) * lay.per_rank, B)
+            if hi > lo:
+                try:
+                    assert_tile_k_uniform(k, hi - lo, bt, offset=lo)
+                except ValueError as e:
+                    raise ValueError(f"{e} (mesh shard {d})") from None
+        planes = lambda v, fill: lay.take(local(v).reshape(-1, B), -1, fill)
+        vec = lambda v, fill: lay.take(local(v).reshape(-1), -1, fill)
+        st = type(state0)(
+            X=planes(state0.X, 0.0), Y=planes(state0.Y, 0.0), t=planes(state0.t, 1.0),
+            ps=planes(state0.ps, 0.0), tau=planes(state0.tau, 1.0),
+            # padded lanes repeat the rank's last real k: their tile stays uniform
+            k=vec(state0.k, int(k[min(lay.lo + lay.per_rank, B) - 1])
+                  if lay.lo < B else int(k[-1])),
+            done=vec(state0.done, True), iters=vec(state0.iters, 0),
+            gap=vec(state0.gap, 0.0))
+
+    if state_engine == "fused":
+        res, fin = solve_lasso_fused(A_blk, b_blk, a1_blk, a2_blk, cfg=cfg,
+                                     interpret=interpret, state0=st, return_state=True)
+    elif state_engine == "resident":
+        res, fin = _solve_resident_routed(A_blk, b_blk, a1_blk, a2_blk, cfg, True,
+                                          key, interpret, state0=st, return_state=True)
+    else:
+        res, fin = solve_lasso_batch(A_blk, b_blk, a1_blk, a2_blk, cfg=cfg,
+                                     backend=backend, feature_major=True, key=key,
+                                     interpret=interpret), None
+    failed = (res.failed if res.failed is not None
+              else torch.zeros_like(res.converged))
+    x, iters, gap, conv, failed = (lay.gather(v, 0) for v in (
+        res.x, torch.as_tensor(res.iters), res.rel_gap, res.converged, failed))
+    from .fista_gram import BatchResult
+
+    result = BatchResult(x=x, iters=iters, rel_gap=gap, n_iters_total=torch.max(iters),
+                         converged=conv, failed=failed)
+    if fin is None:
+        return result
+    fin = type(fin)(*(lay.gather(v, -1) for v in fin))
+    return (result, fin) if return_state else result
 
 
 def _resume_lasso_batch(A, b, alpha1, alpha2, cfg, backend, feature_major,

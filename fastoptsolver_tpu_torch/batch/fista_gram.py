@@ -335,6 +335,10 @@ def init_batch_state(gb: GramBatch) -> BatchState:
     )
 
 
+def _any_live(done: torch.Tensor) -> bool:
+    return bool(torch.any(~done))
+
+
 def fista_gram_batch(
     gb: GramBatch,
     cfg: BatchFISTAConfig = BatchFISTAConfig(),
@@ -346,7 +350,61 @@ def fista_gram_batch(
 
     ``state0`` resumes a previous run exactly (``max_iter`` counts total
     iterations including the resumed ones). With ``return_state`` the final
-    state is returned alongside the result."""
+    state is returned alongside the result.
+
+    A GramBatch of DTensors sharded on the instance axis
+    (``parallel.shard_gram_batch``), called by every rank of the mesh, runs
+    the same loop on each rank's lanes; the "any lane live" test is reduced
+    over the ranks each block, so every rank stops where the unsharded run
+    stops, and the per-lane results come back as DTensors sharded like the
+    input."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(gb.Q, DTensor):
+        return _fista_gram_batch_sharded(gb, cfg, state0, return_state)
+    return _fista_gram_batch(gb, cfg, state0, return_state, _any_live)
+
+
+def _fista_gram_batch_sharded(gb, cfg, state0, return_state):
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    mesh = gb.Q.device_mesh
+    dims = [i for i, p in enumerate(gb.Q.placements) if isinstance(p, Shard)]
+    if [gb.Q.placements[i].dim for i in dims] != [2] * len(dims):
+        raise ValueError("a sharded GramBatch is sharded on its instance axis only "
+                         f"(Q's placements {gb.Q.placements})")
+    groups = [mesh.get_group(i) for i in dims]
+
+    def any_live(done):
+        flag = torch.any(~done).to(torch.int32)
+        for g in groups:
+            dist.all_reduce(flag, op=dist.ReduceOp.MAX, group=g)
+        return bool(flag)
+
+    lanes = lambda t: t.to_local() if isinstance(t, DTensor) else t
+    local_gb = GramBatch(*(lanes(v) for v in (gb.Q, gb.c, gb.btb, gb.alpha1,
+                                              gb.alpha2, gb.L)))
+    if state0 is not None:
+        state0 = BatchState(*(lanes(v) for v in state0))
+    res, fin = _fista_gram_batch(local_gb, cfg, state0, True, any_live)
+    lay = lambda t, d: DTensor.from_local(
+        t, mesh, [Shard(d) if i in dims else Replicate() for i in range(mesh.ndim)],
+        run_check=False)
+    # (B, ...) results on their leading axis, the state's (n, B) planes on the trailing one
+    on_mesh = lambda t: lay(t, 0) if isinstance(t, torch.Tensor) else t
+    plane = lambda t: lay(t, 1)
+    result = BatchResult(x=on_mesh(res.x), iters=on_mesh(res.iters),
+                         rel_gap=on_mesh(res.rel_gap), n_iters_total=res.n_iters_total,
+                         converged=on_mesh(res.converged), failed=on_mesh(res.failed))
+    if not return_state:
+        return result
+    fin = BatchState(*(plane(v) if isinstance(v, torch.Tensor) and v.dim() == 2
+                       else on_mesh(v) for v in fin))
+    return result, fin
+
+
+def _fista_gram_batch(gb, cfg, state0, return_state, any_live):
     xi = cfg.greedy_xi if cfg.momentum == "greedy" else cfg.t_init_factor
     tau0 = (xi / gb.L).to(gb.c.dtype)
     if state0 is None:
@@ -372,7 +430,7 @@ def fista_gram_batch(
         return (result, final) if return_state else result
 
     s = state0
-    while s.k < cfg.max_iter and bool(torch.any(~s.done)):
+    while s.k < cfg.max_iter and any_live(s.done):
         gap_before = s.gap
         s = _iterate_block(gb, cfg, s, cfg.check_every)
         gap = _rel_gap(gb, s.X)

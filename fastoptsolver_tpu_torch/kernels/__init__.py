@@ -10,7 +10,11 @@
   entry ``fista_vmem.fista_gram_vmem_adaptive``;
 - ``qstream`` (CUDA ``csrc/qstream.cu``): bursts past the resident window,
   each lane's Q held in a thread-block cluster's shared memory for the burst
-  (n ≤ 660), else streamed from device memory at every step.
+  (n ≤ 660), else streamed from device memory at every step;
+- over a ``torch.distributed`` mesh, per rank on its lanes:
+  ``fista_vmem.fista_gram_vmem_sharded`` (the burst engine) and
+  ``pipeline.solve_pipeline_sharded`` (the fused kernel, or the build
+  kernels and the adaptive entry).
 
 The CUDA sources are compiled on first use (``_build``); importing this
 package needs no nvcc and no GPU."""
@@ -19,6 +23,7 @@ from .fista_vmem import (
     auto_b_tile,
     fista_gram_vmem,
     fista_gram_vmem_adaptive,
+    fista_gram_vmem_sharded,
     momentum_betas,
     plan_gram_solve,
 )
@@ -29,6 +34,7 @@ from .fused_solve import (
     solve_lasso_fused,
 )
 from .gram_build import make_gram_batch_fused
+from .pipeline import solve_pipeline_sharded
 from .qstream import auto_tiles_qstream, qstream_burst
 from .resident import (
     ResidentSolveState,
@@ -49,10 +55,12 @@ __all__ = [
     "fista_gram_resident_reference",
     "fista_gram_vmem",
     "fista_gram_vmem_adaptive",
+    "fista_gram_vmem_sharded",
     "fused_solve_reference",
     "make_gram_batch_fused",
     "momentum_betas",
     "plan_gram_solve",
     "qstream_burst",
     "solve_lasso_fused",
+    "solve_pipeline_sharded",
 ]

@@ -276,11 +276,11 @@ def _burst(*args, **kw):
 def _solve_on_device(burst, betas, Q, c, btb, alpha1, a2v, tau, thr, a2,
                      taumin, state0, *, chunk, n_bursts, tol, certify,
                      restart_threshold=None, greedy=None, k0: int = 0,
-                     armijo=None) -> VmemSolveState:
+                     armijo=None, early_exit: bool = True) -> VmemSolveState:
     """The certified solve: bursts of ``chunk`` iterations with the gap
     check between them, until every lane is certified or ``k0 + n_bursts ·
     chunk`` iterations have run. One host sync per burst reads the all-done
-    test. ``state0`` resumes a run exactly: the fixed modes index the β table
+    test; ``early_exit=False`` runs every burst and reads nothing. ``state0`` resumes a run exactly: the fixed modes index the β table
     at absolute iterations, the others continue from their carried rows, and
     ``done``/``iters``/``gap`` keep the certification record."""
     n, B = c.shape
@@ -308,7 +308,7 @@ def _solve_on_device(burst, betas, Q, c, btb, alpha1, a2v, tau, thr, a2,
 
     if certify and n_bursts > 0:
         inf = torch.full_like(gap, float("inf"))
-        while k < k0 + n_bursts * chunk and not bool(done.all()):
+        while k < k0 + n_bursts * chunk and not (early_exit and bool(done.all())):
             X, Y, t, ps, tv, gvec = step(X, Y, t, ps, tv, True)
             k += chunk
             g = gvec[0]
@@ -342,7 +342,7 @@ def _solve_on_device(burst, betas, Q, c, btb, alpha1, a2v, tau, thr, a2,
 def _pad_and_solve(burst, betas, Q, c, btb, alpha1, alpha2, L, state0, *,
                    chunk, n_bursts, tol, certify, t_init_factor,
                    restart_threshold=None, greedy=None, k0: int = 0,
-                   armijo=None):
+                   armijo=None, early_exit: bool = True):
     """The per-lane rows (τ = t_init_factor/L, threshold τα₁, α₂, the greedy
     floor 1/L), the solve and the result, as the reference's function of
     this name; lanes need no padding here (the kernel masks its ragged
@@ -357,7 +357,7 @@ def _pad_and_solve(burst, betas, Q, c, btb, alpha1, alpha2, L, state0, *,
         burst, betas.to(Q.device), Q, c, btb, alpha1, alpha2, tau, thr, a2,
         taumin, state0, chunk=chunk, n_bursts=n_bursts, tol=tol,
         certify=certify, restart_threshold=restart_threshold, greedy=greedy,
-        k0=k0, armijo=armijo,
+        k0=k0, armijo=armijo, early_exit=early_exit,
     )
     failed = ~torch.all(torch.isfinite(fin.X), dim=0)
     result = BatchResult(x=fin.X.T, iters=fin.iters, rel_gap=fin.gap,
@@ -450,6 +450,58 @@ def fista_gram_vmem(
         raise ValueError("interpret=True runs the plain twin on a CPU tensor; "
                          "the GramBatch is on a CUDA device")
     return _dispatch(gb, cfg, state0, return_state, twin=False)
+
+
+def fista_gram_vmem_sharded(
+    gb: GramBatch,
+    mesh,
+    cfg: BatchFISTAConfig = BatchFISTAConfig(),
+    axis: str = "batch",
+    b_tile: int | None = None,
+    interpret: bool = False,
+) -> BatchResult:
+    """Instance-parallel variant over a ``torch.distributed`` mesh: every
+    rank of ``mesh[axis]`` runs the burst engine (n ≤ 104) on its lanes,
+    with no communication during the solve. Every rank calls it with the
+    whole GramBatch (or one of DTensors sharded on the instance axis).
+
+    As in the reference there is no early exit across ranks: every rank
+    runs the full static burst schedule (``max_iter`` rounded up to a
+    burst) and ``n_iters_total`` is that schedule's length; certification is
+    still per lane. Lanes are padded to 128 a rank (Q = c = 0, L = 1: they
+    stay at 0) and the results gathered to every rank. ``b_tile`` selects
+    nothing (see :func:`fista_gram_vmem`)."""
+    from ..parallel.lanes import LaneLayout
+
+    del b_tile
+    _check_kernel_cfg(cfg)
+    n = gb.c.shape[0]
+    auto_b_tile(_round_up(max(n, SUBLANE), SUBLANE))  # the burst engine's window
+    lay = LaneLayout(mesh, axis, gb.c.shape[-1], LANE)
+    Q, c, btb, a1, a2, L = (lay.take(v, -1, fill) for v, fill in (
+        (gb.Q, 0.0), (gb.c, 0.0), (gb.btb, 0.0), (gb.alpha1, 0.0), (gb.alpha2, 0.0),
+        (gb.L, 1.0)))
+    if Q.is_cuda and interpret:
+        raise ValueError("interpret=True runs the plain twin on a CPU tensor; "
+                         "the GramBatch is on a CUDA device")
+    certify = cfg.check_every > 0
+    chunk = cfg.check_every if certify else cfg.max_iter
+    n_bursts = -(-cfg.max_iter // chunk)
+    greedy = ((cfg.greedy_S, cfg.greedy_shrink) if cfg.momentum == "greedy"
+              else None)
+    res, _ = _pad_and_solve(
+        _burst, _beta_table(n_bursts * chunk, cfg), Q, c, btb, a1, a2, L, None,
+        chunk=chunk, n_bursts=n_bursts, tol=cfg.rel_gap_tol, certify=certify,
+        t_init_factor=cfg.greedy_xi if greedy is not None else cfg.t_init_factor,
+        restart_threshold=cfg.restart_threshold if cfg.adaptive_restart else None,
+        greedy=greedy, armijo=_armijo_static(cfg), early_exit=False,
+    )
+    x = lay.gather(res.x, 0)
+    failed = ~torch.all(torch.isfinite(x), dim=1)
+    return BatchResult(
+        x=x, iters=lay.gather(res.iters), rel_gap=lay.gather(res.rel_gap),
+        n_iters_total=torch.tensor(n_bursts * chunk, dtype=torch.int32),
+        converged=lay.gather(res.converged) & ~failed, failed=failed)
 
 
 def fista_gram_vmem_adaptive(

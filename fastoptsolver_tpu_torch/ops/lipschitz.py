@@ -79,9 +79,12 @@ def lipschitz_for(problem, generator: torch.Generator | None = None,
                   n_iter: int = 100, tol: float = 1e-6) -> torch.Tensor:
     """Smooth-part Lipschitz constant for a least-squares problem:
     λ_max(AᵀA) + α₂ (the +α₂ whenever the ridge term is in the smooth
-    part). A problem with ``normal_matvec`` supplies its own AᵀA operator."""
+    part). A problem with ``normal_matvec`` supplies its own AᵀA operator
+    (and, when its iterate is sharded, ``from_full`` for the start vector)."""
     if hasattr(problem, "normal_matvec"):
         v0 = _start(problem.dim, problem.A, generator)
+        if hasattr(problem, "from_full"):  # a sharded iterate: this rank's part
+            v0 = problem.from_full(v0)
         L = _power_iteration(problem.normal_matvec, v0, n_iter, tol)
     elif hasattr(problem, "Q"):
         L = estimate_lipschitz_gram(problem.Q, generator, n_iter, tol)

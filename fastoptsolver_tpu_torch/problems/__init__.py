@@ -1,7 +1,6 @@
 """Problem definitions and generators (port of ``fastoptsolver_tpu.problems``),
-the one-pass Gram reduction of an out-of-memory A (``streaming``) included.
-``streaming.merge_grams``, the reference's merge of the hosts' partial Grams,
-needs a process group and comes with the port of ``parallel/``."""
+the one-pass Gram reduction of an out-of-memory A (``streaming``) included,
+with ``merge_grams``, the all-reduce of the ranks' partial Grams."""
 from .base import CustomProblem, fold_alphas, REG_TYPES
 from .least_squares import LeastSquares, GramLeastSquares, LogisticRegression
 from .sparse import SparseLeastSquares
@@ -18,7 +17,7 @@ from .extensions import (
     PoissonRegression,
     MultiTaskLeastSquares,
 )
-from .streaming import DenseGram, stream_gram, chunk_rows, generator_chunks
+from .streaming import DenseGram, stream_gram, chunk_rows, generator_chunks, merge_grams
 from .generators import (
     X_TRUE,
     generate_boston_like,
@@ -33,6 +32,7 @@ __all__ = [
     "stream_gram",
     "chunk_rows",
     "generator_chunks",
+    "merge_grams",
     "SparseLeastSquares",
     "HuberRegression",
     "WeightedLeastSquares",

@@ -35,8 +35,9 @@ accumulators and the product keep it), the vectors, and ``prefetch`` device
 chunk buffers. On the CPU the same loop runs with plain host buffers and no
 stream.
 
-``merge_grams`` (the reference's row-distributed merge across hosts) needs a
-process group and comes with the port of ``parallel/``.
+:func:`merge_grams` is the row-distributed merge: each rank streams only
+its own rows, then one all-reduce sums the partial (Q, c, bᵀb) over the
+mesh axis, and the merged Gram is the same on every rank.
 """
 from __future__ import annotations
 
@@ -213,3 +214,32 @@ def generator_chunks(
     exists anywhere, on the device or in host RAM."""
     for i in range(n_chunks):
         yield make_chunk(i)
+
+
+def merge_grams(local: DenseGram, mesh, axis: str | tuple = "host") -> DenseGram:
+    """Row-distributed Gram reduction: each rank streams only its own rows of
+    A through :func:`stream_gram`, then the partial (Q, c, bᵀb) are summed by
+    one all-reduce (SUM) over ``axis`` of ``mesh`` (a name, or a tuple of
+    names: their ranks together), and the row counts ``m`` by a second,
+    integer one. The merged Gram is the same on every rank, so the
+    O(n²)-an-iteration solve (``solvers/gram_dense.py``) runs identically
+    everywhere with no further communication. Every rank of the axis calls
+    it; in a one-rank world it returns ``local``."""
+    import torch.distributed as dist
+
+    if not dist.is_initialized() or dist.get_world_size() == 1:
+        return local
+    axes = (axis,) if isinstance(axis, str) else tuple(axis)
+    if len(axes) == 1:
+        group = mesh.get_group(axes[0])
+    elif set(axes) == set(mesh.mesh_dim_names):
+        group = mesh._flatten().get_group()
+    else:
+        group = mesh[axes]._flatten().get_group()
+    n = local.Q.shape[0]
+    flat = torch.cat([local.Q.reshape(-1), local.c.reshape(-1), local.btb.reshape(1)])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+    m = local.m.to(device=flat.device, dtype=torch.int64).reshape(1).clone()
+    dist.all_reduce(m, op=dist.ReduceOp.SUM, group=group)
+    return DenseGram(Q=flat[: n * n].reshape(n, n), c=flat[n * n: n * n + n],
+                     btb=flat[-1], m=m[0].to(local.m.device))

@@ -674,3 +674,29 @@ def test_fista_gram_dense_on_the_card_matches_the_cpu(cuda):
     assert bool(card.converged) and bool(cpu.converged) and card.x.is_cuda
     assert int(card.iters) == int(cpu.iters)
     np.testing.assert_allclose(card.x.cpu().numpy(), cpu.x.numpy(), rtol=1e-5, atol=1e-5)
+
+
+def test_one_rank_nccl_mesh_is_the_plain_call(cuda):
+    """``solve_lasso_batch(mesh=)`` over a one-rank NCCL mesh on the card:
+    one fused launch, and x, iters and converged bit-equal to the plain
+    call (B = 390 pads to 512 lanes, which certify at once)."""
+    import torch.distributed as dist
+
+    from fastoptsolver_tpu_torch.parallel import make_mesh
+
+    A, b, a1 = _problem(5, 250, 390, seed=0, device=cuda)
+    cfg = BatchFISTAConfig(max_iter=1000, check_every=25, rel_gap_tol=1e-6)
+    plain = solve_lasso_batch(A, b, a1, 0.0, cfg=cfg, feature_major=True)
+    joined = dist.is_initialized()
+    mesh = make_mesh(batch=1)
+    try:
+        assert dist.get_backend() == "nccl"
+        before = fused_solve.LAUNCHES
+        res = solve_lasso_batch(A, b, a1, 0.0, cfg=cfg, feature_major=True, mesh=mesh)
+        torch.cuda.synchronize()
+        assert fused_solve.LAUNCHES == before + 1
+        for name in ("x", "iters", "converged"):
+            assert torch.equal(getattr(res, name), getattr(plain, name)), name
+    finally:
+        if not joined:
+            dist.destroy_process_group()

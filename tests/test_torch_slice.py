@@ -185,7 +185,9 @@ def test_router_kernel_route_and_errors():
 
 
 @pytest.mark.parametrize("kw, exc, match", [
-    pytest.param(dict(mesh=object()), NotImplementedError, "mesh", id="kw0-mesh"),
+    # a mesh that is no torch.distributed DeviceMesh
+    pytest.param(dict(mesh=object()), TypeError, "mesh must be a torch.distributed "
+                 "DeviceMesh", id="kw0-mesh"),
     # a state of no known engine raises TypeError, as in the reference
     pytest.param(dict(state0=object()), TypeError, "state0 must be", id="kw1-resume"),
     # the fused engine's state (n = 5): returned now, once a refusal
@@ -257,7 +259,10 @@ def test_import_adds_no_jax_module():
             "fastoptsolver_tpu_torch.bench.ablate", "fastoptsolver_tpu_torch.utils",
             "fastoptsolver_tpu_torch.utils.checkpoint",
             "fastoptsolver_tpu_torch.utils.profiling", "fastoptsolver_tpu_torch.utils.pytree",
-            "fastoptsolver_tpu_torch.runtime", "fastoptsolver_tpu_torch.runtime.host"} | {
+            "fastoptsolver_tpu_torch.runtime", "fastoptsolver_tpu_torch.runtime.host",
+            "fastoptsolver_tpu_torch.kernels.pipeline", "fastoptsolver_tpu_torch.bench.scaling"} | {
+        f"fastoptsolver_tpu_torch.parallel.{m}" for m in (
+            "mesh", "matvec", "problem", "admm", "multihost", "lanes")} | {
         f"fastoptsolver_tpu_torch.solvers.{m}" for m in (
             "common", "ista", "fista", "cd", "lbfgs", "owlqn", "admm", "svrg", "saga")
     } <= set(modules)
