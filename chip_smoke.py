@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port (fastoptsolver_tpu_torch) on one GPU.
 
-    python3 chip_smoke.py      # one H100; about 9 minutes including the nvcc build
+    python3 chip_smoke.py      # one H100; about 13 minutes including the nvcc build
 
 Phases, one line each (``--`` lines are detail):
 
@@ -198,6 +198,21 @@ Phases, one line each (``--`` lines are detail):
    and ``ScenarioLoader`` feeding 3 batches into ``solve_lasso_batch`` (one
    fused launch each, every lane certified); ``utils.trace`` around one
    routed solve, its top device ops printed.
+15. mesh — the multi-device layer in child processes (``--mesh-child``):
+   one NCCL rank, then four gloo ranks sharing the card, each holding the
+   mesh entries against one rank's bits or float64; then
+   ``bench.scaling``.
+16. verify — ``bench.verify_tpu.run()``: each kernel against the torch
+   driver or float64 NumPy at the reference's shapes and tolerances (25
+   checks), a ``--`` line a check with each reading beside its limit; a
+   check recorded in ROADMAP Queue 3 (``VERIFY_RECORDED``) may fail in its
+   recorded reading only, and only while the torch driver against itself
+   with its features permuted exceeds that reading's limit too.
+17. sweep — ``bench.sweep.run_sweep`` at the reference's defaults (80
+   scenarios × 19 runs, m = 1000, 500 iterations, float64, no figures) on
+   the card: its summary line, the figure envelopes that
+   ``tests/test_sweep.py`` asserts, the first 8 scenarios against the same
+   sweep on the CPU (``SWEEP_CPU_*``); no kernel launches there.
    Phase 6 also
    times batched ``torch.linalg.eigvalsh`` on ``POWER_LIB_LANES`` of its
    Grams, the library call for ``gram_power``'s λ_max, between two
@@ -214,7 +229,8 @@ Launch counts are set to 0 just before each main-path call (phase 4's solve,
 phase 4's ceiling measurement, phases 6, 7 and 8's solves, phase 9's solve
 per mode and its checkpointed run, phase 10's two CV calls and its path,
 phase 11's solves, phase 12's fits, phase 13's cells, phase 14's two
-ablate runs, its loader and its traced solve) and read just after it. The script then
+ablate runs, its loader and its traced solve, phase 15's children's parts,
+phase 16's checks and phase 17's sweep) and read just after it. The script then
 prints the per-kernel JSON line (``ms`` is the kernel's own time: the fused
 and stream launches, the two build launches, and one certified solve of the
 burst, resident and Q-streaming engines; ``e2e_ms`` is the routed call;
@@ -237,9 +253,10 @@ the build's ``power_group_lanes``, ``power_smem_bytes``,
 ``modes`` holds phase 9's times; the burst entry's ``cv`` phase 10's
 launches, holds and times, its ``estimators`` phase 12's CV part and the
 entry's ``launches`` phase 12's bursts too; the fused, build, burst and
-resident entries' ``launches`` add phase 14's; phases 11-14 print their
-records on ``-- solve record``, ``-- estimators record``, ``-- streaming
-record`` and ``-- ablate record`` lines of their own), the card's name and power
+resident entries' ``launches`` add phase 14's, and every entry's phases 15
+and 16's; phases 11-15 and 17 print their records on ``-- solve record``,
+``-- estimators record``, ``-- streaming record``, ``-- ablate record``,
+``-- mesh record`` and ``-- sweep record`` lines of their own), the card's name and power
 limit, and,
 last, ``{"ok": true, "device": {...}}``. It exits non-zero, printing no
 result, when there is no CUDA device or any phase fails.
@@ -431,6 +448,24 @@ MERGE_M, MERGE_CUT_FROM, MERGE_CHUNK = 2 ** 19, 2 ** 21, 65536
 MESH_SIZES = dict(bench=(5, 1000, BATCH), w1=(W1_N, W1_B), w2=(W2_N, W2_B),
                   wide=(WIDE_N, WIDE_B), merge=(MERGE_M, 1280, MERGE_CHUNK),
                   lasso=(131072, 2048), admm=(CV_M, CV_N), resume=100)
+# phase 17: the reference's sweep at its defaults (bench/sweep.py: 80 scenarios,
+# m = 1000, 500 iterations, float64), its first SWEEP_CPU_SCENARIOS scenarios
+# held against the same sweep on the CPU: L-BFGS takes no L (SWEEP_CPU_LBFGS_RTOL);
+# the card and the CPU draw the power iteration's start vectors from other
+# generators, so L and the other histories agree to its tolerance
+# (SWEEP_CPU_RTOL), Armijo's over its first SWEEP_CPU_ARMIJO_ITERS iterations only
+# (past ~10 its accept/reject is decided by the last bits)
+# phase 16: checks of bench.verify_tpu recorded in ROADMAP Queue 3 as ones the
+# reference's own recurrence cannot hold, each with the one reading that may fail:
+# the phase still requires the check's other readings, and requires that the
+# torch driver against itself, on the same problem with its features permuted,
+# also exceeds that reading's limit (verify_tpu.armijo_reorder_spread)
+VERIFY_RECORDED = {"resident_armijo_resume": "Armijo x |d|/(atol + rtol·|ref|)"}
+SWEEP_M, SWEEP_ITERS = 1000, 500
+SWEEP_CPU_SCENARIOS = 8
+SWEEP_CPU_LBFGS_RTOL = 1e-9
+SWEEP_CPU_RTOL = 1e-5
+SWEEP_CPU_ARMIJO_ITERS = 8
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_PER_S = 67e12
 # shared memory serves an SM 128 bytes a clock (32 banks of 4 bytes); the floor
@@ -3665,6 +3700,169 @@ def mesh_path(smi: str) -> dict:
                 scaling=reports, counts=per_rank)
 
 
+def fmt_reading(label: str, r: dict) -> str:
+    """One reading of ``bench.verify_tpu``: measured, the comparison, its limit."""
+    f = lambda v: (f"[{', '.join(f(x) for x in v)}]" if isinstance(v, list)
+                   else str(v) if isinstance(v, bool) else f"{v:.3e}" if v else "0")
+    note = f" ({r['note']})" if r.get("note") else ""
+    return f"{label} {f(r['value'])} {r['op']} {f(r['limit'])}{note}"
+
+
+def verify_path(mods) -> dict:
+    """Phase 16: ``bench.verify_tpu.run()`` on the card (each kernel against
+    the torch driver or float64 NumPy at the reference's shapes and
+    tolerances), a ``--`` line a check with its readings; every check held
+    but those of ``VERIFY_RECORDED``, which may fail only in their recorded
+    reading and only while the torch driver against itself with its features
+    permuted exceeds that reading's limit too; the phase's launches counted
+    per kernel, every kernel but the stream kernel's required."""
+    import torch
+
+    from fastoptsolver_tpu_torch.bench import verify_tpu
+
+    torch.cuda.synchronize()
+    zero_counts(mods)
+    t0 = time.perf_counter()
+    rep = verify_tpu.run()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: m.LAUNCHES for k, m in mods.items()}
+    failed = [n for n in verify_tpu.CHECK_NAMES if not rep["detail"][n]]
+    print(f"[16 verify] bench.verify_tpu.run(): {rep['value']} {rep['unit']} "
+          f"({rep['metric']}, {rep['detail']['device']}), failing {failed} | launches "
+          f"{launches} | {seconds:.1f} s")
+    for name in verify_tpu.CHECK_NAMES:
+        print(f"-- verify {name} {rep['detail'][name]}: " + "; ".join(
+            fmt_reading(k, r) for k, r in rep["readings"][name].items()))
+    recorded = {}
+    for name in set(failed) & set(VERIFY_RECORDED):
+        label = VERIFY_RECORDED[name]
+        readings = rep["readings"][name]
+        others = all(verify_tpu.holds(r) for k, r in readings.items() if k != label)
+        spread = verify_tpu.armijo_reorder_spread(verify_tpu.Inputs(torch.device("cuda", 0)))
+        recorded[name] = dict(reading=readings.get(label, {}).get("value"), others_hold=others,
+                              driver_reorder_spread=spread)
+        print(f"-- verify {name}: recorded in ROADMAP Queue 3; its other readings hold "
+              f"{others}; the torch driver against itself with its features permuted "
+              f"(reversed, two seeded orders) reads {[f'{x:.3f}' for x in spread]} of the "
+              f"allowed, the kernel {recorded[name]['reading']}")
+    require(set(failed) <= set(VERIFY_RECORDED) and all(
+        r["others_hold"] and max(r["driver_reorder_spread"]) > 1.0 for r in recorded.values()),
+        f"verify_tpu: failing checks {failed}, recorded {recorded}")
+    require(launches["stream"] == 0 and all(
+        launches[k] > 0 for k in ("fused", "gram", "burst", "resident", "qstream")),
+        f"verify_tpu did not reach every kernel of the path: launches {launches}")
+    return dict(launches=launches, seconds=seconds, checks=rep["value"],
+                failing=failed, recorded=recorded, readings=rep["readings"])
+
+
+def iters_to(curves, thr: float):
+    """First 1-based iteration at which each scenario's suboptimality reaches
+    ``thr`` (inf if never), as ``tests/test_sweep.py`` reads the figures."""
+    import numpy as np
+
+    hit = curves <= thr
+    return np.where(hit.any(axis=1), hit.argmax(axis=1) + 1, np.inf)
+
+
+def sweep_envelopes(sub) -> dict:
+    """The reference figures' envelopes that ``tests/test_sweep.py`` asserts on
+    the full 80-scenario float64 sweep: L-BFGS at ≤ 1e-7 by iteration 13,
+    fixed-step FISTA and FISTA-Δ at ≤ 1e-4 by 70 (medians 20-70), ISTA (fixed
+    and armijo-t1.0) by 120 (medians 30-120), the Armijo FISTA runs that
+    reach 1e-4 at a median ≤ 70, and FISTA's median below ISTA's."""
+    import numpy as np
+
+    it = iters_to(sub["lbfgs"]["ridge"], 1e-7)
+    env = {"lbfgs": (float(it.max()), float(np.median(it)))}
+    ok = bool(np.isfinite(it).all() and it.max() <= 13 and np.median(it) >= 8)
+    for reg in ("lasso", "enet"):
+        for solver in ("fista", "fista_delta"):
+            it = iters_to(sub[solver][f"{reg}-fixed-t1.0"], 1e-4)
+            env[f"{solver} {reg}-fixed"] = (float(it.max()), float(np.median(it)))
+            ok &= bool(np.isfinite(it).all() and it.max() <= 70
+                       and 20 <= np.median(it) <= 70)
+        for variant in (f"{reg}-fixed-t1.0", f"{reg}-armijo-t1.0"):
+            it = iters_to(sub["ista"][variant], 1e-4)
+            env[f"ista {variant}"] = (float(it.max()), float(np.median(it)))
+            ok &= bool(np.isfinite(it).all() and it.max() <= 120
+                       and 30 <= np.median(it) <= 120)
+        for solver in ("fista", "fista_delta"):
+            for tf in ("t1.0", "t2.0"):
+                it = iters_to(sub[solver][f"{reg}-armijo-{tf}"], 1e-4)
+                reached = np.isfinite(it)
+                med = float(np.median(it[reached])) if reached.any() else float("inf")
+                env[f"{solver} {reg}-armijo-{tf} reached"] = (int(reached.sum()), med)
+                ok &= med <= 70
+    it_f = iters_to(sub["fista"]["lasso-fixed-t1.0"], 1e-4)
+    it_i = iters_to(sub["ista"]["lasso-fixed-t1.0"], 1e-4)
+    ok &= bool(np.median(it_f) < np.median(it_i))
+    env["median fista < ista"] = (float(np.median(it_f)), float(np.median(it_i)))
+    return dict(ok=ok, readings=env)
+
+
+def sweep_against_cpu(results, cpu) -> dict:
+    """The card's first scenarios against the same sweep on the CPU: the
+    largest relative difference of each kind of history."""
+    import numpy as np
+
+    k = next(iter(cpu["fista"].values())).shape[0]
+    rel = lambda a, b: float((np.abs(a[:k] - b) / np.abs(b)).max())
+    fixed = max(rel(results[s][v], cpu[s][v]) for s in ("ista", "fista", "fista_delta")
+                for v in results[s] if "fixed" in v)
+    armijo = max(rel(results[s][v][:, :SWEEP_CPU_ARMIJO_ITERS],
+                     cpu[s][v][:, :SWEEP_CPU_ARMIJO_ITERS])
+                 for s in ("ista", "fista", "fista_delta") for v in results[s] if "armijo" in v)
+    return dict(lbfgs=rel(results["lbfgs"]["ridge"], cpu["lbfgs"]["ridge"]),
+                fixed=fixed, armijo_first=armijo)
+
+
+def sweep_path(dev, mods) -> dict:
+    """Phase 17: ``bench.sweep.run_sweep`` at the reference's defaults on the
+    card (the CLI's ``--no-figures`` run; no hand-written kernel), its summary,
+    the figure envelopes held, and its first scenarios against the CPU."""
+    import numpy as np
+    import torch
+
+    from fastoptsolver_tpu_torch.bench import sweep
+
+    torch.cuda.synchronize()
+    zero_counts(mods)
+    t0 = time.perf_counter()
+    grid, results = sweep.run_sweep(SWEEP_M, SWEEP_ITERS, None, torch.float64)
+    solve_s = time.perf_counter() - t0
+    launches = {k: m.LAUNCHES for k, m in mods.items()}
+    sub = sweep.suboptimality(results)
+    summary = sweep.summarize(grid, results, sub, solve_s)
+    shapes = {h.shape for runs in results.values() for h in runs.values()}
+    finite = all(bool(np.isfinite(h).all()) for runs in results.values() for h in runs.values())
+    print(f"[17 sweep] bench.sweep at the reference's defaults on {dev} (float64, m = "
+          f"{SWEEP_M}, {SWEEP_ITERS} iterations, no figures): {json.dumps(summary)} | "
+          f"histories {sorted(shapes)}, finite {finite} | launches {launches}")
+    require(len(grid) == 80 and summary["solver_runs"] == 80 * 19 and shapes == {(80, SWEEP_ITERS)}
+            and finite, f"sweep: {len(grid)} scenarios, {summary['solver_runs']} runs, "
+                        f"shapes {shapes}, finite {finite}")
+    require(sum(launches.values()) == 0, f"the sweep launched kernels: {launches}")
+    env = sweep_envelopes(sub)
+    print("-- envelopes (iterations to the threshold, max and median; Armijo: lanes "
+          f"reached and their median): {env['readings']}; inside {env['ok']}")
+    require(env["ok"], f"sweep outside the reference envelopes: {env['readings']}")
+    t0 = time.perf_counter()
+    cpu = sweep.run_sweep(SWEEP_M, SWEEP_ITERS, SWEEP_CPU_SCENARIOS, torch.float64,
+                          device="cpu")[1]
+    cpu_s = time.perf_counter() - t0
+    d = sweep_against_cpu(results, cpu)
+    print(f"-- first {SWEEP_CPU_SCENARIOS} scenarios against the same sweep on the CPU "
+          f"({cpu_s:.1f} s): L-BFGS max rel {d['lbfgs']:.3e} (limit {SWEEP_CPU_LBFGS_RTOL:g}), "
+          f"fixed step {d['fixed']:.3e} (limit {SWEEP_CPU_RTOL:g}), Armijo over "
+          f"{SWEEP_CPU_ARMIJO_ITERS} iterations {d['armijo_first']:.3e} (limit "
+          f"{SWEEP_CPU_RTOL:g})")
+    require(d["lbfgs"] <= SWEEP_CPU_LBFGS_RTOL and d["fixed"] <= SWEEP_CPU_RTOL
+            and d["armijo_first"] <= SWEEP_CPU_RTOL, f"sweep against the CPU: {d}")
+    return dict(summary=summary, launches=launches, envelopes=env["readings"],
+                against_cpu=d, cpu_s=cpu_s)
+
+
 def main() -> int:
     import torch
 
@@ -4073,6 +4271,17 @@ def main() -> int:
     for k, v in mesh_out["launches"].items():
         launches[k] = launches.get(k, 0) + v
     print("-- mesh record " + json.dumps(mesh_out, default=str))
+
+    # ---- 16: every kernel against the torch driver (bench.verify_tpu) ----
+    torch.cuda.empty_cache()
+    verify_out = verify_path(mods)
+    for k, v in verify_out["launches"].items():
+        launches[k] = launches.get(k, 0) + v
+
+    # ---- 17: the reference's 80-scenario sweep (no hand-written kernel) ----
+    torch.cuda.empty_cache()
+    sweep_out = sweep_path(dev, mods)
+    print("-- sweep record " + json.dumps(sweep_out, default=str))
 
     kernels = [
         {"name": "fused_lasso_solve", "route": "cuda", "source": FUSED_SRC,

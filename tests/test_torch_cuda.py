@@ -2,7 +2,8 @@
 PyTorch twins, on the card (``chip_smoke.py`` phase 3 for pytest users):
 the fused solve, the stream pass, the Gram build, the burst engine, the
 resident engine (and the adaptive entry onto it) and the Q-streaming engine
-(its cluster kernel also bit for bit against its streaming kernel).
+(its cluster kernel also bit for bit against its streaming kernel); and
+``bench.verify_tpu``, each kernel against the torch driver (phase 16).
 
 Every test takes the ``cuda`` fixture, which skips when torch sees no CUDA
 device: run them on a GPU machine with ``python -m pytest -m cuda
@@ -700,3 +701,25 @@ def test_one_rank_nccl_mesh_is_the_plain_call(cuda):
     finally:
         if not joined:
             dist.destroy_process_group()
+
+
+def test_verify_tpu_holds_each_kernel_against_the_driver(cuda):
+    """``bench.verify_tpu.run()`` on the card (chip_smoke phase 16): every
+    check holds but ``resident_armijo_resume`` (ROADMAP Queue 3), which may
+    fail only in its Armijo reading, and only while the torch driver
+    against itself with its features permuted exceeds that limit too; every
+    kernel but the stream kernel launches."""
+    from fastoptsolver_tpu_torch.bench import verify_tpu
+
+    mods = (fused_solve, gram_build, fista_vmem, resident, qstream)
+    before = [m.LAUNCHES for m in mods]
+    rep = verify_tpu.run()
+    torch.cuda.synchronize()
+    assert all(m.LAUNCHES > b for m, b in zip(mods, before))
+    assert rep["detail"]["device"] == torch.cuda.get_device_name(cuda)
+    failed = [n for n in verify_tpu.CHECK_NAMES if not rep["detail"][n]]
+    assert set(failed) <= {"resident_armijo_resume"}, failed
+    label = "Armijo x |d|/(atol + rtol·|ref|)"
+    for name in failed:
+        assert all(verify_tpu.holds(r) for k, r in rep["readings"][name].items() if k != label)
+        assert max(verify_tpu.armijo_reorder_spread(verify_tpu.Inputs(cuda))) > 1.0

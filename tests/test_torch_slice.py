@@ -260,7 +260,8 @@ def test_import_adds_no_jax_module():
             "fastoptsolver_tpu_torch.utils.checkpoint",
             "fastoptsolver_tpu_torch.utils.profiling", "fastoptsolver_tpu_torch.utils.pytree",
             "fastoptsolver_tpu_torch.runtime", "fastoptsolver_tpu_torch.runtime.host",
-            "fastoptsolver_tpu_torch.kernels.pipeline", "fastoptsolver_tpu_torch.bench.scaling"} | {
+            "fastoptsolver_tpu_torch.kernels.pipeline", "fastoptsolver_tpu_torch.bench.scaling",
+            "fastoptsolver_tpu_torch.bench.sweep", "fastoptsolver_tpu_torch.bench.verify_tpu"} | {
         f"fastoptsolver_tpu_torch.parallel.{m}" for m in (
             "mesh", "matvec", "problem", "admm", "multihost", "lanes")} | {
         f"fastoptsolver_tpu_torch.solvers.{m}" for m in (
