@@ -723,7 +723,7 @@ def check_fused_modes(dev) -> float:
             and bool(torch.equal(resumed.iters, straight.iters)),
             f"fused kernel: the resume with tiles at k = {kvals} is not bit-exact")
     print(f"-- fused resume 75 + 125 == 200: bit-exact (every mode); tiles at k = {kvals} "
-          f"resume bit-exact; launches so far {fused_solve.LAUNCHES}")
+          f"resume bit-exact; launches so far {launch_counts()['fused']}")
     return worst
 
 
@@ -797,7 +797,7 @@ def check_bursts(dev):
     import torch
 
     from fastoptsolver_tpu_torch.batch import BatchFISTAConfig
-    from fastoptsolver_tpu_torch.kernels import fista_vmem, gram_build
+    from fastoptsolver_tpu_torch.kernels import gram_build
     from fastoptsolver_tpu_torch.kernels.fista_vmem import (
         _armijo_static, _beta_table, _burst_reference, _launch_burst,
         fista_gram_vmem, fista_gram_vmem_reference)
@@ -880,7 +880,7 @@ def check_bursts(dev):
         require(bool(torch.equal(resumed.x, straight.x)),
                 f"burst kernel resume 40 + 60 is not bit-exact ({kw})")
     print(f"-- burst resume 40 + 60 == 100: bit-exact (nesterov, restart, greedy); "
-          f"launches so far {fista_vmem.LAUNCHES}")
+          f"launches so far {launch_counts()['burst']}")
     return worst
 
 
@@ -1067,7 +1067,7 @@ def check_resident(dev):
         print(f"-- adaptive entry n={n} B={B} {name}: {ms:.3f} ms (median of 5, trials "
               f"{[round(x, 3) for x in trials]}), bound {bnd[0]:.4f} ms by {bnd[1]}")
     print(f"-- resident resume 40 + 60 == 100: bit-exact (every mode, n = {RESIDENT_WIDTHS}); "
-          f"launches so far {resident.LAUNCHES}")
+          f"launches so far {launch_counts()['resident']}")
     return worst, adaptive
 
 
@@ -1164,7 +1164,7 @@ def check_qstream(dev) -> float:
     import torch
 
     from fastoptsolver_tpu_torch.batch import BatchFISTAConfig
-    from fastoptsolver_tpu_torch.kernels import _build, fista_vmem, qstream, resident
+    from fastoptsolver_tpu_torch.kernels import _build, fista_vmem, qstream
 
     lib = _build.library()
 
@@ -1204,10 +1204,11 @@ def check_qstream(dev) -> float:
                     f"qstream n={n} {name}: resume 40 + 60 is not bit-exact")
         if n == 120:  # check_every=0 in the resident window takes this engine
             fixed = BatchFISTAConfig(max_iter=100, check_every=0)
-            before = (qstream.LAUNCHES, resident.LAUNCHES)
+            before = launch_counts()
             rk = fista_vmem.fista_gram_vmem(gb, fixed)
             torch.cuda.synchronize()
-            launched = (qstream.LAUNCHES - before[0], resident.LAUNCHES - before[1])
+            after = launch_counts()
+            launched = tuple(after[k] - before[k] for k in ("qstream", "resident"))
             rt = fista_vmem.fista_gram_vmem_reference(gb, fixed)
             dx = float((rk.x - rt.x).abs().max())
             print(f"-- qstream n=120 check_every=0 nesterov: launches (qstream, resident) "
@@ -1225,7 +1226,7 @@ def check_qstream(dev) -> float:
     print(f"-- qstream (cluster size, shared bytes a CTA, active clusters) by n: {routes}; "
           f"every burst equals the streaming kernel's bits in the cluster window")
     print(f"-- qstream resume 40 + 60 == 100: bit-exact (every mode, n = 200 and 256); "
-          f"bursts at n = 120, 400, 600, 900 match; launches so far {qstream.LAUNCHES}")
+          f"bursts at n = 120, 400, 600, 900 match; launches so far {launch_counts()['qstream']}")
     return worst
 
 
@@ -1277,9 +1278,28 @@ def lanes(gb, B: int):
                                                          gb.alpha2, gb.L)))
 
 
-def zero_counts(mods) -> None:
-    for mod in mods.values():
-        mod.LAUNCHES = 0
+# The kernels whose launches the phases hold, by the name each phase gives
+# them, and the program's counters that count them (``utils.profiling``).
+KERNELS = {"fused": ("launches.fused",), "stream": ("launches.stream",),
+           "gram": ("launches.gram_pairs", "launches.gram_power"),
+           "burst": ("launches.burst",), "resident": ("launches.resident",),
+           "qstream": ("launches.qstream",)}
+
+
+def launch_counts(mods=None) -> dict:
+    """Launches of each of ``mods`` (default :data:`KERNELS`) since the counters
+    were last reset (``utils.profiling.counters``)."""
+    from fastoptsolver_tpu_torch.utils.profiling import counters
+
+    c = counters()
+    return {k: sum(c[name] for name in names) for k, names in (mods or KERNELS).items()}
+
+
+def zero_counts() -> None:
+    """Reset the program's counters, the launch counts among them."""
+    from fastoptsolver_tpu_torch.utils.profiling import reset_counters
+
+    reset_counters()
 
 
 def resident_path(dev, cfg, mods) -> dict:
@@ -1295,10 +1315,10 @@ def resident_path(dev, cfg, mods) -> dict:
     n, B = W1_N, W1_B
     A, b, a1 = build_problems(torch.Generator(device=dev).manual_seed(0), B, 2 * n, n)
     torch.cuda.synchronize()
-    zero_counts(mods)
+    zero_counts()
     res = solve_lasso_batch(A, b, a1, 0.0, cfg=cfg, feature_major=True)
     torch.cuda.synchronize()
-    counts = {k: m.LAUNCHES for k, m in mods.items()}
+    counts = launch_counts(mods)
     require(counts == dict(counts, resident=1) and sum(counts.values()) == 1,
             f"resident path: launches {counts} (want resident 1, every other 0)")
     chk = check_wide(res, A, b, a1, 0.80, "resident path")
@@ -1396,10 +1416,10 @@ def qstream_path(dev, cfg, mods) -> dict:
     n, B = W2_N, W2_B
     A, b, a1 = build_problems(torch.Generator(device=dev).manual_seed(0), B, 2 * n, n)
     torch.cuda.synchronize()
-    zero_counts(mods)
+    zero_counts()
     res = solve_lasso_batch(A, b, a1, 0.0, cfg=cfg, feature_major=True)
     torch.cuda.synchronize()
-    counts = {k: m.LAUNCHES for k, m in mods.items()}
+    counts = launch_counts(mods)
     bursts = int(res.n_iters_total) // cfg.check_every
     require(counts == dict(counts, qstream=bursts) and sum(counts.values()) == bursts,
             f"qstream path: launches {counts} (want qstream {bursts} = bursts, every other 0)")
@@ -1585,10 +1605,10 @@ def fused_modes_path(A, b, alpha1, dev, mods) -> dict:
     out = {}
     for name, kw in FUSED_MODES.items():
         cfg = BatchFISTAConfig(max_iter=1000, check_every=25, rel_gap_tol=1e-6, **kw)
-        zero_counts(mods)
+        zero_counts()
         res = solve_lasso_batch(A, b, alpha1, 0.0, cfg=cfg, feature_major=True)
         torch.cuda.synchronize()
-        counts = {k: mod.LAUNCHES for k, mod in mods.items()}
+        counts = launch_counts(mods)
         require(counts == dict(counts, fused=1) and sum(counts.values()) == 1,
                 f"fused modes path {name}: launches {counts} (want fused 1, every other 0)")
         n_conv, n_failed = int(res.converged.sum()), int(res.failed.sum())
@@ -1642,7 +1662,7 @@ def fused_modes_path(A, b, alpha1, dev, mods) -> dict:
                          max_rel_dobj=dobj, f64_certified_max_gap=gap64_cert)
     # a checkpointed run against a straight one, fixed momentum
     cfg = BatchFISTAConfig(max_iter=1000, check_every=25, rel_gap_tol=1e-6)
-    zero_counts(mods)
+    zero_counts()
     straight = solve_lasso_batch(A, b, alpha1, 0.0, cfg=cfg, feature_major=True)
     _, mid = solve_lasso_batch(A, b, alpha1, 0.0, cfg=dataclasses.replace(cfg, max_iter=100),
                                feature_major=True, return_state=True)
@@ -1655,7 +1675,7 @@ def fused_modes_path(A, b, alpha1, dev, mods) -> dict:
         back = restore_pytree(path, type(mid)(*(torch.zeros_like(v) for v in mid)))
     from_disk = solve_lasso_batch(A, b, alpha1, 0.0, cfg=cfg, feature_major=True, state0=back)
     torch.cuda.synchronize()
-    counts = {k: mod.LAUNCHES for k, mod in mods.items()}
+    counts = launch_counts(mods)
     fields = ("x", "iters", "rel_gap", "converged")
     same = {f: bool(torch.equal(getattr(resumed, f), getattr(straight, f))) for f in fields}
     same_disk = {f: bool(torch.equal(getattr(from_disk, f), getattr(straight, f)))
@@ -1831,10 +1851,10 @@ def cv_path(dev, mods) -> dict:
     kw = dict(k_folds=CV_FOLDS, n_alphas=CV_ALPHAS, eps=1e-3, cfg=cfg, fit_intercept=True)
     out = {}
     for label, l1_ratio in (("lasso", 1.0), ("enet", 0.5)):
-        zero_counts(mods)
+        zero_counts()
         rk = cv_lasso(A, b, l1_ratio=l1_ratio, **kw)
         torch.cuda.synchronize()
-        counts = {k: m.LAUNCHES for k, m in mods.items()}
+        counts = launch_counts(mods)
         require(counts["burst"] > 0 and sum(counts.values()) == counts["burst"],
                 f"cv {label}: launches {counts} (want burst > 0, every other 0)")
         lanes = (CV_FOLDS + 1) * CV_ALPHAS
@@ -1890,9 +1910,9 @@ def cv_path(dev, mods) -> dict:
           f"{out['enet']['certified']}")
     del Ac, bc, folds, gb, Q_all
 
-    zero_counts(mods)
+    zero_counts()
     path_ms, (alphas_p, rp) = cuda_ms(lambda: lasso_path(LeastSquares.create(A, b, "lasso")))
-    counts = {k: m.LAUNCHES for k, m in mods.items()}
+    counts = launch_counts(mods)
     n_p = int(rp.converged.sum())
     require(sum(counts.values()) == 0, f"lasso_path launched {counts} (the driver's path)")
     require(n_p == alphas_p.numel() and bool(torch.isfinite(rp.x).all()),
@@ -2224,14 +2244,14 @@ def solve_path(dev, mods) -> dict:
     kernel is on this path: every count stays 0 over the solves; the
     large-lasso bench's read ceiling launches the stream kernel after them."""
     t0 = time.perf_counter()
-    zero_counts(mods)
+    zero_counts()
     table = solve_table(dev)
     sweep = scenario_sweep(dev)
     comp = compat_checks(dev)
     import torch
 
     torch.cuda.synchronize()
-    counts = {k: m.LAUNCHES for k, m in mods.items()}
+    counts = launch_counts(mods)
     require(sum(counts.values()) == 0, f"phase 11 launched kernels: {counts}")
     large = large_lasso_hold(dev)
     print(f"[11 solve] AR(1) table ({SOLVE_M}, {SOLVE_N}), ρ = {SOLVE_RHO}: nine methods "
@@ -2352,7 +2372,6 @@ def est_cv(dev, mods, A, b, X, y, perm, iid_cv_ms=None) -> dict:
     from fastoptsolver_tpu_torch import ElasticNetCV, LassoCV
     from fastoptsolver_tpu_torch.batch import (
         BatchFISTAConfig, cv_lasso, fista_gram_batch, solve_gram_batch)
-    from fastoptsolver_tpu_torch.kernels import fista_vmem
     from fastoptsolver_tpu_torch.problems.base import as_tensor
 
     # the CV estimators' grid configuration (estimators._CVRegressor._cv)
@@ -2369,14 +2388,14 @@ def est_cv(dev, mods, A, b, X, y, perm, iid_cv_ms=None) -> dict:
         make = lambda **d: cls(**kw, **d)
         calls = []
         install, remove = burst_recorder(calls)
-        zero_counts(mods)
+        zero_counts()
         install()
         try:
             est = make().fit(X, y)
             torch.cuda.synchronize()
         finally:
             remove()
-        counts = {k: m.LAUNCHES for k, m in mods.items()}
+        counts = launch_counts(mods)
         bursts = [len(c) for c in calls]
         cert = [certified_by_burst(c, cfg.rel_gap_tol) for c in calls]
         lanes_n = (CV_FOLDS + 1) * CV_ALPHAS
@@ -2491,10 +2510,10 @@ def est_cv(dev, mods, A, b, X, y, perm, iid_cv_ms=None) -> dict:
 
     # the lasso grid's solve alone: the multi-burst kernel beside its bound
     gb = est_cv_grid(Ap, bp, lasso_alphas, 1.0, cfg)
-    zero_counts(mods)
+    zero_counts()
     res = solve_gram_batch(gb, cfg)
     torch.cuda.synchronize()
-    launches = fista_vmem.LAUNCHES
+    launches = launch_counts()["burst"]
     solve_ms, solve_trials, _ = med_ms(lambda: solve_gram_batch(gb, cfg))
     B = gb.c.shape[1]
     bnd = bound(4 * (CV_N * CV_N * B + 2 * CV_N * B + 6 * B),
@@ -2820,7 +2839,7 @@ def estimators_path(dev, mods, iid_cv_ms=None) -> dict:
     W = torch.where(keep, 3.0 * torch.randn((SOLVE_N, 4), generator=g, device=dev), 0.0)
     Y = (A @ W + 9.0 * torch.randn((SOLVE_M, 4), generator=g, device=dev)).double().cpu().numpy()
     w = (0.5 + 1.5 * torch.rand((SOLVE_M,), generator=g, device=dev)).double().cpu().numpy()
-    zero_counts(mods)
+    zero_counts()
     parts = {}
     for name, run in (("plain", lambda: est_plain(dev, X, y, Y, w)),
                       ("families", lambda: est_families(dev, A, b)),
@@ -2832,7 +2851,7 @@ def estimators_path(dev, mods, iid_cv_ms=None) -> dict:
         torch.cuda.empty_cache()
         secs[name] = time.perf_counter() - t1
     plain, fams, sparse, gl = (parts[k] for k in ("plain", "families", "sparse", "genlasso"))
-    counts = {k: m.LAUNCHES for k, m in mods.items()}
+    counts = launch_counts(mods)
     require(sum(counts.values()) == 0, f"phase 12 (b)-(e) launched kernels: {counts}")
     secs["all"] = time.perf_counter() - t0
     print(f"[12 estimators] AR(1) table ({SOLVE_M}, {SOLVE_N}), ρ = {SOLVE_RHO}: LassoCV "
@@ -2932,10 +2951,10 @@ def stream_cell(dev, mods, m: int, n: int, rows: int, cut_from) -> dict:
     ram = host_ram_gib()
     require(ram > 1.5 * m * n * 4 / 2 ** 30 + 8,
             f"streaming {m} x {n}: {ram:.1f} GiB of host RAM free, too little for A")
-    zero_counts(mods)
+    zero_counts()
     run = streaming_lasso.measure(m, n, rows, STREAM_TOL, device=dev)
     torch.cuda.synchronize()
-    counts = {k: mod.LAUNCHES for k, mod in mods.items()}
+    counts = launch_counts(mods)
     require(sum(counts.values()) == 0, f"phase 13 launched kernels: {counts}")
     rec = run.record
     if cut_from is None:
@@ -3059,11 +3078,11 @@ def ablate_runtime_path(dev, mods, disk: dict) -> dict:
     calls = 1 + 3 * 25  # ablate's warm call and its default trials × reps
     for label, argv in (("fixed", ["--mode", ABLATE_MODES]),
                         ("restart", ["--restart", "--mode", "routed,fused1"])):
-        zero_counts(mods)
+        zero_counts()
         with contextlib.redirect_stdout(io.StringIO()):
             recs = ablate.main([*argv, "--batch", str(ABLATE_BATCH)])
         torch.cuda.synchronize()
-        counts = {k: mod.LAUNCHES for k, mod in mods.items()}
+        counts = launch_counts(mods)
         modes = [r["mode"] for r in recs]
         want = dict(counts, fused=calls * sum(md in ("routed", "fused1") for md in modes),
                     gram=2 * calls * sum(md in ("burst", "adaptive", "build-only")
@@ -3093,7 +3112,7 @@ def ablate_runtime_path(dev, mods, disk: dict) -> dict:
     require(runtime.native_available() and lib is not None,
             "the native host runtime did not build (g++)")
     cfg = BatchFISTAConfig(max_iter=1000, check_every=25, rel_gap_tol=1e-6)
-    zero_counts(mods)
+    zero_counts()
     loaded = []
     t1 = time.perf_counter()
     for A, b in runtime.ScenarioLoader(seed=0, batch=LOADER_BATCH, m=1000, n_batches=3):
@@ -3103,7 +3122,7 @@ def ablate_runtime_path(dev, mods, disk: dict) -> dict:
         loaded.append((int(res.converged.sum()), int(res.failed.sum())))
     torch.cuda.synchronize()
     loader_s = time.perf_counter() - t1
-    counts = {k: mod.LAUNCHES for k, mod in mods.items()}
+    counts = launch_counts(mods)
     require(counts == dict(counts, fused=3) and sum(counts.values()) == 3,
             f"loader: launches {counts} (want fused 3)")
     require(all(c == LOADER_BATCH and f == 0 for c, f in loaded),
@@ -3119,11 +3138,11 @@ def ablate_runtime_path(dev, mods, disk: dict) -> dict:
     solve_lasso_batch(A, b, alpha1, 0.0, cfg=cfg, feature_major=True)  # warm
     torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as tmp:
-        zero_counts(mods)
+        zero_counts()
         with trace(tmp) as prof:
             res = solve_lasso_batch(A, b, alpha1, 0.0, cfg=cfg, feature_major=True)
             torch.cuda.synchronize()
-        counts = {k: mod.LAUNCHES for k, mod in mods.items()}
+        counts = launch_counts(mods)
         files = [(f, os.path.getsize(os.path.join(tmp, f))) for f in os.listdir(tmp)]
     require(counts == dict(counts, fused=1) and sum(counts.values()) == 1,
             f"trace: launches {counts} (want fused 1)")
@@ -3156,10 +3175,10 @@ def mesh_counted(counts: dict, name: str, mods, fn):
     import torch
 
     torch.cuda.synchronize()
-    zero_counts(mods)
+    zero_counts()
     out = fn()
     torch.cuda.synchronize()
-    counts[name] = {k: m.LAUNCHES for k, m in mods.items()}
+    counts[name] = launch_counts(mods)
     return out
 
 
@@ -3524,17 +3543,14 @@ def mesh_child(part: str, rank: int, world: int, port: int, outdir: str) -> None
 
     t0 = time.perf_counter()
     import fastoptsolver_tpu_torch  # noqa: F401  (numerics contract)
-    from fastoptsolver_tpu_torch.bench import stream as stream_mod
-    from fastoptsolver_tpu_torch.kernels import (
-        _build, fista_vmem, fused_solve, gram_build, qstream, resident)
+    from fastoptsolver_tpu_torch.kernels import _build
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     torch.zeros(1, device=dev)  # the context
     _build.library()  # phase 2's build, loaded
     ready_s = time.perf_counter() - t0
-    mods = {"fused": fused_solve, "stream": stream_mod, "gram": gram_build,
-            "burst": fista_vmem, "resident": resident, "qstream": qstream}
+    mods = KERNELS
     if part == "four":  # several ranks on one card: gloo (NCCL takes one rank a card)
         dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
                                 world_size=world, timeout=datetime.timedelta(seconds=300))
@@ -3721,12 +3737,12 @@ def verify_path(mods) -> dict:
     from fastoptsolver_tpu_torch.bench import verify_tpu
 
     torch.cuda.synchronize()
-    zero_counts(mods)
+    zero_counts()
     t0 = time.perf_counter()
     rep = verify_tpu.run()
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = {k: m.LAUNCHES for k, m in mods.items()}
+    launches = launch_counts(mods)
     failed = [n for n in verify_tpu.CHECK_NAMES if not rep["detail"][n]]
     print(f"[16 verify] bench.verify_tpu.run(): {rep['value']} {rep['unit']} "
           f"({rep['metric']}, {rep['detail']['device']}), failing {failed} | launches "
@@ -3827,11 +3843,11 @@ def sweep_path(dev, mods) -> dict:
     from fastoptsolver_tpu_torch.bench import sweep
 
     torch.cuda.synchronize()
-    zero_counts(mods)
+    zero_counts()
     t0 = time.perf_counter()
     grid, results = sweep.run_sweep(SWEEP_M, SWEEP_ITERS, None, torch.float64)
     solve_s = time.perf_counter() - t0
-    launches = {k: m.LAUNCHES for k, m in mods.items()}
+    launches = launch_counts(mods)
     sub = sweep.suboptimality(results)
     summary = sweep.summarize(grid, results, sub, solve_s)
     shapes = {h.shape for runs in results.values() for h in runs.values()}
@@ -3873,11 +3889,10 @@ def main() -> int:
     import fastoptsolver_tpu_torch  # noqa: F401  (numerics contract)
     from fastoptsolver_tpu_torch.batch import BatchFISTAConfig, solve_lasso_batch
     from fastoptsolver_tpu_torch.batch.fista_gram import _rel_gap, make_gram_batch
-    from fastoptsolver_tpu_torch.bench import headline, stream as stream_mod
+    from fastoptsolver_tpu_torch.bench import headline
     from fastoptsolver_tpu_torch.bench.stream import measure_stream_ceiling, stream_pass_reference
     from fastoptsolver_tpu_torch.bench.wide_n import build_problems
-    from fastoptsolver_tpu_torch.kernels import (
-        _build, fista_vmem, fused_solve, gram_build, qstream, resident)
+    from fastoptsolver_tpu_torch.kernels import _build, fista_vmem, gram_build
     from fastoptsolver_tpu_torch.kernels._common import (
         augmented_gram, make_matvec, power_lambda_max)
     from fastoptsolver_tpu_torch.kernels.fused_solve import (
@@ -3980,13 +3995,12 @@ def main() -> int:
     print("[3 kernel vs twin] wide-n shape ok")
 
     # ---- 4: the main path, counted ----
-    mods = {"fused": fused_solve, "stream": stream_mod, "gram": gram_build,
-            "burst": fista_vmem, "resident": resident, "qstream": qstream}
-    zero_counts(mods)
+    mods = KERNELS
+    zero_counts()
     res = solve_lasso_batch(A, b, alpha1, 0.0, cfg=cfg, feature_major=True)
     torch.cuda.synchronize()
-    counts = {k: m.LAUNCHES for k, m in mods.items()}
-    launches = {"fused": fused_solve.LAUNCHES}
+    counts = launch_counts(mods)
+    launches = {"fused": launch_counts()["fused"]}
     require(counts == dict(counts, fused=1) and sum(counts.values()) == 1,
             f"main path: launches {counts} (want fused 1, every other 0)")
     require(bool(torch.equal(res.x, res_k.x)), "main path result differs from the kernel's")
@@ -4006,9 +4020,9 @@ def main() -> int:
     gap64 = float(_rel_gap(gb64, res.x[idx].double().T).max())
     del A64, gb64
     require(gap64 <= 1e-4, f"float64 recheck: max rel_gap {gap64:.3e} > 1e-4")
-    stream_mod.LAUNCHES = 0
+    before = launch_counts()["stream"]
     ceil_first = measure_stream_ceiling(A, b, reps=3, trials=1)["stream_ceiling_gbps"]
-    launches["stream"] = stream_mod.LAUNCHES
+    launches["stream"] = launch_counts()["stream"] - before
     require(launches["stream"] > 0, "the read-ceiling measurement launched no stream kernel")
     print(f"[4 main path] fused launches {launches['fused']}, certified "
           f"{n_conv}/{BATCH}, failed {n_failed}, max rel_gap {max_gap:.3e}, f64 "
@@ -4061,12 +4075,12 @@ def main() -> int:
     del res
     torch.cuda.empty_cache()
     cfg = BatchFISTAConfig(max_iter=1000, check_every=25, rel_gap_tol=1e-6)
-    zero_counts(mods)
+    zero_counts()
     res = solve_lasso_batch(Aw, bw, a1w, 0.0, cfg=cfg, feature_major=True)
     torch.cuda.synchronize()
     bursts = int(res.n_iters_total) // cfg.check_every
-    counts = {k: m.LAUNCHES for k, m in mods.items()}
-    launches["gram"], launches["burst"] = gram_build.LAUNCHES, fista_vmem.LAUNCHES
+    counts = launch_counts(mods)
+    launches["gram"], launches["burst"] = counts["gram"], counts["burst"]
     require(counts == dict(counts, gram=2, burst=bursts)
             and sum(counts.values()) == 2 + bursts,
             f"wide-n path: launches {counts} (want build 2, burst {bursts} = bursts, "

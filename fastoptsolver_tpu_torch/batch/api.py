@@ -50,6 +50,7 @@ import dataclasses
 
 import torch
 
+from ..utils.profiling import count, span
 from .fista_gram import (
     BatchFISTAConfig,
     BatchState,
@@ -209,28 +210,29 @@ def _build_gram_routed(A, b, alpha1, alpha2, feature_major, key, interpret,
     ``make_gram_batch`` with its power iteration started from ``key``;
     ``estimate_l=False`` skips the power iteration of either build (L = 1
     sentinel), for the resident engine's in-kernel estimate."""
-    n = A.shape[0] if feature_major else A.shape[-1]
-    fused_build = False
-    if use_kernel:
-        from ..kernels.gram_build import _auto_tiles
+    with span("fos.gram_build"):
+        n = A.shape[0] if feature_major else A.shape[-1]
+        fused_build = False
+        if use_kernel:
+            from ..kernels.gram_build import _auto_tiles
 
-        try:
-            _auto_tiles(n, A.shape[1])
-            fused_build = True
-        except ValueError:
-            fused_build = False
-    if fused_build:
-        from ..kernels.gram_build import make_gram_batch_fused
+            try:
+                _auto_tiles(n, A.shape[1])
+                fused_build = True
+            except ValueError:
+                fused_build = False
+        if fused_build:
+            from ..kernels.gram_build import make_gram_batch_fused
 
-        A_fm, b_fm = _feature_major(A, b, feature_major)
-        gb = make_gram_batch_fused(A_fm.contiguous(), b_fm.contiguous(),
-                                   alpha1, alpha2, interpret=interpret,
-                                   pl_iters=None if estimate_l else 0)
-        return gb if estimate_l else dataclasses.replace(gb, L=torch.ones_like(gb.L))
-    A_im = A.permute(2, 1, 0) if feature_major else A
-    b_im = b.T if feature_major else b
-    return make_gram_batch(A_im, b_im, alpha1, alpha2, generator=key,
-                           estimate_l=estimate_l)
+            A_fm, b_fm = _feature_major(A, b, feature_major)
+            gb = make_gram_batch_fused(A_fm.contiguous(), b_fm.contiguous(),
+                                       alpha1, alpha2, interpret=interpret,
+                                       pl_iters=None if estimate_l else 0)
+            return gb if estimate_l else dataclasses.replace(gb, L=torch.ones_like(gb.L))
+        A_im = A.permute(2, 1, 0) if feature_major else A
+        b_im = b.T if feature_major else b
+        return make_gram_batch(A_im, b_im, alpha1, alpha2, generator=key,
+                               estimate_l=estimate_l)
 
 
 def _solve_resident_routed(A, b, alpha1, alpha2, cfg, feature_major, key,
@@ -280,7 +282,42 @@ def solve_lasso_batch(
     whole batch, or DTensors sharded on the instance axis over
     ``mesh_axis``, default ``"batch"``); each solves its lanes on the routed
     surface, and every rank gets the whole result (see
-    :func:`_solve_lasso_batch_sharded`)."""
+    :func:`_solve_lasso_batch_sharded`).
+
+    Each call counts one in the ``calls`` counter and, while a profiler
+    records, opens a ``fos.solve_lasso_batch`` span, the root of the call's
+    spans (``utils.profiling``)."""
+    count("calls")
+    with span("fos.solve_lasso_batch"):
+        return _solve_lasso_batch(A, b, alpha1, alpha2, cfg, backend, feature_major,
+                                  key, interpret, state0, return_state, mesh,
+                                  mesh_axis)
+
+
+def _lasso_route(n: int, m: int, cfg, backend: str, interpret: bool,
+                 on_cuda: bool) -> str:
+    """The engine a fresh :func:`solve_lasso_batch` call takes: ``"fused"``,
+    ``"resident"``, ``"gram"`` (the Gram build, then the burst or
+    Q-streaming engine) or ``"driver"`` (the torch driver)."""
+    use_kernel, _ = _kernel_route(n, cfg, backend, interpret, on_cuda)
+    if not use_kernel:
+        return "driver"
+    from ..kernels.fused_solve import _check_fused_cfg, auto_tiles_fused
+
+    try:
+        _check_fused_cfg(cfg)
+        auto_tiles_fused(n, m)
+    except (NotImplementedError, ValueError):
+        pass
+    else:
+        return "fused"
+    from ..kernels.fista_vmem import plan_gram_solve
+
+    return "resident" if plan_gram_solve(n, cfg)[0] == "resident" else "gram"
+
+
+def _solve_lasso_batch(A, b, alpha1, alpha2, cfg, backend, feature_major, key,
+                       interpret, state0, return_state, mesh, mesh_axis):
     if cfg is None:
         cfg = _default_cfg()
     if mesh is not None:  # mesh_axis alone is ignored, as the reference does
@@ -295,32 +332,21 @@ def solve_lasso_batch(
 
     # route before building: a doomed backend='kernel' call must not first
     # spend the Gram build
-    use_kernel, _ = _kernel_route(n, cfg, backend, interpret, A.is_cuda)
-    if use_kernel:
-        from ..kernels.fused_solve import (
-            _check_fused_cfg,
-            auto_tiles_fused,
-            solve_lasso_fused,
-        )
+    with span("fos.route"):
+        route = _lasso_route(n, A.shape[1], cfg, backend, interpret, A.is_cuda)
+    if route == "fused":
+        from ..kernels.fused_solve import solve_lasso_fused
 
-        try:
-            _check_fused_cfg(cfg)
-            auto_tiles_fused(n, A.shape[1])
-        except (NotImplementedError, ValueError):
-            pass
-        else:
-            A_fm, b_fm = _feature_major(A, b, feature_major)
-            return solve_lasso_fused(A_fm.contiguous(), b_fm.contiguous(),
-                                     alpha1, alpha2, cfg=cfg,
-                                     interpret=interpret,
-                                     return_state=return_state)
-        from ..kernels.fista_vmem import plan_gram_solve
-
-        if plan_gram_solve(n, cfg)[0] == "resident":
-            return _solve_resident_routed(A, b, alpha1, alpha2, cfg,
-                                          feature_major, key, interpret,
-                                          return_state=return_state)
-
+        A_fm, b_fm = _feature_major(A, b, feature_major)
+        return solve_lasso_fused(A_fm.contiguous(), b_fm.contiguous(),
+                                 alpha1, alpha2, cfg=cfg,
+                                 interpret=interpret,
+                                 return_state=return_state)
+    if route == "resident":
+        return _solve_resident_routed(A, b, alpha1, alpha2, cfg,
+                                      feature_major, key, interpret,
+                                      return_state=return_state)
+    use_kernel = route == "gram"
     gb = _build_gram_routed(A, b, alpha1, alpha2, feature_major, key,
                             interpret, use_kernel)
     if use_kernel:
@@ -457,9 +483,8 @@ def _solve_lasso_batch_sharded(A, b, alpha1, alpha2, cfg, backend,
         res, fin = _solve_resident_routed(A_blk, b_blk, a1_blk, a2_blk, cfg, True,
                                           key, interpret, state0=st, return_state=True)
     else:
-        res, fin = solve_lasso_batch(A_blk, b_blk, a1_blk, a2_blk, cfg=cfg,
-                                     backend=backend, feature_major=True, key=key,
-                                     interpret=interpret), None
+        res, fin = _solve_lasso_batch(A_blk, b_blk, a1_blk, a2_blk, cfg, backend, True,
+                                      key, interpret, None, False, None, None), None
     failed = (res.failed if res.failed is not None
               else torch.zeros_like(res.converged))
     x, iters, gap, conv, failed = (lay.gather(v, 0) for v in (

@@ -29,6 +29,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops.prox import soft_threshold
+from ..utils.profiling import span
 from ..utils.pytree import register_dataclass
 
 
@@ -81,7 +82,12 @@ def _batched_power_L(Q: torch.Tensor, v0: torch.Tensor, n_iter: int,
 def _lane_vector(value, B: int, like: torch.Tensor) -> torch.Tensor:
     """A scalar or (B,) value as a contiguous (B,) tensor of ``like``'s
     dtype and device; raises on any other shape."""
-    v = torch.as_tensor(value, dtype=like.dtype, device=like.device)
+    if like.is_cuda and not (isinstance(value, torch.Tensor) and value.is_cuda):
+        # a copy from host memory to the card waits for the stream
+        with span("fos.sync"):
+            v = torch.as_tensor(value, dtype=like.dtype, device=like.device)
+    else:
+        v = torch.as_tensor(value, dtype=like.dtype, device=like.device)
     if v.dim() > 1 or (v.dim() == 1 and v.shape[0] != B):
         raise ValueError(f"expected a scalar or a ({B},) vector, got shape "
                          f"{tuple(v.shape)}")

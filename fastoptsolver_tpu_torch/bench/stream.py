@@ -17,9 +17,7 @@ import torch
 
 from ..kernels import _build
 from ..kernels.fused_solve import B_TILE
-
-# Launches of the CUDA kernel by this process; incremented only where it launches.
-LAUNCHES = 0
+from ..utils.profiling import launch
 
 
 def stream_pass_reference(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -31,9 +29,14 @@ def stream_pass(A: torch.Tensor, b: torch.Tensor,
                 b_tile: int = B_TILE) -> torch.Tensor:
     """One read pass: launches ``stream_ceiling`` on a CUDA tensor, the
     plain twin on a CPU tensor. Returns the per-lane sums (B,)."""
-    global LAUNCHES
     if not A.is_cuda:
         return stream_pass_reference(A, b)
+    return _launch(A, b, b_tile)
+
+
+@launch("stream")
+def _launch(A: torch.Tensor, b: torch.Tensor, b_tile: int) -> torch.Tensor:
+    """Launch ``stream_ceiling`` on the current stream."""
     n, m, B = A.shape
     for name, t in (("A", A), ("b", b)):
         if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
@@ -47,7 +50,6 @@ def stream_pass(A: torch.Tensor, b: torch.Tensor,
         err = lib.stream_ceiling(A.data_ptr(), b.data_ptr(), out.data_ptr(),
                                  n, m, B, b_tile, stream)
     _build.check(err, "stream_ceiling")
-    LAUNCHES += 1
     return out
 
 

@@ -47,6 +47,7 @@ from ..batch.fista_gram import (
     GramBatch,
     _rel_gap,
 )
+from ..utils.profiling import count, launch, span
 from . import _build
 from ._common import (
     fista_armijo_chunk,
@@ -59,9 +60,6 @@ LANE = 128
 SUBLANE = 8
 # The burst engine's feature window (the reference's vmem ceiling, n_pad < 112).
 MAX_N = 104
-# Launches of the CUDA kernel by this process (one per burst); incremented
-# only where it launches.
-LAUNCHES = 0
 
 
 def _round_up(x: int, m: int) -> int:
@@ -216,13 +214,13 @@ def _burst_reference(betas, k0, Q, c, tau, thr, a2, a1, btb, X, Y, t, ps,
     return X, Y, t, ps, tauv, gap
 
 
+@launch("burst")
 def _launch_burst(betas, k0, Q, c, tau, thr, a2, a1, btb, X, Y, t, ps,
                   taumin=None, tauv=None, *, n_steps, with_gap=False,
                   restart_threshold=None, greedy=None, armijo=None):
     """Launch ``fista_burst`` on the current stream; the same outputs as
     :func:`_burst_reference`. Raises on any input the kernel does not take
     and on a launch error."""
-    global LAUNCHES
     n, B = c.shape
     rows = (("tau", tau), ("thr", thr), ("a2", a2), ("a1", a1), ("btb", btb),
             ("t", t), ("ps", ps), ("tauv", tauv))
@@ -263,7 +261,6 @@ def _launch_burst(betas, k0, Q, c, tau, thr, a2, a1, btb, X, Y, t, ps,
             float(restart_threshold or 0.0), S, shrink, C, eta, max_bt, stream,
         )
     _build.check(err, "fista_burst")
-    LAUNCHES += 1
     return Xo, Yo, to, pso, tauvo, gap
 
 
@@ -279,64 +276,77 @@ def _solve_on_device(burst, betas, Q, c, btb, alpha1, a2v, tau, thr, a2,
                      armijo=None, early_exit: bool = True) -> VmemSolveState:
     """The certified solve: bursts of ``chunk`` iterations with the gap
     check between them, until every lane is certified or ``k0 + n_bursts ·
-    chunk`` iterations have run. One host sync per burst reads the all-done
-    test; ``early_exit=False`` runs every burst and reads nothing. ``state0`` resumes a run exactly: the fixed modes index the β table
-    at absolute iterations, the others continue from their carried rows, and
-    ``done``/``iters``/``gap`` keep the certification record."""
-    n, B = c.shape
-    a1row, btbrow = alpha1[None, :], btb[None, :]
-    if state0 is None:
-        z = lambda *s: torch.zeros(s, dtype=c.dtype, device=c.device)
-        X, Y, ps = z(n, B), z(n, B), z(1, B)
-        # greedy reinterprets (t, ps) as (per-lane τ, first-step norm)
-        t = tau if greedy is not None else torch.ones_like(tau)
-        tv = tau
-        done = torch.zeros((B,), dtype=torch.bool, device=c.device)
-        iters = torch.zeros((B,), dtype=torch.int32, device=c.device)
-        gap = torch.full((B,), float("inf"), dtype=c.dtype, device=c.device)
-    else:
-        mv = lambda v: v.to(device=c.device).contiguous()
-        X, Y, t, ps, tv = (mv(v).to(c.dtype) for v in state0[:5])
-        done, iters, gap = mv(state0.done), mv(state0.iters), mv(state0.gap)
-    k = k0
+    chunk`` iterations have run. One host sync before each burst reads the
+    count of lanes not yet certified (``fos.sync``; the counters
+    ``burst_lanes``/``burst_lanes_live`` add it up); ``early_exit=False``
+    runs every burst and reads nothing. ``state0`` resumes a run exactly:
+    the fixed modes index the β table at absolute iterations, the others
+    continue from their carried rows, and ``done``/``iters``/``gap`` keep
+    the certification record."""
+    with span("fos.burst_loop"):
+        n, B = c.shape
+        a1row, btbrow = alpha1[None, :], btb[None, :]
+        if state0 is None:
+            z = lambda *s: torch.zeros(s, dtype=c.dtype, device=c.device)
+            X, Y, ps = z(n, B), z(n, B), z(1, B)
+            # greedy reinterprets (t, ps) as (per-lane τ, first-step norm)
+            t = tau if greedy is not None else torch.ones_like(tau)
+            tv = tau
+            done = torch.zeros((B,), dtype=torch.bool, device=c.device)
+            iters = torch.zeros((B,), dtype=torch.int32, device=c.device)
+            gap = torch.full((B,), float("inf"), dtype=c.dtype, device=c.device)
+        else:
+            mv = lambda v: v.to(device=c.device).contiguous()
+            X, Y, t, ps, tv = (mv(v).to(c.dtype) for v in state0[:5])
+            done, iters, gap = mv(state0.done), mv(state0.iters), mv(state0.gap)
+        k = k0
 
-    def step(X, Y, t, ps, tv, with_gap):
-        return burst(betas, k, Q, c, tau, thr, a2, a1row, btbrow, X, Y, t, ps,
-                     taumin, tv, n_steps=chunk, with_gap=with_gap,
-                     restart_threshold=restart_threshold, greedy=greedy,
-                     armijo=armijo)
+        def step(X, Y, t, ps, tv, with_gap):
+            return burst(betas, k, Q, c, tau, thr, a2, a1row, btbrow, X, Y, t, ps,
+                         taumin, tv, n_steps=chunk, with_gap=with_gap,
+                         restart_threshold=restart_threshold, greedy=greedy,
+                         armijo=armijo)
 
-    if certify and n_bursts > 0:
-        inf = torch.full_like(gap, float("inf"))
-        while k < k0 + n_bursts * chunk and not (early_exit and bool(done.all())):
-            X, Y, t, ps, tv, gvec = step(X, Y, t, ps, tv, True)
-            k += chunk
-            g = gvec[0]
-            # quarantine non-finite lanes so the loop exits
-            failed = ~torch.all(torch.isfinite(X), dim=0) | torch.isnan(g)
-            g = torch.where(failed, inf, g)
-            newly = ~done & ((g <= tol) | failed)
-            if greedy is not None:
-                # a live lane whose gap did not improve over a whole check
-                # window gets its τ halved toward 1/L
-                stuck = ~done & ~newly & (g > 0.9 * gap)
-                t = torch.where(stuck[None, :], torch.maximum(0.5 * t, taumin), t)
-            iters = torch.where(newly | ~done, torch.full_like(iters, k), iters)
-            gap = torch.where(done, gap, g)
-            done = done | newly
-    else:
-        # fixed-iteration runs and zero-burst resumes: certify the carried
-        # iterate afterwards
-        for _ in range(n_bursts):
-            X, Y, t, ps, tv, _ = step(X, Y, t, ps, tv, False)
-            k += chunk
-        gb = GramBatch(Q=Q, c=c, btb=btb, alpha1=alpha1, alpha2=a2v, L=alpha1)
-        gap = _rel_gap(gb, X)
-        done = gap <= tol
-        iters = torch.full((B,), k, dtype=torch.int32, device=c.device)
-    return VmemSolveState(X=X, Y=Y, t=t, ps=ps, tau=tv,
-                          k=torch.tensor(k, dtype=torch.int32), done=done,
-                          iters=iters, gap=gap)
+        if certify and n_bursts > 0:
+            inf = torch.full_like(gap, float("inf"))
+            while k < k0 + n_bursts * chunk:
+                if early_exit:
+                    with span("fos.sync"):
+                        n_live = B - int(done.sum())
+                    if not n_live:
+                        break
+                    count("burst_lanes", B)
+                    count("burst_lanes_live", n_live)
+                count("bursts")
+                X, Y, t, ps, tv, gvec = step(X, Y, t, ps, tv, True)
+                k += chunk
+                g = gvec[0]
+                # quarantine non-finite lanes so the loop exits
+                failed = ~torch.all(torch.isfinite(X), dim=0) | torch.isnan(g)
+                g = torch.where(failed, inf, g)
+                newly = ~done & ((g <= tol) | failed)
+                if greedy is not None:
+                    # a live lane whose gap did not improve over a whole check
+                    # window gets its τ halved toward 1/L
+                    stuck = ~done & ~newly & (g > 0.9 * gap)
+                    t = torch.where(stuck[None, :], torch.maximum(0.5 * t, taumin), t)
+                iters = torch.where(newly | ~done, torch.full_like(iters, k), iters)
+                gap = torch.where(done, gap, g)
+                done = done | newly
+        else:
+            # fixed-iteration runs and zero-burst resumes: certify the carried
+            # iterate afterwards
+            for _ in range(n_bursts):
+                count("bursts")
+                X, Y, t, ps, tv, _ = step(X, Y, t, ps, tv, False)
+                k += chunk
+            gb = GramBatch(Q=Q, c=c, btb=btb, alpha1=alpha1, alpha2=a2v, L=alpha1)
+            gap = _rel_gap(gb, X)
+            done = gap <= tol
+            iters = torch.full((B,), k, dtype=torch.int32, device=c.device)
+        return VmemSolveState(X=X, Y=Y, t=t, ps=ps, tau=tv,
+                              k=torch.tensor(k, dtype=torch.int32), done=done,
+                              iters=iters, gap=gap)
 
 
 def _pad_and_solve(burst, betas, Q, c, btb, alpha1, alpha2, L, state0, *,
@@ -347,22 +357,28 @@ def _pad_and_solve(burst, betas, Q, c, btb, alpha1, alpha2, L, state0, *,
     floor 1/L), the solve and the result, as the reference's function of
     this name; lanes need no padding here (the kernel masks its ragged
     CTA). Returns ``(BatchResult, VmemSolveState)``."""
-    Q, c, btb, alpha1, alpha2, L = (v.contiguous() for v in (Q, c, btb, alpha1,
-                                                            alpha2, L))
-    tau = (t_init_factor / L)[None, :]
-    thr = tau * alpha1[None, :]
-    a2 = alpha2[None, :]
-    taumin = (1.0 / L)[None, :]
+    with span("fos.plan"):
+        Q, c, btb, alpha1, alpha2, L = (v.contiguous() for v in (Q, c, btb, alpha1,
+                                                                alpha2, L))
+        tau = (t_init_factor / L)[None, :]
+        thr = tau * alpha1[None, :]
+        a2 = alpha2[None, :]
+        taumin = (1.0 / L)[None, :]
+        # a copy from pageable memory waits for the stream: behind the Gram
+        # build, this is where the host first waits for the card
+        with span("fos.sync"):
+            betas = betas.to(Q.device)
     fin = _solve_on_device(
-        burst, betas.to(Q.device), Q, c, btb, alpha1, alpha2, tau, thr, a2,
+        burst, betas, Q, c, btb, alpha1, alpha2, tau, thr, a2,
         taumin, state0, chunk=chunk, n_bursts=n_bursts, tol=tol,
         certify=certify, restart_threshold=restart_threshold, greedy=greedy,
         k0=k0, armijo=armijo, early_exit=early_exit,
     )
-    failed = ~torch.all(torch.isfinite(fin.X), dim=0)
-    result = BatchResult(x=fin.X.T, iters=fin.iters, rel_gap=fin.gap,
-                         n_iters_total=fin.k, converged=fin.done & ~failed,
-                         failed=failed)
+    with span("fos.result"):
+        failed = ~torch.all(torch.isfinite(fin.X), dim=0)
+        result = BatchResult(x=fin.X.T, iters=fin.iters, rel_gap=fin.gap,
+                             n_iters_total=fin.k, converged=fin.done & ~failed,
+                             failed=failed)
     return result, fin
 
 
@@ -374,8 +390,10 @@ def _solve(burst, gb, cfg, state0, return_state):
     n_bursts = -(-remaining // chunk)
     greedy = ((cfg.greedy_S, cfg.greedy_shrink) if cfg.momentum == "greedy"
               else None)
+    with span("fos.plan"):
+        betas = _beta_table(max(k0 + n_bursts * chunk, 1), cfg)
     result, fin = _pad_and_solve(
-        burst, _beta_table(max(k0 + n_bursts * chunk, 1), cfg), gb.Q, gb.c,
+        burst, betas, gb.Q, gb.c,
         gb.btb, gb.alpha1, gb.alpha2, gb.L, state0, chunk=chunk,
         n_bursts=n_bursts, tol=cfg.rel_gap_tol, certify=certify,
         t_init_factor=cfg.greedy_xi if greedy is not None else cfg.t_init_factor,

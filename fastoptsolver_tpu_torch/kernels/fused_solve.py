@@ -26,6 +26,7 @@ from typing import NamedTuple
 import torch
 
 from ..batch.fista_gram import BatchFISTAConfig, BatchResult, _lane_vector
+from ..utils.profiling import launch, span
 from . import _build
 from ._common import (
     assert_tile_k_uniform,
@@ -41,8 +42,6 @@ from .gram_build import _round_up
 MAX_N = 8
 # Default lanes per CTA; b_tile must be a multiple of 32 in 32..256.
 B_TILE = 128
-# Launches of the CUDA kernel by this process; incremented only where it launches.
-LAUNCHES = 0
 
 
 class FusedSolveState(NamedTuple):
@@ -152,6 +151,7 @@ def _plain_run(A, b, a1, a2, betas, state0=None, *, b_tile: int,
     return tuple(v[:, :B] for v in out)
 
 
+@launch("fused")
 def _launch(A, b, a1, a2, betas, state0=None, *, b_tile: int, pl_iters: int,
             l_safety: float, t_init: float, chunk: int, k_end: int,
             tol: float, restart_threshold=None, greedy=None, armijo=None,
@@ -160,7 +160,6 @@ def _launch(A, b, a1, a2, betas, state0=None, *, b_tile: int, pl_iters: int,
     as :func:`_plain_run` (rows ``(B,)``; ``Y, t, ps, tv, k`` None unless
     ``with_state``). Raises on any input the kernel does not take and on a
     launch error."""
-    global LAUNCHES
     n, m, B = A.shape
     f32 = [("A", A), ("b", b), ("alpha1", a1), ("alpha2", a2), ("betas", betas)]
     ints = []
@@ -212,7 +211,6 @@ def _launch(A, b, a1, a2, betas, state0=None, *, b_tile: int, pl_iters: int,
             S, shrink, C, eta, max_bt, stream,
         )
     _build.check(err, "fused_lasso_solve")
-    LAUNCHES += 1
     Y, t, ps, tv, k = out
     return X, Y, t, ps, tv, k, done, iters, gap
 
@@ -231,9 +229,12 @@ def _plan(A, alpha1, alpha2, cfg, pl_iters, l_safety, b_tile) -> dict:
     k_end = -(-cfg.max_iter // chunk) * chunk
     greedy = ((cfg.greedy_S, cfg.greedy_shrink) if cfg.momentum == "greedy"
               else None)
+    a1, a2 = _lane_vector(alpha1, B, A), _lane_vector(alpha2, B, A)
+    betas = _beta_table(k_end + chunk, cfg)
+    with span("fos.sync"):  # a copy from host memory waits for the stream
+        betas = betas.to(A.device)
     return dict(
-        a1=_lane_vector(alpha1, B, A), a2=_lane_vector(alpha2, B, A),
-        betas=_beta_table(k_end + chunk, cfg).to(A.device),
+        a1=a1, a2=a2, betas=betas,
         # a tile never spans more than the batch, rounded as the reference rounds
         b_tile=min(auto_bt if b_tile is None else b_tile, _round_up(B, 128)),
         pl_iters=(32 if n <= 7 else 96) if pl_iters is None else pl_iters,
@@ -266,31 +267,33 @@ def _solve(run, A, b, alpha1, alpha2, cfg, pl_iters, l_safety, b_tile,
            state0, return_state):
     """The plan, the state's layout and the result around one run (the
     kernel's or the twin's)."""
-    plan = _plan(A, alpha1, alpha2, cfg, pl_iters, l_safety, b_tile)
-    rows = None
-    if state0 is not None:
-        rows = _state_rows(state0, A)
-        # k is read once per lane tile: a checkpoint cut under another
-        # grouping would resume a whole tile from its first lane's k
-        assert_tile_k_uniform(rows[5], A.shape[2], plan["b_tile"])
+    with span("fos.plan"):
+        plan = _plan(A, alpha1, alpha2, cfg, pl_iters, l_safety, b_tile)
+        rows = None
+        if state0 is not None:
+            rows = _state_rows(state0, A)
+            # k is read once per lane tile: a checkpoint cut under another
+            # grouping would resume a whole tile from its first lane's k
+            assert_tile_k_uniform(rows[5], A.shape[2], plan["b_tile"])
     X, Y, t, ps, tv, k, done, iters, gap = run(A, b, state0=rows,
                                                with_state=return_state, **plan)
-    done, iters, gap = done.reshape(-1) > 0, iters.reshape(-1), gap.reshape(-1)
-    failed = ~torch.all(torch.isfinite(X), dim=0)
-    result = BatchResult(
-        x=X.T,
-        iters=iters,
-        rel_gap=gap,
-        n_iters_total=torch.max(iters),
-        converged=done & (gap <= cfg.rel_gap_tol) & ~failed,
-        failed=failed,
-    )
-    if not return_state:
-        return result
-    row = lambda v: v.reshape(1, -1)
-    return result, FusedSolveState(
-        X=X, Y=Y, t=row(t), ps=row(ps), tau=row(tv),
-        k=k.reshape(-1).to(torch.int32), done=done, iters=iters, gap=gap)
+    with span("fos.result"):
+        done, iters, gap = done.reshape(-1) > 0, iters.reshape(-1), gap.reshape(-1)
+        failed = ~torch.all(torch.isfinite(X), dim=0)
+        result = BatchResult(
+            x=X.T,
+            iters=iters,
+            rel_gap=gap,
+            n_iters_total=torch.max(iters),
+            converged=done & (gap <= cfg.rel_gap_tol) & ~failed,
+            failed=failed,
+        )
+        if not return_state:
+            return result
+        row = lambda v: v.reshape(1, -1)
+        return result, FusedSolveState(
+            X=X, Y=Y, t=row(t), ps=row(ps), tau=row(tv),
+            k=k.reshape(-1).to(torch.int32), done=done, iters=iters, gap=gap)
 
 
 _DEFAULT_CFG = BatchFISTAConfig(max_iter=1000, check_every=25, rel_gap_tol=1e-6)

@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from ..batch.fista_gram import GramBatch, _lane_vector
+from ..utils.profiling import launch
 from . import _build
 from ._common import augmented_gram, make_matvec, power_lambda_max
 
@@ -37,9 +38,6 @@ LANE_TILE = 32
 # features × LANE_TILE lanes of f32 (32 KB): copies of two stages in flight
 # while the third is summed.
 PAIRS_STAGES = 3
-# Launches of the CUDA kernels by this process (gram_pairs and gram_power each
-# count one, so a build adds 2); incremented only where they launch.
-LAUNCHES = 0
 
 
 def _round_up(x: int, mult: int) -> int:
@@ -137,7 +135,15 @@ def _launch(A: torch.Tensor, b: torch.Tensor, pl_iters: int):
     """Launch ``gram_pairs`` then, unless ``pl_iters`` is 0, ``gram_power``
     on the current stream; the same outputs as :func:`gram_build_reference`. Raises on any input the
     kernels do not take and on a launch error."""
-    global LAUNCHES
+    Q, c, btb = _launch_pairs(A, b)
+    if pl_iters == 0:  # no power steps: λ = 0, as the twin's
+        return Q, c, btb, torch.zeros((A.shape[2],), dtype=A.dtype, device=A.device)
+    return Q, c, btb, _launch_power(Q, c, pl_iters)
+
+
+@launch("gram_pairs")
+def _launch_pairs(A: torch.Tensor, b: torch.Tensor):
+    """``(Q, c, btb)`` from ``gram_pairs`` on the current stream."""
     n, m, B = A.shape
     for name, t in (("A", A), ("b", b)):
         if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
@@ -155,16 +161,13 @@ def _launch(A: torch.Tensor, b: torch.Tensor, pl_iters: int):
         err = lib.gram_pairs(A.data_ptr(), b.data_ptr(), Q.data_ptr(),
                              c.data_ptr(), btb.data_ptr(), n, m, B, stream)
         _build.check(err, "gram_pairs")
-        LAUNCHES += 1
-    if pl_iters == 0:  # no power steps: λ = 0, as the twin's
-        return Q, c, btb, torch.zeros((B,), dtype=A.dtype, device=A.device)
-    return Q, c, btb, _launch_power(Q, c, pl_iters)
+    return Q, c, btb
 
 
+@launch("gram_power")
 def _launch_power(Q: torch.Tensor, c: torch.Tensor, pl_iters: int) -> torch.Tensor:
     """λ (B,) from ``gram_power`` on the (n, n, B) Gram and c (n, B) that
     ``gram_pairs`` wrote, on the current stream."""
-    global LAUNCHES
     n, _, B = Q.shape
     lam = torch.empty((B,), dtype=Q.dtype, device=Q.device)
     with torch.cuda.device(Q.device):
@@ -172,7 +175,6 @@ def _launch_power(Q: torch.Tensor, c: torch.Tensor, pl_iters: int) -> torch.Tens
             Q.data_ptr(), c.data_ptr(), lam.data_ptr(), n, B, pl_iters,
             torch.cuda.current_stream(Q.device).cuda_stream)
         _build.check(err, "gram_power")
-        LAUNCHES += 1
     return lam
 
 

@@ -27,14 +27,12 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import launch
 from . import _build
 from .fista_vmem import SUBLANE, _burst_reference
 
 # The kernel's feature window: the reference's qstream plan holds to n_pad = 1016.
 MAX_N = 1016
-# Launches of the CUDA kernel by this process (one per burst); incremented
-# only where it launches.
-LAUNCHES = 0
 
 
 def auto_tiles_qstream(n_pad: int, vmem_budget_bytes: int = 10 * 1024 * 1024):
@@ -108,6 +106,7 @@ def cluster_size(n: int) -> int:
     return _build.library().qstream_cluster_size(n)
 
 
+@launch("qstream")
 def _launch_qstream(betas, k0, Q, c, tau, thr, a2, a1, btb, X, Y, t, ps,
                     taumin=None, tauv=None, *, n_steps, with_gap=False,
                     restart_threshold=None, greedy=None, armijo=None, Qt=None,
@@ -119,7 +118,6 @@ def _launch_qstream(betas, k0, Q, c, tau, thr, a2, a1, btb, X, Y, t, ps,
     ``cluster`` is :func:`cluster_size` unless given (tests and timings
     force a size; 0 is the streaming kernel). The cluster kernel reads
     ``Qt``, :func:`relayout` of Q at that size, made here when not passed."""
-    global LAUNCHES
     _refuse_armijo(armijo)
     n, B = c.shape
     rows = (("tau", tau), ("thr", thr), ("a2", a2), ("a1", a1), ("btb", btb),
@@ -171,7 +169,6 @@ def _launch_qstream(betas, k0, Q, c, tau, thr, a2, a1, btb, X, Y, t, ps,
             float(restart_threshold or 0.0), S, shrink, stream,
         )
     _build.check(err, "qstream_burst")
-    LAUNCHES += 1
     return Xo, Yo, to, pso, tauv, gap
 
 

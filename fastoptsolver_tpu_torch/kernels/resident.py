@@ -42,6 +42,7 @@ from typing import NamedTuple
 import torch
 
 from ..batch.fista_gram import BatchFISTAConfig, BatchResult, GramBatch
+from ..utils.profiling import launch, span
 from . import _build
 from ._common import (
     assert_tile_k_uniform,
@@ -69,9 +70,6 @@ SMEM_PER_BLOCK = 232448
 MAX_THREADS = 1024
 MAX_GROUP = 32
 N_SUMS = 6
-# Launches of the CUDA kernel by this process (one per solve); incremented
-# only where it launches.
-LAUNCHES = 0
 
 _DEFAULT_CFG = BatchFISTAConfig(max_iter=1000, check_every=25, rel_gap_tol=1e-6)
 
@@ -183,13 +181,13 @@ def _plain_run(betas, gb, tau, thr, taumin, state0, *, b_tile, chunk, k_end,
     )
 
 
+@launch("resident")
 def _launch(betas, gb, tau, thr, taumin, state0, *, b_tile, chunk, k_end,
             tol, restart_threshold, greedy, armijo, est_l_iters, l_safety,
             t_init):
     """One launch of ``resident_solve`` on the current stream; the same
     9-tuple as :func:`_plain_run`. Raises on any input the kernel does not
     take and on a launch error."""
-    global LAUNCHES
     n, B = gb.c.shape
     Q = gb.Q
     f32 = (("Q", Q), ("c", gb.c), ("tau", tau), ("thr", thr), ("taumin", taumin),
@@ -231,7 +229,6 @@ def _launch(betas, gb, tau, thr, taumin, state0, *, b_tile, chunk, k_end,
             est_l_iters or 0, l_safety, t_init, stream,
         )
     _build.check(err, "resident_solve")
-    LAUNCHES += 1
     X, Y, t, ps, tv, k, done, iters, gap = out
     row = lambda v: v[None, :]
     return (X, Y, row(t), row(ps), row(tv), row(k), row(done.bool()),
@@ -267,37 +264,43 @@ def _solve(run, gb: GramBatch, cfg: BatchFISTAConfig, state0, return_state,
               else None)
     t_init = cfg.greedy_xi if greedy is not None else cfg.t_init_factor
     dev = gb.c.device
-    tau = (t_init / gb.L)[None, :].contiguous()
-    thr = (tau * gb.alpha1[None, :]).contiguous()
-    taumin = (1.0 / gb.L)[None, :].contiguous()
-    rows = None
-    if state0 is not None:
-        assert_tile_k_uniform(state0.k, B, b_tile)
-        mv = lambda v, dt=torch.float32: (
-            v.to(device=dev, dtype=dt).reshape(-1, B).contiguous())
-        rows = (mv(state0.X), mv(state0.Y), mv(state0.t), mv(state0.ps),
-                mv(state0.tau), mv(state0.k, torch.int32),
-                mv(state0.done, torch.bool), mv(state0.iters, torch.int32),
-                mv(state0.gap))
+    with span("fos.plan"):
+        tau = (t_init / gb.L)[None, :].contiguous()
+        thr = (tau * gb.alpha1[None, :]).contiguous()
+        taumin = (1.0 / gb.L)[None, :].contiguous()
+        rows = None
+        if state0 is not None:
+            assert_tile_k_uniform(state0.k, B, b_tile)
+            mv = lambda v, dt=torch.float32: (
+                v.to(device=dev, dtype=dt).reshape(-1, B).contiguous())
+            rows = (mv(state0.X), mv(state0.Y), mv(state0.t), mv(state0.ps),
+                    mv(state0.tau), mv(state0.k, torch.int32),
+                    mv(state0.done, torch.bool), mv(state0.iters, torch.int32),
+                    mv(state0.gap))
+        # a resumed group may start off the burst grid: one chunk of slack;
+        # its copy from pageable memory waits for the stream (the Gram build)
+        betas = _beta_table(k_end + chunk, cfg)
+        with span("fos.sync"):
+            betas = betas.to(dev)
     X, Y, t, ps, tv, k, done, iters, gap = run(
-        # a resumed group may start off the burst grid: one chunk of slack
-        _beta_table(k_end + chunk, cfg).to(dev), gb, tau, thr, taumin, rows,
+        betas, gb, tau, thr, taumin, rows,
         b_tile=b_tile, chunk=chunk, k_end=k_end, tol=cfg.rel_gap_tol,
         restart_threshold=cfg.restart_threshold if cfg.adaptive_restart else None,
         greedy=greedy, armijo=_armijo_static(cfg), est_l_iters=est_l_iters,
         l_safety=l_safety, t_init=t_init,
     )
-    failed = ~torch.all(torch.isfinite(X), dim=0)
-    done, iters, gap = done[0], iters[0], gap[0]
-    result = BatchResult(x=X.T, iters=iters, rel_gap=gap,
-                         n_iters_total=torch.max(iters),
-                         converged=done & (gap <= cfg.rel_gap_tol) & ~failed,
-                         failed=failed)
-    if not return_state:
-        return result
-    return result, ResidentSolveState(X=X, Y=Y, t=t, ps=ps, tau=tv,
-                                      k=k[0].to(torch.int32), done=done,
-                                      iters=iters, gap=gap)
+    with span("fos.result"):
+        failed = ~torch.all(torch.isfinite(X), dim=0)
+        done, iters, gap = done[0], iters[0], gap[0]
+        result = BatchResult(x=X.T, iters=iters, rel_gap=gap,
+                             n_iters_total=torch.max(iters),
+                             converged=done & (gap <= cfg.rel_gap_tol) & ~failed,
+                             failed=failed)
+        if not return_state:
+            return result
+        return result, ResidentSolveState(X=X, Y=Y, t=t, ps=ps, tau=tv,
+                                          k=k[0].to(torch.int32), done=done,
+                                          iters=iters, gap=gap)
 
 
 def fista_gram_resident_reference(gb: GramBatch, cfg: BatchFISTAConfig = _DEFAULT_CFG,

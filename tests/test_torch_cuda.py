@@ -23,8 +23,17 @@ from fastoptsolver_tpu_torch.bench import stream
 from fastoptsolver_tpu_torch.batch.fista_gram import make_gram_batch
 from fastoptsolver_tpu_torch.kernels import _build, fista_vmem, fused_solve, gram_build, qstream, resident
 from fastoptsolver_tpu_torch.kernels._common import make_matvec, power_lambda_max
+from fastoptsolver_tpu_torch.utils.profiling import counters
 
 pytestmark = pytest.mark.cuda
+
+
+def launches(kernel: str) -> int:
+    """Launches of ``kernel`` so far; ``gram`` is the build's two kernels."""
+    c = counters()
+    if kernel == "gram":
+        return c["launches.gram_pairs"] + c["launches.gram_power"]
+    return c[f"launches.{kernel}"]
 
 
 @pytest.fixture
@@ -56,10 +65,10 @@ def test_fused_kernel_matches_twin(cuda, shape, mode, a2):
     A, b, a1 = _problem(*shape, seed=SHAPES.index(shape), device=cuda)
     cfg = BatchFISTAConfig(max_iter=1000, check_every=25, rel_gap_tol=1e-6,
                            momentum=mode)
-    before = fused_solve.LAUNCHES
+    before = launches("fused")
     got = fused_solve.solve_lasso_fused(A, b, a1, a2, cfg=cfg)
     torch.cuda.synchronize()
-    assert fused_solve.LAUNCHES == before + 1
+    assert launches("fused") == before + 1
     want = fused_solve.fused_solve_reference(A, b, a1, a2, cfg=cfg)
     torch.testing.assert_close(got.x, want.x, rtol=1e-5, atol=1e-6)
     assert torch.equal(got.converged, want.converged)
@@ -77,10 +86,10 @@ def test_fused_kernel_matches_twin_in_every_mode(cuda, shape, mode):
     identical, iters within a burst, x to rtol 2e-4/atol 2e-5."""
     A, b, a1 = _problem(*shape, seed=SHAPES.index(shape), device=cuda)
     cfg = BatchFISTAConfig(max_iter=1000, check_every=25, rel_gap_tol=1e-5, **FUSED_MODES[mode])
-    before = fused_solve.LAUNCHES
+    before = launches("fused")
     got = fused_solve.solve_lasso_fused(A, b, a1, 0.0, cfg=cfg)
     torch.cuda.synchronize()
-    assert fused_solve.LAUNCHES == before + 1
+    assert launches("fused") == before + 1
     want = fused_solve.fused_solve_reference(A, b, a1, 0.0, cfg=cfg)
     assert torch.equal(got.converged, want.converged) and got.converged.all()
     assert int((got.iters - want.iters).abs().max()) <= cfg.check_every
@@ -157,9 +166,9 @@ def test_fused_kernel_resume_with_tiles_at_different_k(cuda):
 @pytest.mark.parametrize("shape", SHAPES)
 def test_stream_kernel_matches_twin(cuda, shape):
     A, b, _ = _problem(*shape, seed=0, device=cuda)
-    before = stream.LAUNCHES
+    before = launches("stream")
     got = stream.stream_pass(A, b)
-    assert stream.LAUNCHES == before + 1
+    assert launches("stream") == before + 1
     want = stream.stream_pass_reference(A, b)
     scale = A.abs().sum(dim=(0, 1)) + b.abs().sum(dim=0)
     assert bool(((got - want).abs() <= 1e-5 * scale).all())
@@ -183,33 +192,33 @@ def test_stream_copy_widths_agree(cuda):
 
 def test_router_takes_the_kernel_on_cuda(cuda):
     A, b, a1 = _problem(5, 100, 256, seed=4, device=cuda)
-    before = fused_solve.LAUNCHES
-    builds, bursts = gram_build.LAUNCHES, fista_vmem.LAUNCHES
+    before = launches("fused")
+    builds, bursts = launches("gram"), launches("burst")
     res = solve_lasso_batch(A, b, a1, feature_major=True)
-    assert fused_solve.LAUNCHES == before + 1 and res.converged.all()
-    assert gram_build.LAUNCHES == builds and fista_vmem.LAUNCHES == bursts
+    assert launches("fused") == before + 1 and res.converged.all()
+    assert launches("gram") == builds and launches("burst") == bursts
     # every mode at n <= 8 runs on the fused kernel, with the state
     cfg = BatchFISTAConfig(max_iter=1000, check_every=25, adaptive_restart=True)
     res, st = solve_lasso_batch(A, b, a1, cfg=cfg, feature_major=True, return_state=True)
-    assert fused_solve.LAUNCHES == before + 2 and isinstance(st, fused_solve.FusedSolveState)
-    assert gram_build.LAUNCHES == builds and fista_vmem.LAUNCHES == bursts
+    assert launches("fused") == before + 2 and isinstance(st, fused_solve.FusedSolveState)
+    assert launches("gram") == builds and launches("burst") == bursts
     assert res.converged.all() and st.X.is_cuda
     # what the fused kernel refuses (n = 9) goes to the two-kernel path: two
     # build launches and one burst launch per check_every iterations
     A9, b9, a19 = _problem(9, 100, 256, seed=4, device=cuda)
     res = solve_lasso_batch(A9, b9, a19, cfg=cfg, feature_major=True)
-    assert fused_solve.LAUNCHES == before + 2 and res.x.is_cuda
-    assert gram_build.LAUNCHES == builds + 2
-    assert fista_vmem.LAUNCHES == bursts + int(res.n_iters_total) // 25
+    assert launches("fused") == before + 2 and res.x.is_cuda
+    assert launches("gram") == builds + 2
+    assert launches("burst") == bursts + int(res.n_iters_total) // 25
     assert res.converged.all()
     # and past the burst window: n = 110 to one resident launch (the build
     # kernels take n <= 118; L is estimated in-kernel, so gram_power does not
     # launch), Armijo at n = 200 to the torch driver
     A, b, a1 = _problem(110, 220, 64, seed=5, device=cuda)
-    launches, bursts = resident.LAUNCHES, fista_vmem.LAUNCHES
+    residents, bursts = launches("resident"), launches("burst")
     res = solve_lasso_batch(A, b, a1, feature_major=True)
-    assert resident.LAUNCHES == launches + 1 and res.x.is_cuda
-    assert gram_build.LAUNCHES == builds + 3 and fista_vmem.LAUNCHES == bursts
+    assert launches("resident") == residents + 1 and res.x.is_cuda
+    assert launches("gram") == builds + 3 and launches("burst") == bursts
     A, b, a1 = _problem(200, 400, 64, seed=5, device=cuda)
     res = solve_lasso_batch(A, b, a1, cfg=BatchFISTAConfig(max_iter=50, check_every=25,
                                                            backtracking=True),
@@ -223,10 +232,10 @@ def test_router_takes_the_kernel_on_cuda(cuda):
                                    (9, 33, 301), (20, 7, 203)])
 def test_build_kernels_match_twin(cuda, shape):
     A, b, _ = _problem(*shape, seed=6, device=cuda)
-    before = gram_build.LAUNCHES
+    before = launches("gram")
     got = gram_build._launch(A, b, 96)
     torch.cuda.synchronize()
-    assert gram_build.LAUNCHES == before + 2
+    assert launches("gram") == before + 2
     want = gram_build.gram_build_reference(A, b, 96)
     scale = torch.maximum(want[0].abs().amax(dim=(0, 1)), want[2])
     for g, w in zip(got[:3], want[:3]):
@@ -239,10 +248,10 @@ def test_build_without_power_steps_launches_once(cuda):
     """pl_iters=0 (the resident route's build) skips gram_power: λ = 0, as
     the twin's, and the Gram as with the power steps."""
     A, b, _ = _problem(20, 70, 200, seed=6, device=cuda)
-    before = gram_build.LAUNCHES
+    before = launches("gram")
     got = gram_build._launch(A, b, 0)
     torch.cuda.synchronize()
-    assert gram_build.LAUNCHES == before + 1
+    assert launches("gram") == before + 1
     assert not bool(got[3].any())
     assert torch.equal(got[0], gram_build._launch(A, b, 96)[0])
 
@@ -279,10 +288,10 @@ def test_power_kernel_matches_twin(cuda, n):
     A, b, _ = _problem(n, max(2 * n, 16), 301, seed=14, device=cuda)
     Q, c, _, _ = gram_build._launch(A, b, 0)
     pl_iters = 32 if n <= 7 else 96
-    before = gram_build.LAUNCHES
+    before = launches("gram")
     lam = gram_build._launch_power(Q, c, pl_iters)
     torch.cuda.synchronize()
-    assert gram_build.LAUNCHES == before + 1
+    assert launches("gram") == before + 1
     want = power_lambda_max(make_matvec(Q, n), c, pl_iters)[0]
     assert bool(torch.isfinite(lam).all())
     torch.testing.assert_close(lam, want, rtol=1e-5, atol=0)
@@ -325,10 +334,10 @@ def test_burst_kernel_matches_twin(cuda, n, mode):
     A, b, a1 = _problem(n, max(150, 2 * n), 300, seed=7, device=cuda)
     gb = gram_build.make_gram_batch_fused(A, b, a1, a2)
     fixed = BatchFISTAConfig(max_iter=100, check_every=0, **kw)
-    before = fista_vmem.LAUNCHES
+    before = launches("burst")
     got = fista_vmem.fista_gram_vmem(gb, fixed)
     torch.cuda.synchronize()
-    assert fista_vmem.LAUNCHES == before + 1
+    assert launches("burst") == before + 1
     want = fista_vmem.fista_gram_vmem_reference(gb, fixed)
     torch.testing.assert_close(got.x, want.x, rtol=2e-4, atol=2e-5)
     cert = BatchFISTAConfig(max_iter=1000, check_every=25, rel_gap_tol=1e-5, **kw)
@@ -428,10 +437,10 @@ def test_resident_kernel_matches_twin(cuda, n, mode):
     cfg = BatchFISTAConfig(**(dict(max_iter=5, check_every=5) if armijo else
                               dict(max_iter=1000, check_every=25, rel_gap_tol=1e-5)), **kw)
     est = None if armijo else 96
-    before = resident.LAUNCHES
+    before = launches("resident")
     got = resident.fista_gram_resident(gb, cfg, est_l_iters=est)
     torch.cuda.synchronize()
-    assert resident.LAUNCHES == before + 1
+    assert launches("resident") == before + 1
     want = resident.fista_gram_resident_reference(gb, cfg, est_l_iters=est)
     if armijo:
         torch.testing.assert_close(got.x, want.x, rtol=1e-4, atol=1e-5)
@@ -477,9 +486,9 @@ def test_adaptive_entry_matches_twin(cuda, mode):
     A, b, a1 = _problem(96, 192, 300, seed=9, device=cuda)
     gb = gram_build.make_gram_batch_fused(A, b, a1, a2)
     cfg = BatchFISTAConfig(max_iter=1000, check_every=25, rel_gap_tol=1e-5, **kw)
-    before = resident.LAUNCHES
+    before = launches("resident")
     got = fista_vmem.fista_gram_vmem_adaptive(gb, cfg)
-    assert resident.LAUNCHES == before + 1
+    assert launches("resident") == before + 1
     want = fista_vmem.fista_gram_vmem_adaptive(
         gram_build.GramBatch(*(v.cpu() for v in (gb.Q, gb.c, gb.btb, gb.alpha1,
                                                  gb.alpha2, gb.L))), cfg)
@@ -491,10 +500,10 @@ def _qstream_one_burst(gb, kw, cuda):
     """One burst of 25 from a non-trivial state, with the gap: every output
     of the kernel to rtol 2e-4/atol 2e-5 of the twin's."""
     args, static = _qstream_args(gb, kw, cuda)
-    before = qstream.LAUNCHES
+    before = launches("qstream")
     got = qstream._launch_qstream(*args, with_gap=True, **static)
     torch.cuda.synchronize()
-    assert qstream.LAUNCHES == before + 1
+    assert launches("qstream") == before + 1
     want = qstream._qstream_burst_reference(*args, with_gap=True, **static)
     for gv, wv in zip(got, want):
         torch.testing.assert_close(gv, wv, rtol=2e-4, atol=2e-5)
@@ -542,9 +551,9 @@ def test_qstream_kernel_matches_twin_at_each_instantiation(cuda, n, mode):
     _qstream_one_burst(gb, kw, cuda)
     if n == 120:
         fixed = BatchFISTAConfig(max_iter=100, check_every=0, **kw)
-        before = (qstream.LAUNCHES, resident.LAUNCHES)
+        before = (launches("qstream"), launches("resident"))
         got = fista_vmem.fista_gram_vmem(gb, fixed)
-        assert qstream.LAUNCHES > before[0] and resident.LAUNCHES == before[1]
+        assert launches("qstream") > before[0] and launches("resident") == before[1]
         want = fista_vmem.fista_gram_vmem_reference(gb, fixed)
         torch.testing.assert_close(got.x, want.x, rtol=2e-4, atol=2e-5)
 
@@ -607,11 +616,11 @@ def test_qstream_cluster_kernel_is_the_streaming_kernels_bits(cuda, n, B, mode):
     C = qstream.cluster_size(n)
     assert (C > 0) == (n <= CLUSTER_MAX_N)
     for with_gap in (True, False):
-        before = qstream.LAUNCHES
+        before = launches("qstream")
         got = qstream.qstream_burst(*args, with_gap=with_gap, **static)
         streamed = qstream._launch_qstream(*args, with_gap=with_gap, cluster=0, **static)
         torch.cuda.synchronize()
-        assert qstream.LAUNCHES == before + 2
+        assert launches("qstream") == before + 2
         want = qstream._qstream_burst_reference(*args, with_gap=with_gap, **static)
         for gv, sv, wv in zip(got, streamed, want):
             torch.testing.assert_close(gv, wv, rtol=2e-4, atol=2e-5)
@@ -692,10 +701,10 @@ def test_one_rank_nccl_mesh_is_the_plain_call(cuda):
     mesh = make_mesh(batch=1)
     try:
         assert dist.get_backend() == "nccl"
-        before = fused_solve.LAUNCHES
+        before = launches("fused")
         res = solve_lasso_batch(A, b, a1, 0.0, cfg=cfg, feature_major=True, mesh=mesh)
         torch.cuda.synchronize()
-        assert fused_solve.LAUNCHES == before + 1
+        assert launches("fused") == before + 1
         for name in ("x", "iters", "converged"):
             assert torch.equal(getattr(res, name), getattr(plain, name)), name
     finally:
@@ -711,11 +720,11 @@ def test_verify_tpu_holds_each_kernel_against_the_driver(cuda):
     kernel but the stream kernel launches."""
     from fastoptsolver_tpu_torch.bench import verify_tpu
 
-    mods = (fused_solve, gram_build, fista_vmem, resident, qstream)
-    before = [m.LAUNCHES for m in mods]
+    kernels = ("fused", "gram", "burst", "resident", "qstream")
+    before = [launches(k) for k in kernels]
     rep = verify_tpu.run()
     torch.cuda.synchronize()
-    assert all(m.LAUNCHES > b for m, b in zip(mods, before))
+    assert all(launches(k) > b for k, b in zip(kernels, before))
     assert rep["detail"]["device"] == torch.cuda.get_device_name(cuda)
     failed = [n for n in verify_tpu.CHECK_NAMES if not rep["detail"][n]]
     assert set(failed) <= {"resident_armijo_resume"}, failed

@@ -21,6 +21,7 @@ from fastoptsolver_tpu.kernels import fista_vmem as jvmem
 from fastoptsolver_tpu_torch import convert
 from fastoptsolver_tpu_torch.batch import GramBatch
 from fastoptsolver_tpu_torch.kernels import fista_vmem as tvmem
+from fastoptsolver_tpu_torch.utils.profiling import counters
 
 torch.set_num_threads(1)
 
@@ -257,7 +258,7 @@ def test_cuda_wrapper_refuses_cpu_tensors(grams):
     with pytest.raises(ValueError, match="CUDA"):
         tvmem._launch_burst(torch.zeros(10), 0, gbt.Q, gbt.c, row, row, row, row,
                             row, gbt.c, gbt.c, row, row, None, row, n_steps=5)
-    assert tvmem.LAUNCHES == 0
+    assert counters()["launches.burst"] == 0
 
 
 @pytest.mark.parametrize("cfg_kw", [dict(), dict(backtracking=True), dict(check_every=0)],

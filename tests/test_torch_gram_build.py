@@ -15,6 +15,7 @@ import torch
 from fastoptsolver_tpu.kernels import gram_build as jgram
 from fastoptsolver_tpu.kernels import make_gram_batch_fused as jax_build
 from fastoptsolver_tpu_torch.kernels import gram_build as tgram
+from fastoptsolver_tpu_torch.utils.profiling import counters
 
 torch.set_num_threads(1)
 
@@ -77,7 +78,8 @@ def test_host_rule_and_power_depth():
     g96 = tgram.make_gram_batch_fused(torch.from_numpy(A9), torch.from_numpy(b9), 0.1, 0.0)
     lam96 = tgram.gram_build_reference(torch.from_numpy(A9), torch.from_numpy(b9), 96)[3]
     assert torch.equal(g96.L, 1.02 * lam96)
-    assert tgram.LAUNCHES == 0  # the CPU route never launches the kernels
+    # the CPU route never launches the kernels
+    assert counters()["launches.gram_pairs"] == counters()["launches.gram_power"] == 0
 
 
 def test_window_and_guards():

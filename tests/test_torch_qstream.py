@@ -24,6 +24,7 @@ from fastoptsolver_tpu.kernels import qstream as jqstream
 from fastoptsolver_tpu_torch import convert
 from fastoptsolver_tpu_torch.kernels import fista_vmem as tvmem
 from fastoptsolver_tpu_torch.kernels import qstream
+from fastoptsolver_tpu_torch.utils.profiling import counters
 
 torch.set_num_threads(1)
 
@@ -200,7 +201,7 @@ def test_qstream_refuses_armijo(grams):
     with pytest.raises(ValueError, match="CUDA"):
         qstream._launch_qstream(torch.zeros(10), 0, gbt.Q, gbt.c, row, row, row, row,
                                 row, gbt.c, gbt.c, row, row, None, row, n_steps=5)
-    assert qstream.LAUNCHES == 0
+    assert counters()["launches.qstream"] == 0
 
 
 def test_tiles_agree_with_jax():

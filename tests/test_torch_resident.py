@@ -28,6 +28,7 @@ from fastoptsolver_tpu.kernels import fista_vmem as jvmem
 from fastoptsolver_tpu_torch import convert
 from fastoptsolver_tpu_torch.kernels import fista_vmem as tvmem
 from fastoptsolver_tpu_torch.kernels import resident
+from fastoptsolver_tpu_torch.utils.profiling import counters
 
 torch.set_num_threads(1)
 
@@ -254,7 +255,7 @@ def test_resident_guards():
         else:
             assert resident.auto_b_tile_resident(n_pad) == ref
     assert [resident.group_lanes(n) for n in (12, 96, 112, 128, 168)] == [32, 10, 8, 6, 3]
-    assert resident.LAUNCHES == 0
+    assert counters()["launches.resident"] == 0
 
 
 def test_twin_reads_the_upper_triangle(grams):
