@@ -29,7 +29,9 @@ Phases, one line each (``--`` lines are detail):
    1e-5), a 40 + 60 resume bit-exact against 100 straight iterations, one
    burst in fixed Nesterov and in restart at n ∈ {5, 9, 33, 64, 96, 104},
    B = 301 (each lanes-a-CTA count of the window: 32, 16, 13, 6 and 5; the
-   C exports ``fista_burst_group`` and ``fista_burst_smem_bytes`` printed),
+   C exports ``fista_burst_group`` and ``fista_burst_smem_bytes`` printed)
+   on each route of the Grams (gathered, gathered and stored to the slab,
+   read from the slab; the same bits),
    and fixed Nesterov at the wide-n shape; ``gram_power`` alone at
    n ∈ {1, 5, 31, 32, 33, 96, 113, 118}, B = 301, against the twin's power
    iteration on the same Gram and c (λ to 1e-5 relative), and its C exports
@@ -77,8 +79,11 @@ Phases, one line each (``--`` lines are detail):
    the same x; then CUDA event medians of 3: the build kernels, and
    ``gram_pairs`` and ``gram_power`` each alone, vs their twins (the pairs'
    L2 read rate beside one ``torch.einsum`` of the same pair sums), the
-   burst solve (median of 5) vs its twin, its launches back to back and a
-   launch with no step (the Gram's copy-in; both medians of 5), the burst
+   burst solve (median of 5) vs its twin, its launches back to back as the
+   solve makes them (the first stores the slab, the rest read it) and all
+   gathered from Q, and a launch with no step (the Gram's copy-in) on each
+   route: gathered, gathered and stored, read from the slab (all medians
+   of 5), the burst
    kernel's lanes a CTA, shared bytes and Q bytes read from device memory
    a launch, ``gram_power``'s lanes a CTA, shared bytes and the rate its
    matvecs read Q from shared memory (96·n²·B·4 bytes over its time) beside
@@ -888,7 +893,11 @@ def check_burst_groups(dev) -> float:
     """The burst kernel at the window's other group sizes (n = 20, every
     mode, is ``check_bursts``): one burst per mode, fixed Nesterov and
     adaptive restart, at B = 301 (a ragged last CTA at every group size),
-    held as :func:`burst_vs_twin` holds it. Returns the largest |dX|."""
+    launched on each route the Grams take (gathered from Q; gathered and
+    stored to the slab; read from the slab), the three bit-equal, held as
+    :func:`burst_vs_twin` holds it. Returns the largest |dX|."""
+    import torch
+
     from fastoptsolver_tpu_torch.kernels import _build, fista_vmem
 
     lib = _build.library()
@@ -896,11 +905,22 @@ def check_burst_groups(dev) -> float:
     for n in BURST_WIDTHS:
         groups[n] = (lib.fista_burst_group(n), lib.fista_burst_smem_bytes(n))
         gb = random_gram(n, 301, 0.0, seed=70 + n, dev=dev)
+        S = torch.empty(fista_vmem.slab_floats(n, 301), device=dev)
+
+        def routes(*args, **kw):
+            gathered = fista_vmem._launch_burst(*args, **kw)
+            stored = fista_vmem._launch_burst(*args, S=S, **kw)
+            read = fista_vmem._launch_burst(*args, S=S, slab_ready=True, **kw)
+            require(all(torch.equal(g, w) and torch.equal(r, w)
+                        for g, w, r in zip(gathered, stored, read)),
+                    f"burst n={n}: the slab routes' bits differ from the gather's")
+            return read
         for name in ("nesterov", "restart"):
             worst = max(worst, burst_vs_twin(
-                fista_vmem._launch_burst, fista_vmem._burst_reference, gb,
+                routes, fista_vmem._burst_reference, gb,
                 WIDE_MODES[name][0], f"burst n={n} (group {groups[n][0]}) {name}"))
-    print(f"-- burst (lanes a CTA, shared bytes) by n: {groups}; one burst per mode matches, "
+    print(f"-- burst (lanes a CTA, shared bytes) by n: {groups}; one burst per mode matches "
+          f"on each route (gather, gather + slab store, slab read: the same bits), "
           f"max|dX| {worst:.3e}")
     return worst
 
@@ -4147,25 +4167,33 @@ def main() -> int:
     torch.cuda.empty_cache()
     burst_ms, burst_trials, res_k = med_ms(lambda: fista_vmem.fista_gram_vmem(gbw, cfg), 5)
     burst_plain_ms, _, res_t = med_ms(lambda: fista_vmem.fista_gram_vmem_reference(gbw, cfg))
-    # the same bursts launched back to back, no host loop between them: the
-    # solve's excess over this is the per-burst sync and bookkeeping
+    # the same bursts launched back to back, no host loop between them, as the
+    # solve launches them (the first stores the slab, the rest read it), and all
+    # gathered from Q: the solve's excess over the first is the per-burst sync and
+    # bookkeeping
     rows, Xb, Yb, tb, psb = burst_inputs(gbw, cfg)
     betas_w = fista_vmem._beta_table(bursts * cfg.check_every, cfg).to(dev)
 
-    def bursts_only():
+    def bursts_only(burst):
         X, Y = Xb, Yb
         for i in range(bursts):
-            X, Y, *_ = fista_vmem._launch_burst(
+            X, Y, *_ = burst(
                 betas_w, i * cfg.check_every, gbw.Q, gbw.c, rows["tau"], rows["thr"],
                 rows["a2"], rows["a1"], rows["btb"], X, Y, tb, psb, None, rows["tau"],
                 n_steps=cfg.check_every, with_gap=True)
         return X
-    launches_ms, launches_trials, _ = med_ms(bursts_only, 5)
-    # a launch with no step and no gap: the Gram's copy-in, the rows and the stores
-    copy_ms, _, _ = med_ms(lambda: fista_vmem._launch_burst(
+    launches_ms, launches_trials, _ = med_ms(
+        lambda: bursts_only(fista_vmem.make_burst(gbw.Q, bursts)), 5)
+    gathered_ms, _, _ = med_ms(lambda: bursts_only(fista_vmem._launch_burst), 5)
+    # a launch with no step and no gap: the Gram's copy-in, the rows and the
+    # stores, on each route: gathered, gathered and stored to the slab, read
+    # from the slab
+    S = torch.empty(fista_vmem.slab_floats(WIDE_N, WIDE_B), device=dev)
+    copy_ms, copy_store_ms, copy_slab_ms = (med_ms(lambda: fista_vmem._launch_burst(
         betas_w, 0, gbw.Q, gbw.c, rows["tau"], rows["thr"], rows["a2"], rows["a1"],
-        rows["btb"], Xb, Yb, tb, psb, None, rows["tau"], n_steps=0), 5)
-    del rows, Xb, Yb
+        rows["btb"], Xb, Yb, tb, psb, None, rows["tau"], n_steps=0, **slab_kw), 5)[0]
+        for slab_kw in ({}, dict(S=S), dict(S=S, slab_ready=True)))
+    del rows, Xb, Yb, S
     group = _build.library().fista_burst_group(WIDE_N)
     group_smem = _build.library().fista_burst_smem_bytes(WIDE_N)
     compare_full_width(res_k, res_t, "burst wide-n certified run")
@@ -4185,7 +4213,8 @@ def main() -> int:
           f"{pairs_plain_ms:.3f}, power {power_plain_ms:.3f}) | "
           f"burst solve {burst_ms:.3f} ms ({bursts} bursts; the {bursts} launches back to "
           f"back {launches_ms:.3f} ms, so the host loop costs "
-          f"{burst_ms - launches_ms:.3f} ms) vs twin {burst_plain_ms:.3f} ms | "
+          f"{burst_ms - launches_ms:.3f} ms; every launch gathered from Q "
+          f"{gathered_ms:.3f} ms) vs twin {burst_plain_ms:.3f} ms | "
           f"routed solve_lasso_batch {wide_ms:.3f} ms ({n_conv / wide_ms * 1e3:.4g} "
           f"certified instances/s) | torch driver on the same Gram {driver_ms:.3f} ms | "
           f"trials build {[round(x, 3) for x in build_trials]} burst "
@@ -4194,9 +4223,12 @@ def main() -> int:
           f"{[round(x, 3) for x in wide_trials]}")
     print(f"-- burst kernel at n={WIDE_N}: {group} lanes a CTA, {group_smem} bytes of shared "
           f"memory; Q read from device memory once a launch, {q_gb:.3f} GB ({bursts * q_gb:.1f} "
-          f"GB in all); a launch with no step (the copy-in) {copy_ms:.3f} ms = "
-          f"{q_gb / copy_ms * 1e3:.1f} GB/s, {100.0 * bursts * copy_ms / launches_ms:.1f}% of "
-          f"the launches; {q_reads} matvecs read Q from shared memory, "
+          f"GB in all); a launch with no step (the copy-in) gathered {copy_ms:.3f} ms = "
+          f"{q_gb / copy_ms * 1e3:.1f} GB/s, gathered and stored to the slab "
+          f"{copy_store_ms:.3f} ms, read from the slab {copy_slab_ms:.3f} ms = "
+          f"{q_gb / copy_slab_ms * 1e3:.1f} GB/s; the solve's copy-ins "
+          f"{100.0 * (copy_store_ms + (bursts - 1) * copy_slab_ms) / launches_ms:.1f}% of "
+          f"its launches; {q_reads} matvecs read Q from shared memory, "
           f"{q_reads * q_gb / launches_ms * 1e3:.1f} GB/s over the launches")
 
     nw, mw = WIDE_N, 2 * WIDE_N

@@ -62,11 +62,11 @@ _SIGNATURES = {
     # n: gram_power's lanes per CTA on the current device, and their shared bytes
     "gram_power_group": [_i],
     "gram_power_smem_bytes": [_i],
-    # Q, c, tau, thr, a2, a1, btb, X, Y, t, ps, taumin, tauv, betas,
+    # Q, S, c, tau, thr, a2, a1, btb, X, Y, t, ps, taumin, tauv, betas,
     # Xo, Yo, to, pso, tauvo, gap, n, B, n_steps, k0, mode, armijo,
-    # with_gap, restart_threshold, greedy_S, greedy_shrink, armijo_c,
+    # with_gap, slab, restart_threshold, greedy_S, greedy_shrink, armijo_c,
     # armijo_eta, max_backtracks, stream
-    "fista_burst": [_vp] * 20 + [_i, _ll, _i, _i, _i, _i, _i, _f, _f, _f,
+    "fista_burst": [_vp] * 21 + [_i, _ll, _i, _i, _i, _i, _i, _i, _f, _f, _f,
                                  _f, _f, _i, _vp],
     # Q, c, tau, thr, a2, a1, btb, taumin, betas, X0, Y0, t0, ps0, tv0, k0,
     # done0, iters0, gap0, X, Y, t, ps, tv, k, done, iters, gap, n, B, G,
@@ -90,15 +90,18 @@ _SIGNATURES = {
     # B, A, b
     "gram_pairs_copy_bytes": [_ll, _vp, _vp],
     "stream_copy_bytes": [_ll, _vp, _vp],
-    # n: the burst kernel's lanes per CTA and their shared bytes
+    # n: the burst kernel's lanes per CTA and their shared bytes; (n, B): the
+    # floats of a solve's slab
     "fista_burst_group": [_i],
     "fista_burst_smem_bytes": [_i],
+    "fista_burst_slab_floats": [_i, _ll],
     "fos_cuda_error_string": [_i],
 }
 _RESTYPES = {"fos_cuda_error_string": ctypes.c_char_p,
              "gram_pairs_smem_bytes": _ll,
              "gram_power_smem_bytes": _ll,
              "fista_burst_smem_bytes": _ll,
+             "fista_burst_slab_floats": _ll,
              "qstream_smem_bytes": _ll}  # the rest return int
 
 _lib: ctypes.CDLL | None = None

@@ -16,11 +16,22 @@
 // Layout: Q (n, n, B), c, X, Y (n, B), per-lane rows (B,), lanes on the contiguous
 // last axis. A CTA owns G lanes (a group; fista_burst_group below) and gives each
 // nt = round_up(n, 32) threads, one feature each, as csrc/resident.cu does. At the
-// start of the launch the group's full Grams are copied into shared memory once, as
-// [g][k][i] (n*n floats a lane: 36,864 bytes at n = 96, so G = 6 there and 5 at
-// n = 104; up to 32 lanes at n <= 32), by cp.async: every copy of a thread is in
-// flight before the first wait. Every matvec of the burst (the n_steps steps, each
-// Armijo trial, the gap)
+// start of the launch the group's full Grams come into shared memory once, as
+// [g][k][i] with a lane stride of qs = round_up(n^2, 4) floats (36,864 bytes at n = 96,
+// so G = 6 there and 5 at n = 104; up to 32 lanes at n <= 32), by one of two routes:
+// - Gather (a solve's first burst, and every launch given no slab): each thread issues
+//   4-byte cp.async copies from Q, every one in flight before the first wait. A CTA's
+//   lanes are G * 4 bytes of each of the n^2 planes, B * 4 bytes apart.
+// - Slab (every later burst of a solve): the slab S holds lane l's Gram as the row
+//   S[l][k][i] = Q[k][i][l], qs floats a lane, ceil(B / G) * G lanes, so a CTA's Grams
+//   are one contiguous 16-byte-aligned block of G * qs floats, laid out as in shared
+//   memory. One thread brings it in by cp.async.bulk completed on an mbarrier (as
+//   csrc/qstream.cu's cluster kernel does), while the others load the rows, x, y and c.
+// The first burst of a solve that has a later one writes S: once its gather has landed
+// (each thread fences its writes for the async proxy before the block's barrier), one
+// thread stores the CTA's block with one cp.async.bulk, which overlaps the burst's steps
+// (they only read Q) and is waited for before the CTA exits. No separate pass re-lays Q.
+// Every matvec of the burst (the n_steps steps, each Armijo trial, the gap)
 //   out[i] = sum_k Q[k][i] * v[k]   (k ascending, over the true n, from 0)
 // then reads Q from shared memory: the 32 threads of a warp read 32 consecutive
 // words per k, and y or the trial point, staged per lane, is broadcast 4 floats at a
@@ -30,11 +41,13 @@
 // from 0. Each thread stages its term in shared memory (kStage sums at a time), and
 // thread 8s + r of the lane's first warp adds row group r of sum s; shuffles add the
 // eight partials. So X, Y, t, ps, tau and the gap equal the per-step-streaming
-// kernel's bit for bit.
+// kernel's bit for bit, on either route.
 //
-// Bound: device memory holds Q read once per launch (n^2 * B * 4 bytes: 2.0 GB at
-// n = 96, B = 54144); the steps read it from shared memory, n^2 words a lane and a
-// matvec, about one 128-byte wavefront a clock per SM, plus the broadcasts of v.
+// Bound: device memory carries each lane's Q once a launch (n^2 * B * 4 bytes: 2.0 GB at
+// n = 96, B = 54144), read by the gather at a fraction of the card's rate (24-byte
+// pieces of each plane) and by the slab's bulk copy as whole blocks; the first burst
+// writes the slab once more. The steps read Q from shared memory, n^2 words a lane and
+// a matvec, about one 128-byte wavefront a clock per SM, plus the broadcasts of v.
 // With one CTA an SM at n = 96 the copy-in does not overlap compute. The TPU kernel
 // holds a tile's Q in VMEM for a burst in the same way. Armijo adds one matvec per
 // trial round, the gap one per burst.
@@ -42,11 +55,11 @@
 // No lane depends on its neighbours: the trial rounds of a CTA run while any of its
 // lanes is unaccepted, and an accepted lane is left untouched, so the result equals
 // a per-lane trial loop and the twin's batch-wide lockstep rounds at any grouping.
-// Lanes >= B load zeros, start accepted and store nothing; threads of features >= n
-// compute zeros; both reach every __syncthreads. Offsets are 64-bit (Q holds 5.0e8
-// elements at full width). Built with --fmad=false and without --use_fast_math, so
-// each product and sum rounds separately, as in the twin, and divisions and square
-// roots are IEEE.
+// Lanes >= B load zeros (the gather's, which the slab keeps), start accepted and store
+// nothing; threads of features >= n compute zeros; both reach every __syncthreads.
+// Offsets are 64-bit (Q holds 5.0e8 elements at full width). Built with --fmad=false
+// and without --use_fast_math, so each product and sum rounds separately, as in the
+// twin, and divisions and square roots are IEEE.
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -60,12 +73,20 @@ constexpr int kRows = 8;         // row groups of the per-lane sums
 constexpr int kStage = 2;        // sums a lane stages in shared memory at once
 constexpr int kResults = 5;      // a lane's result slots (the gap's five sums)
 constexpr long long kSmemLimit = 232448;  // the shared memory a Hopper block may use
+constexpr int kBarrierBytes = 16;  // the slab read's mbarrier (static shared memory)
+constexpr unsigned kCopyChunk = 32768;    // bytes of one bulk copy of the slab read
 constexpr int kMaxDevices = 64;
+// a CTA's slab, at most a block's shared memory, fits an mbarrier's transaction count
+static_assert(kSmemLimit < (1 << 20), "the slab read needs more than one mbarrier phase");
 
 enum Mode { kFixed = 0, kRestart = 1, kGreedy = 2 };
+// How the launch brings the group's Grams in: the gather from Q alone, the gather and a
+// store of them to the slab, or the slab's bulk copy.
+enum Slab { kGather = 0, kGatherStore = 1, kSlabRead = 2 };
 
 struct Params {
   const float* Q;
+  float* S;
   const float* c;
   const float* tau;
   const float* thr;
@@ -92,6 +113,7 @@ struct Params {
   int mode;
   int armijo;
   int with_gap;
+  int slab;
   float restart_threshold;
   float greedy_S;
   float greedy_shrink;
@@ -103,11 +125,17 @@ struct Params {
 __host__ __device__ __forceinline__ int lane_threads(int n) { return (n + 31) / 32 * 32; }
 __host__ __device__ __forceinline__ int vec_floats(int n) { return (n + 3) / 4 * 4; }
 
+// A lane's Gram stride in shared memory and in the slab: n^2 rounded up to 4 floats, so
+// that a CTA's Grams are one 16-byte-aligned block a multiple of 16 bytes long.
+__host__ __device__ __forceinline__ long long q_floats(int n) {
+  return (static_cast<long long>(n) * n + 3) / 4 * 4;
+}
+
 // Shared floats of one lane: y and the trial point (vec_floats(n) each, so every
-// lane's vectors are 16-byte aligned), the full Q, kStage staged sums of n terms and
-// kResults results.
+// lane's vectors are 16-byte aligned), the full Q (q_floats(n)), kStage staged sums of
+// n terms and kResults results.
 __host__ __device__ __forceinline__ long long lane_floats(int n) {
-  return 2LL * vec_floats(n) + static_cast<long long>(n) * n + kStage * n + kResults;
+  return 2LL * vec_floats(n) + q_floats(n) + kStage * n + kResults;
 }
 
 __device__ __forceinline__ float soft_threshold(float v, float thr) {
@@ -196,7 +224,12 @@ __device__ __forceinline__ void copy_async(uint32_t dst, const float* src, bool 
                "r"(valid ? 4 : 0) : "memory");
 }
 
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
 __global__ void __launch_bounds__(kMaxThreads) fista_burst_kernel(Params p, int G) {
+  __shared__ uint64_t bar;  // completes the slab read
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int n = p.n;
@@ -207,31 +240,56 @@ __global__ void __launch_bounds__(kMaxThreads) fista_burst_kernel(Params p, int 
   const int64_t lane0 = static_cast<int64_t>(blockIdx.x) * G;
   const int64_t lane = lane0 + g;
   const bool valid = lane < B;
-  float* Qs = smem + 2LL * G * nv;  // [G][n][n], after the G lanes' two vectors
+  const int64_t qs = q_floats(n);
+  float* Qs = smem + 2LL * G * nv;  // [G][qs], after the G lanes' two vectors
   Lane L;
   L.n = n;
   L.i = tid - g * nt;
   L.y = smem + 2LL * g * nv;
   L.v = L.y + nv;
-  L.Q = Qs + static_cast<int64_t>(g) * n * n;
-  L.T = Qs + static_cast<int64_t>(G) * n * n + static_cast<int64_t>(g) * kStage * n;
-  L.R = Qs + static_cast<int64_t>(G) * (n * n + kStage * n) + g * kResults;
+  L.Q = Qs + g * qs;
+  L.T = Qs + G * qs + static_cast<int64_t>(g) * kStage * n;
+  L.R = Qs + G * (qs + kStage * n) + g * kResults;
   const int i = L.i;
   const bool feat = i < n;
   const bool in = valid && feat;
+  // the CTA's block of the slab, and its bytes (at most a block's shared memory)
+  float* const slab = p.S ? p.S + lane0 * qs : nullptr;
+  const unsigned slab_bytes = static_cast<unsigned>(4 * G * qs);
 
-  // The group's Grams, read from device memory once: thread tid copies lane tid % G of
-  // planes tid / G, tid / G + nt, ... (G divides the block, so its lane is fixed), and
-  // consecutive threads read consecutive lanes of a plane.
-  {
+  if (p.slab == kSlabRead) {
+    // the group's Grams, one contiguous block, by bulk copies completed on the mbarrier
+    if (tid == 0) {
+      const uint32_t b = smem_addr(&bar);
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(b) : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b),
+                   "r"(slab_bytes) : "memory");
+      const char* src = reinterpret_cast<const char*>(slab);
+      const uint32_t dst = smem_addr(Qs);
+      for (unsigned off = 0; off < slab_bytes; off += kCopyChunk) {
+        const unsigned len = slab_bytes - off < kCopyChunk ? slab_bytes - off : kCopyChunk;
+        asm volatile(
+            "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+            "[%0], [%1], %2, [%3];\n" ::"r"(dst + off), "l"(src + off), "r"(len), "r"(b)
+            : "memory");
+      }
+    }
+  } else {
+    // The group's Grams, read from device memory once: thread tid copies lane tid % G of
+    // planes tid / G, tid / G + nt, ... (G divides the block, so its lane is fixed), and
+    // consecutive threads read consecutive lanes of a plane.
     const int gg = tid % G;
     const int64_t ln = lane0 + gg;
     const bool ok = ln < B;
-    const uint32_t dst = static_cast<uint32_t>(
-        __cvta_generic_to_shared(Qs + static_cast<int64_t>(gg) * n * n));
+    const uint32_t dst = smem_addr(Qs + gg * qs);
     for (int pl = tid / G; pl < n * n; pl += nt)
       copy_async(dst + 4u * pl, ok ? p.Q + static_cast<int64_t>(pl) * B + ln : p.Q, ok);
     asm volatile("cp.async.commit_group;\n" ::: "memory");
+    // the stride's padding, stored with the Grams, is zero
+    const int pad = static_cast<int>(qs) - n * n;
+    if (p.slab == kGatherStore && tid < G * pad)
+      Qs[(tid / pad) * qs + n * n + tid % pad] = 0.f;
   }
 
   auto row = [&](const float* r) { return (valid && r) ? __ldg(r + lane) : 0.f; };
@@ -244,7 +302,24 @@ __global__ void __launch_bounds__(kMaxThreads) fista_burst_kernel(Params p, int 
   const float cf = in ? __ldg(p.c + off) : 0.f;
   if (feat) L.y[i] = y;
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  // this thread's gathered Grams, visible to the slab store's async proxy
+  if (p.slab == kGatherStore) asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
+  if (p.slab == kGatherStore && tid == 0) {
+    // the group's Grams to the slab, while the steps read them
+    asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(slab),
+                 "r"(smem_addr(Qs)), "r"(slab_bytes) : "memory");
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  }
+  if (p.slab == kSlabRead) {
+    uint32_t done = 0;
+    do {
+      asm volatile(
+          "{\n.reg .pred P;\nmbarrier.try_wait.parity.shared::cta.b64 P, [%1], %2;\n"
+          "selp.u32 %0, 1, 0, P;\n}\n"
+          : "=r"(done) : "r"(smem_addr(&bar)), "r"(0u) : "memory");
+    } while (!done);
+  }
 
   for (int s = 0; s < p.n_steps; ++s) {
     const float qy = feat ? matvec(L, L.y) : 0.f;
@@ -345,6 +420,9 @@ __global__ void __launch_bounds__(kMaxThreads) fista_burst_kernel(Params p, int 
     gap = ((a1 > 0.f) ? l1_gap : smooth_gap) / clamp_min(f, 1.f);
   }
 
+  // the slab store has read shared memory before the CTA leaves it
+  if (p.slab == kGatherStore && tid == 0)
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
   if (!valid) return;
   if (feat) {
     p.Xo[off] = x;
@@ -361,12 +439,12 @@ __global__ void __launch_bounds__(kMaxThreads) fista_burst_kernel(Params p, int 
 }  // namespace
 
 // The burst kernel's lanes per CTA at feature count n: as many as fit 232,448 bytes
-// of shared memory (lane_floats(n) floats each) and 1024 threads (round_up(n, 32)
-// each): 32 at n <= 32, 6 at n = 96, 5 at n = 104. 0 for n outside 1..104. A launch
-// takes min(this, B).
+// of shared memory less the mbarrier (lane_floats(n) floats each) and 1024 threads
+// (round_up(n, 32) each): 32 at n <= 32, 6 at n = 96, 5 at n = 104. 0 for n outside
+// 1..104. A launch takes min(this, B).
 extern "C" int fista_burst_group(int n) {
   if (n < 1 || n > kMaxN) return 0;
-  const long long by_smem = kSmemLimit / (4 * lane_floats(n));
+  const long long by_smem = (kSmemLimit - kBarrierBytes) / (4 * lane_floats(n));
   const int by_threads = kMaxThreads / lane_threads(n);
   return by_smem < by_threads ? static_cast<int>(by_smem) : by_threads;
 }
@@ -376,25 +454,39 @@ extern "C" long long fista_burst_smem_bytes(int n) {
   return 4 * lane_floats(n) * fista_burst_group(n);
 }
 
+// The floats of the slab of a solve at (n, B): ceil(B / G) * G lanes of q_floats(n),
+// with G = min(fista_burst_group(n), B). 0 for n outside 1..104 or B < 1.
+extern "C" long long fista_burst_slab_floats(int n, long long B) {
+  const long long group = fista_burst_group(n);
+  if (group == 0 || B < 1) return 0;
+  const long long G = group < B ? group : B;
+  return (B + G - 1) / G * G * q_floats(n);
+}
+
 // One burst. mode: 0 fixed (table beta), 1 nesterov + adaptive restart, 2 greedy;
 // armijo != 0 adds the per-lane Armijo search (mode 0 or 1). Rows tau, thr, a2, a1,
 // btb, t, ps, tauv are (B,); taumin may be null (greedy only); betas needs k0 +
 // n_steps entries in mode 0. Outputs Xo, Yo (n, B), to, pso, tauvo, gap (B,); gap is
-// 0 unless with_gap. Returns a cudaError_t as int: cudaErrorInvalidValue for n
-// outside 1..104, an unknown mode, greedy with armijo, an empty batch, or a card
-// whose blocks hold less shared memory than the group needs, else the first error of
-// the device query, the shared-memory opt-in (made once per device) or the launch.
-extern "C" int fista_burst(const float* Q, const float* c, const float* tau, const float* thr,
-                           const float* a2, const float* a1, const float* btb, const float* X,
-                           const float* Y, const float* t, const float* ps,
-                           const float* taumin, const float* tauv, const float* betas,
-                           float* Xo, float* Yo, float* to, float* pso, float* tauvo,
-                           float* gap, int n, long long B, int n_steps, int k0, int mode,
-                           int armijo, int with_gap, float restart_threshold,
-                           float greedy_S, float greedy_shrink, float armijo_c,
-                           float armijo_eta, int max_backtracks, void* stream) {
+// 0 unless with_gap. slab: 0 gathers from Q and S is unused; 1 gathers from Q and
+// stores the Grams to S; 2 reads them from S, which a launch with 1 on the same Q and
+// B wrote (S holds fista_burst_slab_floats(n, B) floats, 16-byte aligned). Returns a
+// cudaError_t as int: cudaErrorInvalidValue for n outside 1..104, an unknown mode or
+// slab, greedy with armijo, an empty batch, a slab route without S, or a card whose
+// blocks hold less shared memory than the group needs, else the first error of the
+// device query, the shared-memory opt-in (made once per device) or the launch.
+extern "C" int fista_burst(const float* Q, float* S, const float* c, const float* tau,
+                           const float* thr, const float* a2, const float* a1,
+                           const float* btb, const float* X, const float* Y, const float* t,
+                           const float* ps, const float* taumin, const float* tauv,
+                           const float* betas, float* Xo, float* Yo, float* to, float* pso,
+                           float* tauvo, float* gap, int n, long long B, int n_steps, int k0,
+                           int mode, int armijo, int with_gap, int slab,
+                           float restart_threshold, float greedy_S, float greedy_shrink,
+                           float armijo_c, float armijo_eta, int max_backtracks,
+                           void* stream) {
   if (n < 1 || n > kMaxN || B < 1 || n_steps < 0 || mode < kFixed || mode > kGreedy ||
-      (armijo && mode == kGreedy) || (mode == kGreedy && !taumin))
+      (armijo && mode == kGreedy) || (mode == kGreedy && !taumin) || slab < kGather ||
+      slab > kSlabRead || (slab != kGather && !S))
     return static_cast<int>(cudaErrorInvalidValue);
   // the opt-in limit of each device, set on the kernel at its first launch there
   static int optin_set[kMaxDevices] = {};
@@ -407,6 +499,10 @@ extern "C" int fista_burst(const float* Q, const float* c, const float* tau, con
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (optin > kSmemLimit) optin = static_cast<int>(kSmemLimit);
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, fista_burst_kernel);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    optin -= static_cast<int>(attr.sharedSizeBytes);  // the mbarrier
     err = cudaFuncSetAttribute(fista_burst_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                optin);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -415,10 +511,10 @@ extern "C" int fista_burst(const float* Q, const float* c, const float* tau, con
   const int G = fista_burst_group(n) < B ? fista_burst_group(n) : static_cast<int>(B);
   const long long smem = 4 * lane_floats(n) * G;
   if (smem > optin_set[dev]) return static_cast<int>(cudaErrorInvalidValue);
-  const Params p{Q,  c,   tau, thr,   a2,  a1,       btb,    X,        Y,
-                 t,  ps,  taumin, tauv, betas, Xo,   Yo,     to,       pso,
-                 tauvo, gap, n, B, n_steps, k0, mode, armijo, with_gap, restart_threshold,
-                 greedy_S, greedy_shrink, armijo_c, armijo_eta, max_backtracks};
+  const Params p{Q, S, c, tau, thr, a2, a1, btb, X, Y, t, ps, taumin, tauv, betas, Xo, Yo,
+                 to, pso, tauvo, gap, n, B, n_steps, k0, mode, armijo, with_gap, slab,
+                 restart_threshold, greedy_S, greedy_shrink, armijo_c, armijo_eta,
+                 max_backtracks};
   const unsigned grid = static_cast<unsigned>((B + G - 1) / G);
   fista_burst_kernel<<<grid, G * lane_threads(n), static_cast<size_t>(smem),
                        static_cast<cudaStream_t>(stream)>>>(p, G);

@@ -6,7 +6,10 @@
 the hand-written Hopper kernel ``csrc/fista_burst.cu``, which holds each
 lane's Q in shared memory for the burst (see its note for the design and the
 bound); on a CPU tensor it is the plain twin
-:func:`_burst_reference`, built from ``kernels/_common.py``. Every momentum
+:func:`_burst_reference`, built from ``kernels/_common.py``. :func:`make_burst`
+makes the bursts of one solve: its first launch gathers each lane's Gram
+from Q and, where a later burst follows, stores it to a slab, one contiguous
+block a CTA, which every later launch reads in one bulk copy. Every momentum
 mode runs in the burst: fixed (nesterov or delta, β from a host table at the
 absolute iteration), adaptive restart, greedy, and the masked per-lane Armijo
 search. With ``check_every > 0`` each burst ends with the per-lane relative
@@ -214,19 +217,37 @@ def _burst_reference(betas, k0, Q, c, tau, thr, a2, a1, btb, X, Y, t, ps,
     return X, Y, t, ps, tauv, gap
 
 
+def slab_floats(n: int, B: int) -> int:
+    """The floats of the slab of a solve on ``B`` lanes of width ``n``:
+    ceil(B / G)·G lanes (G lanes a CTA) of n² rounded up to 4 floats
+    (``fista_burst_slab_floats`` in C)."""
+    return _build.library().fista_burst_slab_floats(n, B)
+
+
 @launch("burst")
 def _launch_burst(betas, k0, Q, c, tau, thr, a2, a1, btb, X, Y, t, ps,
                   taumin=None, tauv=None, *, n_steps, with_gap=False,
-                  restart_threshold=None, greedy=None, armijo=None):
+                  restart_threshold=None, greedy=None, armijo=None, S=None,
+                  slab_ready=False):
     """Launch ``fista_burst`` on the current stream; the same outputs as
     :func:`_burst_reference`. Raises on any input the kernel does not take
-    and on a launch error."""
+    and on a launch error.
+
+    ``S``, the slab (:func:`slab_floats` floats on Q's device), changes only
+    how the Grams reach the kernel, never a bit of the result: with
+    ``slab_ready`` the launch reads them from ``S``, which an earlier launch
+    on the same Q wrote; without, it gathers them from Q and stores them to
+    ``S``. With no slab it gathers and stores nothing."""
     n, B = c.shape
     rows = (("tau", tau), ("thr", thr), ("a2", a2), ("a1", a1), ("btb", btb),
             ("t", t), ("ps", ps), ("tauv", tauv))
     tensors = (("Q", Q), ("c", c), ("X", X), ("Y", Y), ("betas", betas)) + rows
     if greedy is not None:
         tensors += (("taumin", taumin),)
+    if S is not None:
+        tensors += (("S", S),)
+    elif slab_ready:
+        raise ValueError("slab_ready needs the slab S")
     for name, v in tensors:
         if (not isinstance(v, torch.Tensor) or not v.is_cuda
                 or v.dtype != torch.float32 or not v.is_contiguous()):
@@ -241,11 +262,13 @@ def _launch_burst(betas, k0, Q, c, tau, thr, a2, a1, btb, X, Y, t, ps,
             raise ValueError(f"{name} must hold {B} lanes, got {tuple(v.shape)}")
     if not 1 <= n <= MAX_N:
         raise ValueError(f"the burst kernel takes n = 1..{MAX_N}, got n={n}")
+    if S is not None and S.numel() != slab_floats(n, B):
+        raise ValueError(f"S must hold {slab_floats(n, B)} floats, got {S.numel()}")
     fixed = greedy is None and restart_threshold is None
     if fixed and betas.numel() < k0 + n_steps:
         raise ValueError("the β table is shorter than k0 + n_steps")
     mode = 2 if greedy is not None else (0 if fixed else 1)
-    S, shrink = greedy if greedy is not None else (0.0, 0.0)
+    gS, shrink = greedy if greedy is not None else (0.0, 0.0)
     C, eta, max_bt = armijo if armijo is not None else (0.0, 0.0, 0)
     lib = _build.library()
     Xo, Yo = torch.empty_like(X), torch.empty_like(Y)
@@ -254,20 +277,44 @@ def _launch_burst(betas, k0, Q, c, tau, thr, a2, a1, btb, X, Y, t, ps,
     stream = torch.cuda.current_stream(Q.device).cuda_stream
     with torch.cuda.device(Q.device):
         err = lib.fista_burst(
-            *(ptr(v) for v in (Q, c, tau, thr, a2, a1, btb, X, Y, t, ps,
+            *(ptr(v) for v in (Q, S, c, tau, thr, a2, a1, btb, X, Y, t, ps,
                                taumin if greedy is not None else None, tauv,
                                betas, Xo, Yo, to, pso, tauvo, gap)),
             n, B, n_steps, k0, mode, int(armijo is not None), int(with_gap),
-            float(restart_threshold or 0.0), S, shrink, C, eta, max_bt, stream,
+            0 if S is None else 2 if slab_ready else 1,
+            float(restart_threshold or 0.0), gS, shrink, C, eta, max_bt, stream,
         )
     _build.check(err, "fista_burst")
     return Xo, Yo, to, pso, tauvo, gap
 
 
-def _burst(*args, **kw):
-    """One burst: the CUDA kernel on a CUDA tensor, the plain twin on a CPU
-    tensor (``args[2]`` is Q)."""
-    return (_launch_burst if args[2].is_cuda else _burst_reference)(*args, **kw)
+def make_burst(Q: torch.Tensor, n_bursts: int):
+    """The burst of a solve of ``n_bursts`` bursts on ``Q``. On a CUDA
+    tensor, a closure over :func:`_launch_burst`: where a later burst
+    follows, the first launch stores the Grams it gathers to a slab made
+    then, and every later launch reads them from it (the counters
+    ``burst_slab_writes`` and ``burst_slab_reads``); a one-burst solve
+    gathers and stores nothing. On a CPU tensor, the plain twin."""
+    if not Q.is_cuda:
+        return _burst_reference
+    slab = None
+
+    def burst(*args, **kw):
+        nonlocal slab
+        if slab is not None:
+            out = _launch_burst(*args, S=slab, slab_ready=True, **kw)
+            count("burst_slab_reads")
+        elif n_bursts > 1:
+            n, _, B = Q.shape
+            S = torch.empty(slab_floats(n, B), dtype=torch.float32, device=Q.device)
+            out = _launch_burst(*args, S=S, **kw)
+            slab = S
+            count("burst_slab_writes")
+        else:
+            out = _launch_burst(*args, **kw)
+        return out
+
+    return burst
 
 
 def _solve_on_device(burst, betas, Q, c, btb, alpha1, a2v, tau, thr, a2,
@@ -382,12 +429,19 @@ def _pad_and_solve(burst, betas, Q, c, btb, alpha1, alpha2, L, state0, *,
     return result, fin
 
 
-def _solve(burst, gb, cfg, state0, return_state):
+def _schedule(cfg, state0):
+    """``(k0, chunk, n_bursts)``: a solve's first iteration, its burst
+    length and its number of bursts (at most; the certified loop may exit
+    early)."""
     k0 = int(state0.k) if state0 is not None else 0
-    certify = cfg.check_every > 0
     remaining = max(cfg.max_iter - k0, 0)
-    chunk = cfg.check_every if certify else max(remaining, 1)
-    n_bursts = -(-remaining // chunk)
+    chunk = cfg.check_every if cfg.check_every > 0 else max(remaining, 1)
+    return k0, chunk, -(-remaining // chunk)
+
+
+def _solve(burst, gb, cfg, state0, return_state):
+    k0, chunk, n_bursts = _schedule(cfg, state0)
+    certify = cfg.check_every > 0
     greedy = ((cfg.greedy_S, cfg.greedy_shrink) if cfg.momentum == "greedy"
               else None)
     with span("fos.plan"):
@@ -418,7 +472,8 @@ def _dispatch(gb, cfg, state0, return_state, twin: bool):
                  else resident.fista_gram_resident)
         return solve(gb, cfg, state0=state0, return_state=return_state)
     if engine == "vmem":
-        burst = _burst_reference if twin else _burst
+        burst = (_burst_reference if twin
+                 else make_burst(gb.Q, _schedule(cfg, state0)[2]))
     else:
         burst = (qstream._qstream_burst_reference if twin
                  else qstream.make_burst(gb.Q))
@@ -508,8 +563,8 @@ def fista_gram_vmem_sharded(
     greedy = ((cfg.greedy_S, cfg.greedy_shrink) if cfg.momentum == "greedy"
               else None)
     res, _ = _pad_and_solve(
-        _burst, _beta_table(n_bursts * chunk, cfg), Q, c, btb, a1, a2, L, None,
-        chunk=chunk, n_bursts=n_bursts, tol=cfg.rel_gap_tol, certify=certify,
+        make_burst(Q, n_bursts), _beta_table(n_bursts * chunk, cfg), Q, c, btb, a1,
+        a2, L, None, chunk=chunk, n_bursts=n_bursts, tol=cfg.rel_gap_tol, certify=certify,
         t_init_factor=cfg.greedy_xi if greedy is not None else cfg.t_init_factor,
         restart_threshold=cfg.restart_threshold if cfg.adaptive_restart else None,
         greedy=greedy, armijo=_armijo_static(cfg), early_exit=False,

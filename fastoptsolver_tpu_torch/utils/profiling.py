@@ -121,6 +121,9 @@ COUNTERS = (
     # the lanes of each burst whose start reads the live count (the
     # early-exit loop), and of those the lanes not yet certified
     "burst_lanes", "burst_lanes_live",
+    # burst launches that store the solve's Grams to its slab (its first
+    # burst, when a later one follows) and that read them from it
+    "burst_slab_writes", "burst_slab_reads",
     "spans_dropped",  # spans past SPAN_LIMIT in one profiler session
 )
 _counts = dict.fromkeys(COUNTERS, 0)

@@ -1,6 +1,7 @@
 """The CUDA kernels of ``fastoptsolver_tpu_torch`` against their plain
 PyTorch twins, on the card (``chip_smoke.py`` phase 3 for pytest users):
-the fused solve, the stream pass, the Gram build, the burst engine, the
+the fused solve, the stream pass, the Gram build, the burst engine (its
+slab route bit for bit against its gather route), the
 resident engine (and the adaptive entry onto it) and the Q-streaming engine
 (its cluster kernel also bit for bit against its streaming kernel); and
 ``bench.verify_tpu``, each kernel against the torch driver (phase 16).
@@ -635,6 +636,115 @@ def test_qstream_refuses_launches_it_cannot_take(cuda):
             qstream._launch_qstream(*args, cluster=C, **static)
     with pytest.raises(ValueError, match="Qt"):
         qstream._launch_qstream(*args, Qt=qstream.relayout(args[2], 4), **static)
+
+
+SLAB_MODES = dict(
+    {name: BURST_MODES[name] for name in ("nesterov", "restart", "greedy")},
+    armijo=(dict(backtracking=True), 0.0),
+    armijo_restart=(dict(backtracking=True, adaptive_restart=True), 0.0))
+# odd n², every lanes-a-CTA count (32, 16, 13, 6, 5) and the window's ends
+SLAB_WIDTHS = [1, 5, 20, 33, 64, 96, 97, 104]
+
+
+def _slab_lanes(n, B):
+    """The slab's lanes and each lane's floats: ceil(B / G)·G and n²
+    rounded up to 4."""
+    G = min(_build.library().fista_burst_group(n), B)
+    return -(-B // G) * G, -(-n * n // 4) * 4
+
+
+@pytest.mark.parametrize("mode", list(SLAB_MODES))
+@pytest.mark.parametrize("n", SLAB_WIDTHS)
+def test_burst_slab_is_the_gather_bits(cuda, n, mode):
+    """Three bursts of 25 with the gap at B = 301 (a ragged last CTA): the
+    first stores the Grams to the slab, the next two read them from it.
+    Every output of each burst is bit-equal to the same bursts gathered from
+    Q, and (outside Armijo, whose accept/reject sits on the last bits) within
+    rtol 2e-4/atol 2e-5 of the twin's burst from the same state; the slab
+    holds each lane's Gram, zeros past the batch and in the stride's
+    padding."""
+    kw, a2 = SLAB_MODES[mode]
+    gb = _random_gram(n, a2, cuda, B=301)
+    args, static = _qstream_args(gb, kw, cuda)
+    static = dict(static, with_gap=True,
+                  armijo=fista_vmem._armijo_static(BatchFISTAConfig(**kw)))
+    S = torch.empty(fista_vmem.slab_floats(n, 301), device=cuda)
+
+    def bursts(slab_kw):
+        """Each burst's inputs and outputs, each from the last one's state."""
+        a, ins, outs = list(args), [], []
+        for j, extra in enumerate(slab_kw):
+            a[1] = 25 * j
+            ins.append(tuple(a))
+            outs.append(fista_vmem._launch_burst(*a, **static, **extra))
+            a[9:13], a[14] = outs[-1][:4], outs[-1][4]
+        return ins, outs
+    before = counters()["launches.burst"]
+    ins, slab = bursts([dict(S=S), dict(S=S, slab_ready=True), dict(S=S, slab_ready=True)])
+    _, gathered = bursts([{}] * 3)
+    torch.cuda.synchronize()
+    assert counters()["launches.burst"] == before + 6
+    for got, want in zip(slab, gathered):
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    if not mode.startswith("armijo"):
+        for a, got in zip(ins, slab):
+            for g, w in zip(got, fista_vmem._burst_reference(*a, **static)):
+                torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-5)
+    lanes, qs = _slab_lanes(n, 301)
+    Sv = S.view(lanes, qs)
+    assert torch.equal(Sv[:301, :n * n], gb.Q.permute(2, 0, 1).reshape(301, n * n))
+    assert not Sv[301:].any() and not Sv[:, n * n:].any()
+
+
+@pytest.mark.parametrize("mode", list(SLAB_MODES))
+@pytest.mark.parametrize("n", [33, 97])
+def test_certified_solve_on_the_slab_is_the_gather_bits(cuda, n, mode, monkeypatch):
+    """A certified solve through ``fista_gram_vmem`` (B = 301): one slab
+    write, reads for the rest of its bursts, and every field of the result
+    and state bit-equal to the solve with every burst gathered from Q; then
+    50 + 100 iterations through ``state0`` equal 150 straight ones bit for
+    bit, each part a solve with its own slab."""
+    kw, a2 = SLAB_MODES[mode]
+    gb = _random_gram(n, a2, cuda, B=301, seed=21)
+    cfg = BatchFISTAConfig(max_iter=1000, check_every=25, rel_gap_tol=1e-6, **kw)
+    keys = ("burst_slab_writes", "burst_slab_reads", "launches.burst")
+    before = [counters()[k] for k in keys]
+    got, got_state = fista_vmem.fista_gram_vmem(gb, cfg, return_state=True)
+    writes, reads, launched = (counters()[k] - b for k, b in zip(keys, before))
+    assert writes == 1 and reads >= 1 and writes + reads == launched
+    cut = lambda k: BatchFISTAConfig(max_iter=k, check_every=25, rel_gap_tol=0.0, **kw)
+    straight = fista_vmem.fista_gram_vmem(gb, cut(150))
+    _, mid = fista_vmem.fista_gram_vmem(gb, cut(50), return_state=True)
+    resumed = fista_vmem.fista_gram_vmem(gb, cut(150), state0=mid)
+    assert torch.equal(resumed.x, straight.x) and torch.equal(resumed.rel_gap, straight.rel_gap)
+    monkeypatch.setattr(fista_vmem, "make_burst", lambda Q, n_bursts: fista_vmem._launch_burst)
+    want, want_state = fista_vmem.fista_gram_vmem(gb, cfg, return_state=True)
+    for f in ("x", "iters", "rel_gap", "converged", "failed"):
+        assert torch.equal(getattr(got, f), getattr(want, f)), f
+    for f in ("X", "Y", "t", "ps", "tau", "done", "iters", "gap"):
+        assert torch.equal(getattr(got_state, f), getattr(want_state, f)), f
+    assert torch.equal(fista_vmem.fista_gram_vmem(gb, cut(150)).x, straight.x)
+
+
+def test_burst_slab_export_and_refusals(cuda):
+    """``fista_burst_slab_floats`` is ceil(B / G)·G lanes of n² rounded up
+    to 4 floats at every n of the window, 0 outside it; a CTA's shared bytes
+    leave room for the slab read's mbarrier; a launch refuses a slab of
+    another size and ``slab_ready`` without one."""
+    lib = _build.library()
+    for n in range(1, fista_vmem.MAX_N + 1):
+        assert lib.fista_burst_smem_bytes(n) + 16 <= 232448, n
+        for B in (1, 7, 301, 54144):
+            lanes, qs = _slab_lanes(n, B)
+            assert fista_vmem.slab_floats(n, B) == lanes * qs, (n, B)
+    assert lib.fista_burst_slab_floats(0, 8) == lib.fista_burst_slab_floats(105, 8) == 0
+    assert lib.fista_burst_slab_floats(20, 0) == 0
+    args, static = _qstream_args(_random_gram(20, 0.0, cuda, B=301), {}, cuda)
+    with pytest.raises(ValueError, match="slab_ready"):
+        fista_vmem._launch_burst(*args, slab_ready=True, **static)
+    with pytest.raises(ValueError, match="S must hold"):
+        fista_vmem._launch_burst(*args, S=torch.empty(16, device=cuda), **static)
 
 
 def test_stream_gram_feed_gives_the_same_bits_for_every_ring_depth(cuda):

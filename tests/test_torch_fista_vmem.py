@@ -8,8 +8,12 @@ Armijo in the decisive regime of tests/test_kernel_armijo.py (its noise-free
 recipe, L understated 4×, 5 iterations, so every accept/reject has margin)
 x to rtol 1e-4/atol 1e-5 and the accepted τ to 1e-6; certified runs
 ``converged`` identical and ``iters`` within one ``check_every``. Resume in the port is bit-exact: 40 + 60
-iterations equal 100 straight ones.
+iterations equal 100 straight ones. The slab tests run the solve's kernel
+route on the CPU: Q answers ``is_cuda`` and a recording stand-in in place of
+``_launch_burst`` runs the twin.
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -274,3 +278,90 @@ def test_plan_parity_across_the_ladder(cfg_kw):
                 tvmem.plan_gram_solve(n, tvmem.BatchFISTAConfig(**cfg_kw))
         else:
             assert tvmem.plan_gram_solve(n, tvmem.BatchFISTAConfig(**cfg_kw)) == want, n
+
+
+class _CudaShaped(torch.Tensor):
+    """A CPU tensor that answers ``is_cuda`` as a card's tensor does, so that
+    a solve on it takes the kernel's route (:func:`make_burst`'s closure)."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+@pytest.fixture
+def launches(monkeypatch):
+    """Each burst launch's ``(S, slab_ready)``, recorded by a stand-in for
+    ``_launch_burst`` that runs the twin on plain tensors; the slab's size
+    from the C rule's lanes at n = 20 (32 a CTA) and n² floats a lane."""
+    calls = []
+
+    def launch(*args, S=None, slab_ready=False, **kw):
+        calls.append((S, slab_ready))
+        plain = [a.as_subclass(torch.Tensor) if isinstance(a, torch.Tensor) else a
+                 for a in args]
+        return tvmem._burst_reference(*plain, **kw)
+
+    monkeypatch.setattr(tvmem, "_launch_burst", launch)
+    monkeypatch.setattr(tvmem, "slab_floats", lambda n, lanes: -(-lanes // 32) * 32 * n * n)
+    return calls
+
+
+def _slab_counts():
+    c = counters()
+    return c["burst_slab_writes"], c["burst_slab_reads"]
+
+
+def test_make_burst_on_a_cpu_tensor_is_the_twin(grams, launches):
+    """A CPU tensor gets the plain twin: no launch, no slab, no count."""
+    _, gbt = grams["lasso"]
+    assert tvmem.make_burst(gbt.Q, 40) is tvmem._burst_reference
+    before = _slab_counts()
+    tvmem.fista_gram_vmem(gbt, tvmem.BatchFISTAConfig(max_iter=100, check_every=25))
+    assert not launches and _slab_counts() == before
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(adaptive_restart=True),
+                                dict(momentum="greedy"), dict(backtracking=True)],
+                         ids=["nesterov", "restart", "greedy", "armijo"])
+def test_first_burst_writes_the_slab_and_later_bursts_read_it(grams, launches, kw):
+    """A solve of four bursts on the kernel's route: the first launch gets a
+    new slab with ``slab_ready=False``, every later one the same slab with
+    ``True``; the counters add up to the launches; x is the twin's."""
+    _, gbt = grams["decisive" if kw.get("backtracking") else "lasso"]
+    cfg = tvmem.BatchFISTAConfig(max_iter=100, check_every=25, rel_gap_tol=0.0, **kw)
+    want = tvmem.fista_gram_vmem(gbt, cfg)
+    before = _slab_counts()
+    got = tvmem.fista_gram_vmem(dataclasses.replace(gbt, Q=gbt.Q.as_subclass(_CudaShaped)),
+                                cfg)
+    S = launches[0][0]
+    assert S is not None and S.numel() == 32 * N * N * -(-B // 32)
+    assert launches == [(S, False), (S, True), (S, True), (S, True)]
+    writes, reads = (a - b for a, b in zip(_slab_counts(), before))
+    assert (writes, reads) == (1, 3) and writes + reads == len(launches)
+    assert torch.equal(got.x, want.x) and torch.equal(got.iters, want.iters)
+
+
+def test_one_burst_solve_stores_no_slab(grams, launches):
+    """A fixed run (``check_every=0``) is one burst: it gathers and stores
+    nothing, and counts neither a write nor a read."""
+    _, gbt = grams["lasso"]
+    before = _slab_counts()
+    tvmem.fista_gram_vmem(dataclasses.replace(gbt, Q=gbt.Q.as_subclass(_CudaShaped)),
+                          tvmem.BatchFISTAConfig(max_iter=100, check_every=0))
+    assert launches == [(None, False)] and _slab_counts() == before
+
+
+def test_resumed_solve_writes_its_own_slab(grams, launches):
+    """A resume from ``state0`` is a solve of its own: its first burst writes
+    a new slab, and 40 + 60 iterations equal 100 straight ones bit for bit."""
+    _, gbt = grams["lasso"]
+    gb = dataclasses.replace(gbt, Q=gbt.Q.as_subclass(_CudaShaped))
+    cfg = lambda k: tvmem.BatchFISTAConfig(max_iter=k, check_every=20, rel_gap_tol=0.0)
+    straight = tvmem.fista_gram_vmem(gbt, cfg(100))
+    _, mid = tvmem.fista_gram_vmem(gb, cfg(40), return_state=True)
+    resumed = tvmem.fista_gram_vmem(gb, cfg(100), state0=mid)
+    S1, S2 = launches[0][0], launches[2][0]
+    assert launches == [(S1, False), (S1, True), (S2, False), (S2, True), (S2, True)]
+    assert S2 is not S1
+    assert torch.equal(resumed.x, straight.x)
