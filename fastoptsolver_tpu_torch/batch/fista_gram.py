@@ -29,7 +29,7 @@ from typing import NamedTuple
 import torch
 
 from ..ops.prox import soft_threshold
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 from ..utils.pytree import register_dataclass
 
 
@@ -62,7 +62,9 @@ def _batched_power_L(Q: torch.Tensor, v0: torch.Tensor, n_iter: int,
                      tol: float) -> torch.Tensor:
     """Per-lane power iteration on (n, n, B) Gram tensors: λ_max(Q) per
     instance, all instances in lockstep. Stops after ``n_iter`` steps or once
-    every lane's estimate moved by less than ``tol``."""
+    every lane's estimate moved by less than ``tol``. Before each step the
+    host reads whether any lane still moves (a ``fos.sync``: it waits for
+    the card); the steps taken add to the ``power_steps`` counter."""
     def norm(v):
         return torch.sqrt(torch.sum(v * v, dim=0))
 
@@ -70,12 +72,17 @@ def _batched_power_L(Q: torch.Tensor, v0: torch.Tensor, n_iter: int,
     L = torch.zeros(Q.shape[-1], dtype=Q.dtype, device=Q.device)
     prev = torch.full_like(L, float("inf"))
     k = 0
-    while k < n_iter and bool(torch.any(torch.abs(L - prev) >= tol)):
+    while k < n_iter:
+        with span("fos.sync"):
+            moving = bool(torch.any(torch.abs(L - prev) >= tol))
+        if not moving:
+            break
         w = _gram_matvec(Q, v)
         prev = L
         L = norm(w)
         v = w / torch.clamp_min(L, 1e-30)
         k += 1
+    count("power_steps", k)
     return L
 
 
@@ -114,27 +121,36 @@ def make_gram_batch(
     normal draw of ``generator`` (default: a fresh generator on ``A``'s
     device seeded with 0). ``L`` (B,) skips the estimate and is used as
     given (it must already include α₂). ``estimate_l=False`` fills ``L`` with
-    the reference's 1.0 sentinel."""
-    if dtype is not None:
-        A = A.to(dtype)
-        b = b.to(dtype)
-    B, _, n = A.shape
-    Q = torch.einsum("bmi,bmj->ijb", A, A)
-    c = torch.einsum("bmi,bm->ib", A, b)
-    btb = torch.einsum("bm,bm->b", b, b)
-    a1 = _lane_vector(alpha1, B, A)
-    a2 = _lane_vector(alpha2, B, A)
-    if L is not None:
-        L = _lane_vector(L, B, A)
-    elif estimate_l:
-        if v0 is None:
-            if generator is None:
-                generator = torch.Generator(device=A.device).manual_seed(0)
-            v0 = torch.randn((n, B), generator=generator, dtype=A.dtype,
-                             device=A.device)
-        L = _batched_power_L(Q, v0.to(A.dtype), power_iters, power_tol) + a2
-    else:
-        L = torch.ones((B,), dtype=A.dtype, device=A.device)
+    the reference's 1.0 sentinel.
+
+    Under a profiler the stage is the span ``fos.gram_precompute``, which
+    holds ``fos.gram_products`` (the einsums) and ``fos.lipschitz`` (the
+    power iteration, whose host reads are ``fos.sync`` spans); it closes
+    on the estimate's last read, so on the host's clock it is the stage's
+    wall time."""
+    with span("fos.gram_precompute"):
+        if dtype is not None:
+            A = A.to(dtype)
+            b = b.to(dtype)
+        B, _, n = A.shape
+        with span("fos.gram_products"):
+            Q = torch.einsum("bmi,bmj->ijb", A, A)
+            c = torch.einsum("bmi,bm->ib", A, b)
+            btb = torch.einsum("bm,bm->b", b, b)
+        a1 = _lane_vector(alpha1, B, A)
+        a2 = _lane_vector(alpha2, B, A)
+        if L is not None:
+            L = _lane_vector(L, B, A)
+        elif estimate_l:
+            if v0 is None:
+                if generator is None:
+                    generator = torch.Generator(device=A.device).manual_seed(0)
+                v0 = torch.randn((n, B), generator=generator, dtype=A.dtype,
+                                 device=A.device)
+            with span("fos.lipschitz"):
+                L = _batched_power_L(Q, v0.to(A.dtype), power_iters, power_tol) + a2
+        else:
+            L = torch.ones((B,), dtype=A.dtype, device=A.device)
     return GramBatch(Q=Q, c=c, btb=btb, alpha1=a1, alpha2=a2, L=L)
 
 

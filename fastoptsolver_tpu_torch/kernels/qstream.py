@@ -27,7 +27,7 @@ from __future__ import annotations
 
 import torch
 
-from ..utils.profiling import launch
+from ..utils.profiling import count, launch, span
 from . import _build
 from .fista_vmem import SUBLANE, _burst_reference
 
@@ -89,14 +89,17 @@ def relayout(Q: torch.Tensor, C: int) -> torch.Tensor:
     = Q[k, r·F + j, l]`` (F = :func:`slab_features`), zero where ``r·F + j
     ≥ n``, shape ``(B, C, n, F)``, contiguous; so the slab of CTA r of lane
     l is one block of n·F floats. A zeros tensor and one permuted copy a
-    rank, on Q's device."""
-    n, _, B = Q.shape
-    F = slab_features(n, C)
-    Qt = torch.zeros((B, C, n, F), dtype=Q.dtype, device=Q.device)
-    for r in range(C):
-        w = min(F, n - r * F)
-        if w > 0:
-            Qt[:, r, :, :w].copy_(Q[:, r * F:r * F + w, :].permute(2, 0, 1))
+    rank, on Q's device; the span ``fos.relayout`` under a profiler, and
+    one in the ``qstream_relayouts`` counter."""
+    with span("fos.relayout"):
+        n, _, B = Q.shape
+        F = slab_features(n, C)
+        Qt = torch.zeros((B, C, n, F), dtype=Q.dtype, device=Q.device)
+        for r in range(C):
+            w = min(F, n - r * F)
+            if w > 0:
+                Qt[:, r, :, :w].copy_(Q[:, r * F:r * F + w, :].permute(2, 0, 1))
+    count("qstream_relayouts")
     return Qt
 
 

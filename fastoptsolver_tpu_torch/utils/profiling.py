@@ -11,12 +11,14 @@
   ``Metrics`` (grad evaluations, line-search calls and backtracks), the
   reference's ``get_metrics`` numbers;
 - :func:`span`, :func:`spans` — the program's own spans at its layer
-  boundaries (the router, the plan, the Gram build, each kernel launch, the
-  burst loop, the result) and where the host waits for the card
-  (``fos.sync``), recorded only while a ``torch.profiler`` records, on the
-  profiler's timeline and in memory;
+  boundaries (the router, the plan, the Gram build and the torch
+  precompute's stages, each kernel launch, Q's re-layout, the burst loop,
+  the result) and where the host waits for the card (``fos.sync``),
+  recorded only while a ``torch.profiler`` records, on the profiler's
+  timeline and in memory;
 - :func:`counters`, :func:`reset_counters` — the program's counters, always
-  on: calls, kernel launches, bursts and the lanes they carry.
+  on: calls, kernel launches, bursts and the lanes they carry, the power
+  steps of the eager L estimate, Q's re-layouts.
 """
 from __future__ import annotations
 
@@ -124,6 +126,8 @@ COUNTERS = (
     # burst launches that store the solve's Grams to its slab (its first
     # burst, when a later one follows) and that read them from it
     "burst_slab_writes", "burst_slab_reads",
+    "power_steps",  # matvec steps of the eager Lipschitz estimate (make_gram_batch)
+    "qstream_relayouts",  # copies of Q into the Q-streaming cluster layout
     "spans_dropped",  # spans past SPAN_LIMIT in one profiler session
 )
 _counts = dict.fromkeys(COUNTERS, 0)

@@ -638,6 +638,21 @@ def test_qstream_refuses_launches_it_cannot_take(cuda):
         qstream._launch_qstream(*args, Qt=qstream.relayout(args[2], 4), **static)
 
 
+@pytest.mark.parametrize("n", [256, 900])
+def test_qstream_relayouts_once_a_solve_in_the_cluster_window(cuda, n):
+    """A certified solve re-lays Q once, at its first burst, in the cluster
+    window (n = 256, C = 4); the streaming kernel past it (n = 900) reads Q
+    as it is and re-lays nothing."""
+    gb = _random_gram(n, 0.0, cuda, B=64)
+    cfg = BatchFISTAConfig(max_iter=100, check_every=25, rel_gap_tol=1e-6)
+    before = counters()["qstream_relayouts"]
+    for solves in (1, 2):
+        launched = launches("qstream")
+        fista_vmem.fista_gram_vmem(gb, cfg)
+        assert launches("qstream") > launched
+        assert counters()["qstream_relayouts"] - before == (solves if n <= CLUSTER_MAX_N else 0)
+
+
 SLAB_MODES = dict(
     {name: BURST_MODES[name] for name in ("nesterov", "restart", "greedy")},
     armijo=(dict(backtracking=True), 0.0),

@@ -9,6 +9,10 @@ Tolerances: one burst from a non-trivial state, every output to rtol
 tests/test_kernels.py:57-59); certified runs ``converged`` identical,
 ``iters`` within one ``check_every``, x to rtol 2e-4/atol 2e-5. Resume in the
 port is bit-exact.
+
+The routed call at the ``wide256`` benchmark cell's widths (n = 256, m = 512)
+on 8 lanes, the torch Gram precompute then the twin, is held against the
+benchmark's plain float64 reference by the cell's own limits.
 """
 import dataclasses
 
@@ -252,3 +256,38 @@ def test_cpu_solve_runs_the_twin_on_q_unchanged(grams, certified, monkeypatch):
     rt = tvmem.fista_gram_vmem(gbt, convert.config_from_jax(cfg))
     assert seen and all(q.shape == (120, 120, B) and torch.equal(q, gbt.Q) for q in seen)
     np.testing.assert_allclose(rt.x.numpy(), np.asarray(rj.x), rtol=2e-4, atol=2e-5)
+
+
+def test_routed_call_at_wide256_widths_holds_to_the_plain_reference(monkeypatch):
+    """``solve_lasso_batch(..., interpret=True, feature_major=True)`` on 8
+    lanes of the cell's recipe at its published widths takes the torch
+    precompute (its power loop) and the Q-streaming twin; every certified
+    lane's float64 gap at the returned x is within the cell's ``gap_max``
+    and its ``(f(x) − f*)/max(f*, 1)`` within ``subopt_max``, f* the
+    reference's float64 optimum."""
+    from benchmark import spec
+    from benchmark.reference import lasso
+    from fastoptsolver_tpu_torch.batch import BatchFISTAConfig, solve_lasso_batch
+
+    cell = spec.cell("wide256.bench")
+    cfg = cell.config
+    A, b, a1 = spec.recipe(cfg)(torch.Generator().manual_seed(2**31 + 21), 8, m=cfg["m"],
+                                n=cfg["n"], **cfg["recipe_params"],
+                                **cell.traffic["recipe_params"])
+    assert A.shape == (256, 512, 8)
+    bursts = []
+    twin = qstream._qstream_burst_reference
+    monkeypatch.setattr(qstream, "_qstream_burst_reference",
+                        lambda *a, **k: bursts.append(1) or twin(*a, **k))
+    steps = counters()["power_steps"]
+    res = solve_lasso_batch(A, b, a1, 0.0, cfg=BatchFISTAConfig(**cfg["solver"]),
+                            feature_major=True, interpret=True)
+    assert bursts and counters()["power_steps"] > steps
+    conv = res.converged
+    assert int(conv.sum()) >= 4, res.rel_gap
+    gap, f = lasso.rel_gap(A, b, a1, res.x)
+    assert float(gap[conv].max()) <= cell.limits["gap_max"]
+    _, f_opt, gap_opt = lasso.optimum(A, b, a1, torch.arange(8))
+    assert float(gap_opt.max()) <= 1e-9
+    subopt = (f - f_opt) / f_opt.clamp_min(1.0)
+    assert float(subopt[conv].max()) <= cell.limits["subopt_max"]

@@ -1,8 +1,9 @@
 """The benchmark's readers of the program's spans and counters
 (``benchmark/metrics/host_self_ms.py``, ``bursts_per_call.py``,
-``burst_live_pct.py``) through a traced run of every cell on CPU tensors,
-as ``benchmark/tests/test_harness_cpu.py`` runs the harness: each calls the
-plain twins of the card's kernels (``interpret=True``) on 48 lanes. A metric
+``burst_live_pct.py``, ``precompute_ms.py``) through a traced run of every
+cell on CPU tensors, as ``benchmark/tests/test_harness_cpu.py`` runs the
+harness: each calls the plain twins of the card's kernels
+(``interpret=True``) on 48 lanes. A metric
 reads a number in the cells ``BENCHMARK.json`` lists for it and is absent
 from the others' result lines.
 """
@@ -16,7 +17,7 @@ from benchmark import run, spec
 from fastoptsolver_tpu_torch.utils import profiling
 
 CELLS = [w["name"] for w in spec.benchmark()["workloads"]]
-NEW = ("host_self_ms", "bursts_per_call", "burst_live_pct")
+NEW = ("host_self_ms", "bursts_per_call", "burst_live_pct", "precompute_ms")
 LANES = 48
 
 
@@ -49,7 +50,7 @@ def test_each_program_metric_reads_in_its_cells_and_nowhere_else(cell):
     for name in got:
         assert line["metrics"][name]["value"] > 0, name
     c = profiling.counters()
-    if cell.startswith("wide96."):
+    if "bursts_per_call.wide" in got:  # the cells on the host burst loop
         bursts = line["metrics"]["bursts_per_call.wide"]["value"]
         assert bursts == c["bursts"] / c["calls"] and bursts == int(bursts)
         assert 1 <= bursts <= 40
@@ -58,6 +59,8 @@ def test_each_program_metric_reads_in_its_cells_and_nowhere_else(cell):
         assert live == 100.0 * c["burst_lanes_live"] / c["burst_lanes"]
     else:
         assert c["bursts"] == 0  # the fused kernel's bursts run inside it
+    # the torch precompute's power loop runs in the cells that read its span alone
+    assert (c["power_steps"] > 0) == ("precompute_ms" in got)
 
 
 def test_the_readers_give_nothing_without_the_programs_record(monkeypatch):

@@ -1,6 +1,8 @@
 """The program's spans and counters (``utils.profiling``) on the routed
 surface, on the kernels' plain twins (``interpret=True``): the fused route at
-n = 5 and the Gram build and burst engine at n = 96, m = 192.
+n = 5 and the Gram build and burst engine at n = 96, m = 192; and the stages
+of the torch Gram precompute (``make_gram_batch``) and the Q-streaming
+engine's re-layout of Q, called on their own.
 
 With no profiler a span is the shared no-op and nothing is recorded; under a
 CPU ``torch.profiler`` the spans nest, one call id a call, and each is a
@@ -14,6 +16,8 @@ import pytest
 import torch
 
 from fastoptsolver_tpu_torch.batch import BatchFISTAConfig, solve_lasso_batch
+from fastoptsolver_tpu_torch.batch.fista_gram import make_gram_batch
+from fastoptsolver_tpu_torch.kernels import qstream
 from fastoptsolver_tpu_torch.utils import profiling
 
 CFG = BatchFISTAConfig(max_iter=1000, check_every=25, rel_gap_tol=1e-6)
@@ -156,3 +160,87 @@ def test_a_full_record_counts_what_it_drops(monkeypatch):
     _profiled(spans)
     assert len(profiling.spans()) == 3
     assert profiling.counters()["spans_dropped"] == 2
+
+
+def _precompute(n=12, m=30, B=16, **kw):
+    """``make_gram_batch`` on the instance-major layout of :func:`_batch`."""
+    A, b, a1 = _batch(n, m, B)
+    return make_gram_batch(A.permute(2, 1, 0), b.T, a1, 0.0, **kw)
+
+
+def _tree(rows, index):
+    """The names of ``rows[index]``'s children, in order."""
+    return [row[1] for row in rows if row[2] == index]
+
+
+@pytest.mark.parametrize("power_iters,power_tol,steps", [
+    (5, 0.0, 5),  # no lane ever stops moving: every step, a read before each
+    (100, 1e30, 1),  # every lane stops after the first step: a read says so
+    (100, 1e-6, None),  # the default stop
+])
+def test_the_precompute_spans_its_stages_and_counts_its_power_steps(power_iters, power_tol,
+                                                                    steps):
+    """``fos.gram_precompute`` holds ``fos.gram_products`` and
+    ``fos.lipschitz``, which holds one ``fos.sync`` a host read of the power
+    loop: a read before each step, and one more where the loop stops before
+    ``power_iters``; ``power_steps`` counts the steps. The bits are those
+    made with no profiler."""
+    kw = dict(power_iters=power_iters, power_tol=power_tol)
+    plain = _precompute(**kw)
+    plain_steps = profiling.counters()["power_steps"]
+    profiling.reset_counters()
+    traced = _profiled(lambda: _precompute(**kw))
+    for f in ("Q", "c", "btb", "alpha1", "alpha2", "L"):
+        assert torch.equal(getattr(plain, f), getattr(traced, f)), f
+    rows = profiling.spans()
+    assert rows[0][1] == "fos.gram_precompute" and rows[0][2] is None
+    assert _tree(rows, 0) == ["fos.gram_products", "fos.lipschitz"]
+    lipschitz = next(i for i, row in enumerate(rows) if row[1] == "fos.lipschitz")
+    reads = _tree(rows, lipschitz)
+    assert reads and set(reads) == {"fos.sync"}
+    assert all(row[3] >= rows[0][3] and row[4] <= rows[0][4] for row in rows)
+    k = profiling.counters()["power_steps"]
+    assert k == plain_steps and k <= power_iters
+    assert len(reads) == (k if k == power_iters else k + 1)
+    if steps is not None:
+        assert k == steps
+    profiling.reset_counters()
+    _precompute(L=torch.ones(16))  # a finished L: no estimate, no step
+    assert profiling.counters()["power_steps"] == 0
+
+
+def test_host_self_time_leaves_the_power_loops_reads_out():
+    """``host_self_ms``'s reader takes the precompute's ``fos.sync`` reads
+    out of a call's root span, as it takes the burst loop's."""
+    from types import SimpleNamespace
+
+    from benchmark import spec
+
+    def calls():
+        for _ in range(3):
+            with profiling.span("fos.solve_lasso_batch"):
+                _precompute(power_tol=0.0)
+
+    _profiled(calls)
+    rows = profiling.spans()
+    roots = {row[0]: row[4] - row[3] for row in rows if row[2] is None}
+    waits = {c: sum(row[4] - row[3] for row in rows if row[0] == c and row[1] == "fos.sync")
+             for c in roots}
+    assert len(roots) == 3 and all(waits[c] > 0 for c in roots)
+    own = sorted(roots[c] - waits[c] for c in sorted(roots)[1:])
+    got = spec.reader("host_self_ms")(SimpleNamespace(trace=object()))
+    assert got == pytest.approx(1e-6 * (own[0] + own[1]) / 2)
+    assert got < 1e-6 * min(roots[c] for c in sorted(roots)[1:])
+    stage = sorted(row[4] - row[3] for row in rows
+                   if row[1] == "fos.gram_precompute" and row[0] != min(roots))
+    got = spec.reader("precompute_ms")(SimpleNamespace(trace=object()))
+    assert got == pytest.approx(1e-6 * (stage[0] + stage[1]) / 2)
+
+
+def test_a_relayout_is_counted_and_spanned():
+    Q = torch.randn((20, 20, 3))
+    qstream.relayout(Q, 2)
+    assert profiling.counters()["qstream_relayouts"] == 1
+    _profiled(lambda: qstream.relayout(Q, 4))
+    assert [row[1] for row in profiling.spans()] == ["fos.relayout"]
+    assert profiling.counters()["qstream_relayouts"] == 2
