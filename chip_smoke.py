@@ -28,7 +28,7 @@ Phases, one line each (``--`` lines are detail):
    identical, ``iters`` within ``check_every``; Armijo in the decisive regime: x to rtol 1e-4/atol
    1e-5), a 40 + 60 resume bit-exact against 100 straight iterations, one
    burst in fixed Nesterov and in restart at n ∈ {5, 9, 33, 64, 96, 104},
-   B = 301 (each lanes-a-CTA count of the window: 32, 16, 13, 6 and 5; the
+   B = 301 (lanes a CTA 16, 8, 13, 3 and 5, paired and alone; the
    C exports ``fista_burst_group`` and ``fista_burst_smem_bytes`` printed)
    on each route of the Grams (gathered, gathered and stored to the slab,
    read from the slab; the same bits),
@@ -284,8 +284,9 @@ SMALL_SHAPES = ((5, 250, 390), (1, 64, 128), (8, 333, 300))
 BATCH = 262144  # the bench configuration's instances (bench.py:88)
 # the last has B % 4 != 0: gram_pairs' 4-byte copies beside its 16-byte ones
 BUILD_SHAPES = ((9, 33, 300), (20, 70, 200), (64, 128, 256), (9, 33, 301))
-# with n = 20, a width for each lanes-a-CTA count of the burst kernel's window:
-# 32 lanes (n <= 32), 16 (n = 33), 13 (n = 64), 6 (n = 96), 5 (n = 104)
+# with n = 20, widths of the burst kernel's window at several lanes a CTA: 16
+# (n <= 32), 8 (n = 33) and 3 (n = 96), two CTAs an SM; 13 (n = 64) and 5
+# (n = 104), one
 BURST_WIDTHS = (5, 9, 33, 64, 96, 104)
 # the resident kernel's widths in phase 3: each lanes-a-CTA count from 32 (n = 5)
 # down to 3 (n = 168), the path's 128, and widths whose last warp is ragged. At

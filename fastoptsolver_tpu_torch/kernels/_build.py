@@ -90,10 +90,11 @@ _SIGNATURES = {
     # B, A, b
     "gram_pairs_copy_bytes": [_ll, _vp, _vp],
     "stream_copy_bytes": [_ll, _vp, _vp],
-    # n: the burst kernel's lanes per CTA and their shared bytes; (n, B): the
-    # floats of a solve's slab
+    # n: the burst kernel's lanes per CTA, their shared bytes and the CTAs an SM
+    # of the current device holds; (n, B): the floats of a solve's slab
     "fista_burst_group": [_i],
     "fista_burst_smem_bytes": [_i],
+    "fista_burst_ctas_per_sm": [_i],
     "fista_burst_slab_floats": [_i, _ll],
     "fos_cuda_error_string": [_i],
 }

@@ -18,7 +18,7 @@
 // nt = round_up(n, 32) threads, one feature each, as csrc/resident.cu does. At the
 // start of the launch the group's full Grams come into shared memory once, as
 // [g][k][i] with a lane stride of qs = round_up(n^2, 4) floats (36,864 bytes at n = 96,
-// so G = 6 there and 5 at n = 104; up to 32 lanes at n <= 32), by one of two routes:
+// where G = 3; see Grouping below), by one of two routes:
 // - Gather (a solve's first burst, and every launch given no slab): each thread issues
 //   4-byte cp.async copies from Q, every one in flight before the first wait. A CTA's
 //   lanes are G * 4 bytes of each of the n^2 planes, B * 4 bytes apart.
@@ -48,9 +48,27 @@
 // pieces of each plane) and by the slab's bulk copy as whole blocks; the first burst
 // writes the slab once more. The steps read Q from shared memory, n^2 words a lane and
 // a matvec, about one 128-byte wavefront a clock per SM, plus the broadcasts of v.
-// With one CTA an SM at n = 96 the copy-in does not overlap compute. The TPU kernel
-// holds a tile's Q in VMEM for a burst in the same way. Armijo adds one matvec per
-// trial round, the gap one per burst.
+// A CTA fetches its Grams, then steps: its own copy-in overlaps nothing, so the SM holds
+// two CTAs where it can, and one CTA's fetch runs under the other's steps (Grouping).
+// The TPU kernel holds a tile's Q in VMEM for a burst in the same way. Armijo adds one
+// matvec per trial round, the gap one per burst.
+//
+// Grouping (fista_burst_group): a block's limits give G0 lanes, as many as 232,448 bytes of
+// shared memory less the mbarrier and 1024 threads hold. The launch bounds allow 64
+// registers a thread (ptxas gives 63), at which an SM's 65,536 registers hold 1024
+// threads; a CTA of G0 lanes has more than 512 at every n of the window, so it is alone on
+// its SM. Where G0 is even and two CTAs of G0 / 2 lanes fit one SM (233,472 bytes of shared
+// memory, 1,024 of them reserved a block, and 1024 threads), G = G0 / 2: the SM holds the
+// same lanes as two CTAs. Where G0 is odd, two CTAs would hold fewer lanes an SM, and
+// G = G0. The kernel asks for the largest shared-memory carveout, so that the card places
+// both CTAs. At each n (lanes an SM: CTAs an SM times G):
+//   n        1-32  33-58  59-60  61-62  63-64  65-74  75-78  79-83  84-89  90-96  97-104
+//   G0         32     16     15     14     13     10      9      8      7      6       5
+//   G          16      8     15      7     13      5      9      4      7      3       5
+//   CTAs an SM  2      2      1      2      1      2      1      2      1      2       1
+// fista_burst_ctas_per_sm(n) asks the card for the CTAs of G lanes an SM holds
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor); the wrapper counts each launch at a
+// width where it is two or more in the counter burst_paired_launches.
 //
 // No lane depends on its neighbours: the trial rounds of a CTA run while any of its
 // lanes is unaccepted, and an accepted lane is left untouched, so the result equals
@@ -73,6 +91,9 @@ constexpr int kRows = 8;         // row groups of the per-lane sums
 constexpr int kStage = 2;        // sums a lane stages in shared memory at once
 constexpr int kResults = 5;      // a lane's result slots (the gap's five sums)
 constexpr long long kSmemLimit = 232448;  // the shared memory a Hopper block may use
+constexpr long long kSmSmem = 233472;     // a Hopper SM's shared memory
+constexpr int kBlockReserve = 1024;       // the shared memory the card reserves a block
+constexpr int kSmThreads = 1024;  // an SM's 65,536 registers at the launch bounds' 64 a thread
 constexpr int kBarrierBytes = 16;  // the slab read's mbarrier (static shared memory)
 constexpr unsigned kCopyChunk = 32768;    // bytes of one bulk copy of the slab read
 constexpr int kMaxDevices = 64;
@@ -436,22 +457,85 @@ __global__ void __launch_bounds__(kMaxThreads) fista_burst_kernel(Params p, int 
   }
 }
 
-}  // namespace
-
-// The burst kernel's lanes per CTA at feature count n: as many as fit 232,448 bytes
-// of shared memory less the mbarrier (lane_floats(n) floats each) and 1024 threads
-// (round_up(n, 32) each): 32 at n <= 32, 6 at n = 96, 5 at n = 104. 0 for n outside
-// 1..104. A launch takes min(this, B).
-extern "C" int fista_burst_group(int n) {
-  if (n < 1 || n > kMaxN) return 0;
+// Lanes a CTA by a block's limits alone: as many as fit its shared memory less the mbarrier
+// (lane_floats(n) floats each) and 1024 threads (round_up(n, 32) each).
+int block_group(int n) {
   const long long by_smem = (kSmemLimit - kBarrierBytes) / (4 * lane_floats(n));
   const int by_threads = kMaxThreads / lane_threads(n);
   return by_smem < by_threads ? static_cast<int>(by_smem) : by_threads;
 }
 
+// CTAs of G lanes at n that one SM holds by its shared memory and its registers.
+int sm_ctas(int n, int G) {
+  const long long by_smem = kSmSmem / (4 * lane_floats(n) * G + kBarrierBytes + kBlockReserve);
+  const int by_threads = kSmThreads / (G * lane_threads(n));
+  return by_smem < by_threads ? static_cast<int>(by_smem) : by_threads;
+}
+
+// The dynamic shared memory a block of the kernel may take on the current device: the
+// opt-in limit less the mbarrier, set on the kernel with the largest carveout at its first
+// use on each device. 0 with err set where the device or an attribute call refuses.
+int kernel_optin(cudaError_t& err) {
+  static int optin_set[kMaxDevices] = {};
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return 0;
+  if (dev >= kMaxDevices) {
+    err = cudaErrorInvalidValue;
+    return 0;
+  }
+  if (optin_set[dev] == 0) {
+    int optin = 0;
+    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+    if (err != cudaSuccess) return 0;
+    if (optin > kSmemLimit) optin = static_cast<int>(kSmemLimit);
+    cudaFuncAttributes attr;
+    err = cudaFuncGetAttributes(&attr, fista_burst_kernel);
+    if (err != cudaSuccess) return 0;
+    optin -= static_cast<int>(attr.sharedSizeBytes);  // the mbarrier
+    err = cudaFuncSetAttribute(fista_burst_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               optin);
+    if (err != cudaSuccess) return 0;
+    err = cudaFuncSetAttribute(fista_burst_kernel,
+                               cudaFuncAttributePreferredSharedMemoryCarveout,
+                               cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return 0;
+    optin_set[dev] = optin;
+  }
+  err = cudaSuccess;
+  return optin_set[dev];
+}
+
+}  // namespace
+
+// The burst kernel's lanes per CTA at feature count n (Grouping, in the note above): half
+// of a block's lanes where they are even and two such CTAs fit an SM, else all of them;
+// 16 at n <= 32, 3 at n = 96, 5 at n = 104. 0 for n outside 1..104. A launch takes
+// min(this, B).
+extern "C" int fista_burst_group(int n) {
+  if (n < 1 || n > kMaxN) return 0;
+  const int G = block_group(n);
+  return G % 2 == 0 && sm_ctas(n, G) < 2 && sm_ctas(n, G / 2) >= 2 ? G / 2 : G;
+}
+
 // The dynamic shared memory, in bytes, of a CTA of fista_burst_group(n) lanes.
 extern "C" long long fista_burst_smem_bytes(int n) {
   return 4 * lane_floats(n) * fista_burst_group(n);
+}
+
+// The CTAs of fista_burst_group(n) lanes that one SM of the current device holds, as the
+// card reports them (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or minus the
+// cudaError_t of the query. 0 for n outside 1..104.
+extern "C" int fista_burst_ctas_per_sm(int n) {
+  if (n < 1 || n > kMaxN) return 0;
+  cudaError_t err = cudaSuccess;
+  if (kernel_optin(err) == 0) return -static_cast<int>(err);
+  const int G = fista_burst_group(n);
+  int count = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &count, fista_burst_kernel, G * lane_threads(n),
+      static_cast<size_t>(fista_burst_smem_bytes(n)));
+  return err == cudaSuccess ? count : -static_cast<int>(err);
 }
 
 // The floats of the slab of a solve at (n, B): ceil(B / G) * G lanes of q_floats(n),
@@ -488,29 +572,12 @@ extern "C" int fista_burst(const float* Q, float* S, const float* c, const float
       (armijo && mode == kGreedy) || (mode == kGreedy && !taumin) || slab < kGather ||
       slab > kSlabRead || (slab != kGather && !S))
     return static_cast<int>(cudaErrorInvalidValue);
-  // the opt-in limit of each device, set on the kernel at its first launch there
-  static int optin_set[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidValue);
-  if (optin_set[dev] == 0) {
-    int optin = 0;
-    err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (optin > kSmemLimit) optin = static_cast<int>(kSmemLimit);
-    cudaFuncAttributes attr;
-    err = cudaFuncGetAttributes(&attr, fista_burst_kernel);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    optin -= static_cast<int>(attr.sharedSizeBytes);  // the mbarrier
-    err = cudaFuncSetAttribute(fista_burst_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               optin);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    optin_set[dev] = optin;
-  }
+  cudaError_t err = cudaSuccess;
+  const int optin = kernel_optin(err);
+  if (optin == 0) return static_cast<int>(err);
   const int G = fista_burst_group(n) < B ? fista_burst_group(n) : static_cast<int>(B);
   const long long smem = 4 * lane_floats(n) * G;
-  if (smem > optin_set[dev]) return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > optin) return static_cast<int>(cudaErrorInvalidValue);
   const Params p{Q, S, c, tau, thr, a2, a1, btb, X, Y, t, ps, taumin, tauv, betas, Xo, Yo,
                  to, pso, tauvo, gap, n, B, n_steps, k0, mode, armijo, with_gap, slab,
                  restart_threshold, greedy_S, greedy_shrink, armijo_c, armijo_eta,

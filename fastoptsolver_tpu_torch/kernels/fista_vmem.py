@@ -224,6 +224,17 @@ def slab_floats(n: int, B: int) -> int:
     return _build.library().fista_burst_slab_floats(n, B)
 
 
+@functools.lru_cache(maxsize=None)
+def ctas_per_sm(n: int, device: torch.device) -> int:
+    """The burst kernel's CTAs at width ``n`` that one SM of the CUDA
+    ``device`` holds (``fista_burst_ctas_per_sm`` in C), asked of the card
+    once per device and width; 0 outside the window."""
+    with torch.cuda.device(device):
+        got = _build.library().fista_burst_ctas_per_sm(n)
+    _build.check(max(-got, 0), "fista_burst_ctas_per_sm")
+    return got
+
+
 @launch("burst")
 def _launch_burst(betas, k0, Q, c, tau, thr, a2, a1, btb, X, Y, t, ps,
                   taumin=None, tauv=None, *, n_steps, with_gap=False,
@@ -294,10 +305,13 @@ def make_burst(Q: torch.Tensor, n_bursts: int):
     follows, the first launch stores the Grams it gathers to a slab made
     then, and every later launch reads them from it (the counters
     ``burst_slab_writes`` and ``burst_slab_reads``); a one-burst solve
-    gathers and stores nothing. On a CPU tensor, the plain twin."""
+    gathers and stores nothing. Where an SM holds two or more of the
+    kernel's CTAs at Q's width (:func:`ctas_per_sm`), each launch counts in
+    ``burst_paired_launches``. On a CPU tensor, the plain twin."""
     if not Q.is_cuda:
         return _burst_reference
     slab = None
+    paired = ctas_per_sm(Q.shape[0], Q.device) >= 2
 
     def burst(*args, **kw):
         nonlocal slab
@@ -312,6 +326,8 @@ def make_burst(Q: torch.Tensor, n_bursts: int):
             count("burst_slab_writes")
         else:
             out = _launch_burst(*args, **kw)
+        if paired:
+            count("burst_paired_launches")
         return out
 
     return burst

@@ -126,6 +126,9 @@ COUNTERS = (
     # burst launches that store the solve's Grams to its slab (its first
     # burst, when a later one follows) and that read them from it
     "burst_slab_writes", "burst_slab_reads",
+    # burst launches at a width where an SM holds two or more of the kernel's
+    # CTAs (fista_burst_ctas_per_sm), so one CTA's copy-in runs under another's steps
+    "burst_paired_launches",
     "power_steps",  # matvec steps of the eager Lipschitz estimate (make_gram_batch)
     "qstream_relayouts",  # copies of Q into the Q-streaming cluster layout
     "spans_dropped",  # spans past SPAN_LIMIT in one profiler session

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import burst_grouping
 from fastoptsolver_tpu_torch.batch import BatchFISTAConfig, solve_lasso_batch
 from fastoptsolver_tpu_torch.bench import stream
 from fastoptsolver_tpu_torch.batch.fista_gram import make_gram_batch
@@ -356,8 +357,30 @@ def test_burst_group_fits_a_block(cuda):
         G, smem = lib.fista_burst_group(n), lib.fista_burst_smem_bytes(n)
         assert 1 <= G <= 32 and G * (-(-n // 32) * 32) <= 1024, n
         assert 0 < smem <= 232448 and smem % G == 0, n
-    assert [lib.fista_burst_group(n) for n in (5, 20, 33, 64, 96, 104)] == [32, 32, 16, 13, 6, 5]
+    assert [lib.fista_burst_group(n) for n in (5, 20, 33, 64, 96, 104)] == [16, 16, 8, 13, 3, 5]
     assert lib.fista_burst_group(0) == lib.fista_burst_group(fista_vmem.MAX_N + 1) == 0
+
+
+def test_burst_ctas_per_sm_follows_the_rule(cuda):
+    """At every n of the window the library's group and its shared bytes are
+    the note's rule and table (``tests/burst_grouping.py``), the card holds
+    as many CTAs of that group an SM as the table says
+    (``fista_burst_ctas_per_sm``), the SM holds no fewer lanes than one CTA
+    of a block's lanes, and a CTA's shared memory with the mbarrier fits the
+    card's opt-in; 0 outside the window."""
+    lib = _build.library()
+    props = torch.cuda.get_device_properties(cuda)
+    optin = getattr(props, "shared_memory_per_block_optin", 232448)
+    table = burst_grouping.table()
+    for n in range(1, fista_vmem.MAX_N + 1):
+        G0, G, ctas = table[n]
+        assert lib.fista_burst_group(n) == G == burst_grouping.group(n), n
+        assert lib.fista_burst_smem_bytes(n) == 4 * burst_grouping.lane_floats(n) * G, n
+        assert lib.fista_burst_ctas_per_sm(n) == ctas, n
+        assert fista_vmem.ctas_per_sm(n, cuda) == ctas, n
+        assert G * ctas >= G0, n
+        assert lib.fista_burst_smem_bytes(n) + 16 <= optin, n
+    assert lib.fista_burst_ctas_per_sm(0) == lib.fista_burst_ctas_per_sm(105) == 0
 
 
 def test_burst_kernel_armijo_decisive_and_resume(cuda):
@@ -657,8 +680,10 @@ SLAB_MODES = dict(
     {name: BURST_MODES[name] for name in ("nesterov", "restart", "greedy")},
     armijo=(dict(backtracking=True), 0.0),
     armijo_restart=(dict(backtracking=True, adaptive_restart=True), 0.0))
-# odd n², every lanes-a-CTA count (32, 16, 13, 6, 5) and the window's ends
-SLAB_WIDTHS = [1, 5, 20, 33, 64, 96, 97, 104]
+# odd n², the window's ends, and both ends of each run of widths with one
+# group (tests/burst_grouping.py): every lanes-a-CTA count, paired and alone
+SLAB_WIDTHS = [1, 5, 20, 32, 33, 48, 58, 59, 60, 61, 62, 63, 64, 65, 74, 75, 78, 79,
+               80, 83, 84, 89, 90, 96, 97, 104]
 
 
 def _slab_lanes(n, B):
@@ -713,21 +738,23 @@ def test_burst_slab_is_the_gather_bits(cuda, n, mode):
 
 
 @pytest.mark.parametrize("mode", list(SLAB_MODES))
-@pytest.mark.parametrize("n", [33, 97])
+@pytest.mark.parametrize("n", [20, 33, 48, 61, 64, 65, 80, 96, 97, 104])
 def test_certified_solve_on_the_slab_is_the_gather_bits(cuda, n, mode, monkeypatch):
     """A certified solve through ``fista_gram_vmem`` (B = 301): one slab
-    write, reads for the rest of its bursts, and every field of the result
+    write, reads for the rest of its bursts, each launch counted paired
+    where an SM holds two CTAs at n, and every field of the result
     and state bit-equal to the solve with every burst gathered from Q; then
     50 + 100 iterations through ``state0`` equal 150 straight ones bit for
     bit, each part a solve with its own slab."""
     kw, a2 = SLAB_MODES[mode]
     gb = _random_gram(n, a2, cuda, B=301, seed=21)
     cfg = BatchFISTAConfig(max_iter=1000, check_every=25, rel_gap_tol=1e-6, **kw)
-    keys = ("burst_slab_writes", "burst_slab_reads", "launches.burst")
+    keys = ("burst_slab_writes", "burst_slab_reads", "launches.burst", "burst_paired_launches")
     before = [counters()[k] for k in keys]
     got, got_state = fista_vmem.fista_gram_vmem(gb, cfg, return_state=True)
-    writes, reads, launched = (counters()[k] - b for k, b in zip(keys, before))
+    writes, reads, launched, paired = (counters()[k] - b for k, b in zip(keys, before))
     assert writes == 1 and reads >= 1 and writes + reads == launched
+    assert paired == (launched if burst_grouping.table()[n][2] >= 2 else 0)
     cut = lambda k: BatchFISTAConfig(max_iter=k, check_every=25, rel_gap_tol=0.0, **kw)
     straight = fista_vmem.fista_gram_vmem(gb, cut(150))
     _, mid = fista_vmem.fista_gram_vmem(gb, cut(50), return_state=True)

@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+import burst_grouping
 from fastoptsolver_tpu.batch.fista_gram import BatchFISTAConfig as JaxConfig
 from fastoptsolver_tpu.batch.fista_gram import GramBatch as JaxGramBatch
 from fastoptsolver_tpu.kernels import fista_vmem as jvmem
@@ -293,7 +294,8 @@ class _CudaShaped(torch.Tensor):
 def launches(monkeypatch):
     """Each burst launch's ``(S, slab_ready)``, recorded by a stand-in for
     ``_launch_burst`` that runs the twin on plain tensors; the slab's size
-    from the C rule's lanes at n = 20 (32 a CTA) and n² floats a lane."""
+    from 32 lanes a CTA and n² floats a lane, and the CTAs an SM holds at
+    n = 20 from the C rule (two)."""
     calls = []
 
     def launch(*args, S=None, slab_ready=False, **kw):
@@ -304,6 +306,7 @@ def launches(monkeypatch):
 
     monkeypatch.setattr(tvmem, "_launch_burst", launch)
     monkeypatch.setattr(tvmem, "slab_floats", lambda n, lanes: -(-lanes // 32) * 32 * n * n)
+    monkeypatch.setattr(tvmem, "ctas_per_sm", lambda n, device: 2)
     return calls
 
 
@@ -365,3 +368,42 @@ def test_resumed_solve_writes_its_own_slab(grams, launches):
     assert launches == [(S1, False), (S1, True), (S2, False), (S2, True), (S2, True)]
     assert S2 is not S1
     assert torch.equal(resumed.x, straight.x)
+
+
+@pytest.mark.parametrize("ctas", [2, 1], ids=["paired", "alone"])
+def test_paired_launches_count_on_the_kernel_route(grams, launches, monkeypatch, ctas):
+    """``burst_paired_launches`` counts every launch of a solve on the
+    kernel's route (four bursts, then a one-burst fixed run) where an SM
+    holds two of the kernel's CTAs at Q's width, and none where it holds
+    one; the card is asked once a solve, at n = 20; the twin's route counts
+    nothing."""
+    _, gbt = grams["lasso"]
+    asked = []
+    monkeypatch.setattr(tvmem, "ctas_per_sm",
+                        lambda n, device: asked.append(n) or ctas)
+    gb = dataclasses.replace(gbt, Q=gbt.Q.as_subclass(_CudaShaped))
+    before = counters()["burst_paired_launches"]
+    tvmem.fista_gram_vmem(gb, tvmem.BatchFISTAConfig(max_iter=100, check_every=25,
+                                                     rel_gap_tol=0.0))
+    tvmem.fista_gram_vmem(gb, tvmem.BatchFISTAConfig(max_iter=100, check_every=0))
+    assert len(launches) == 5 and asked == [N, N]
+    paired = counters()["burst_paired_launches"] - before
+    assert paired == (len(launches) if ctas >= 2 else 0)
+    tvmem.fista_gram_vmem(gbt, tvmem.BatchFISTAConfig(max_iter=100, check_every=25))
+    assert counters()["burst_paired_launches"] - before == paired and len(asked) == 2
+
+
+def test_burst_grouping_table_follows_its_rule():
+    """The table of widths in ``csrc/fista_burst.cu``'s note covers n =
+    1..104 and gives at each n the block's lanes, the group and the CTAs an
+    SM that the note's rule gives; the SM never holds fewer lanes than one
+    CTA of the block's lanes, and two CTAs exactly where the group is half
+    of them."""
+    table = burst_grouping.table()
+    assert sorted(table) == list(range(1, tvmem.MAX_N + 1))
+    for n, (G0, G, ctas) in table.items():
+        assert G0 == burst_grouping.block_group(n), n
+        assert G == burst_grouping.group(n), n
+        assert ctas == burst_grouping.sm_ctas(n, G), n
+        assert G * ctas >= G0 * burst_grouping.sm_ctas(n, G0), n
+        assert (ctas == 2) == (2 * G == G0), n
