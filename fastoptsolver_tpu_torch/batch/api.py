@@ -1,6 +1,6 @@
 """The routed batched-lasso surface and the stacked single-problem solves
 (port of ``fastoptsolver_tpu/batch/api.py``: ``_kernel_route``,
-``solve_gram_batch``, ``solve_lasso_batch``, ``_resume_lasso_batch``,
+``solve_gram_batch``, ``solve_lasso_batch`` with its resume dispatch,
 ``_solve_resident_routed``, ``_build_gram_routed``, and ``stack_problems``,
 ``batch_lipschitz``, ``solve_batch``).
 
@@ -71,12 +71,12 @@ def _default_cfg() -> BatchFISTAConfig:
 def _not_on_kernel_reason(interpret: bool, on_cuda: bool):
     """None when the kernel route can run here, else why not; raises for
     ``interpret=True`` with a CUDA tensor."""
-    if interpret and on_cuda:
-        raise ValueError("interpret=True runs the plain twin on a CPU tensor; "
-                         "A is a CUDA tensor")
-    if on_cuda or interpret:
+    if interpret:
+        from ..kernels._build import refuse_interpret
+
+        refuse_interpret(interpret, on_cuda)
         return None
-    return "not a CUDA tensor (pass interpret=True to run the plain twins)"
+    return None if on_cuda else "not a CUDA tensor (pass interpret=True to run the plain twins)"
 
 
 def _kernel_route(n: int, cfg, backend: str, interpret: bool, on_cuda: bool):
@@ -104,6 +104,35 @@ def _kernel_route(n: int, cfg, backend: str, interpret: bool, on_cuda: bool):
     return False, reason
 
 
+def _state_engine(state0, backend: str, fused_ok: bool = True) -> str:
+    """The engine ``state0`` pins by its type, named as :func:`_lasso_route`
+    names it: ``"resident"`` for a ``ResidentSolveState``, ``"gram"`` (the
+    burst or Q-streaming engine) for a ``VmemSolveState``, ``"fused"`` for a
+    ``FusedSolveState`` unless not ``fused_ok`` (a Gram cannot resume the
+    fused engine, which builds its own), ``"driver"`` for a ``BatchState``.
+    Raises ``ValueError`` for the backend that engine cannot take and
+    ``TypeError`` for any other state."""
+    from ..kernels import FusedSolveState, ResidentSolveState, VmemSolveState
+
+    engines = {ResidentSolveState: "resident", VmemSolveState: "gram",
+               FusedSolveState: "fused", BatchState: "driver"}
+    if not fused_ok:
+        del engines[FusedSolveState]
+    engine = next((e for cls, e in engines.items() if isinstance(state0, cls)), None)
+    if engine is None:
+        *names, last = (cls.__name__ for cls in engines)
+        raise TypeError(f"state0 must be a {', '.join(names)} or {last}; got "
+                        f"{type(state0).__name__}")
+    if engine == "driver" and backend == "kernel":
+        raise ValueError("state0 is a torch-driver BatchState; it cannot resume "
+                         "on backend='kernel'")
+    if engine != "driver" and backend == "xla":
+        raise ValueError(f"state0 is a kernel-path {type(state0).__name__}; it "
+                         "cannot resume on backend='xla' (the torch driver's "
+                         "trajectory differs)")
+    return engine
+
+
 def solve_gram_batch(gb, cfg=None, backend: str = "auto",
                      interpret: bool = False, state0=None,
                      return_state: bool = False,
@@ -127,21 +156,22 @@ def solve_gram_batch(gb, cfg=None, backend: str = "auto",
     ``_RESIDENT_EST_L_ITERS`` = 96). A fresh solve forwards it to the
     resident engine and refuses it on any other route (the reference ignores
     it there, and a sentinel L then runs with τ = t_init)."""
-    from ..kernels.fista_vmem import VmemSolveState, fista_gram_vmem, plan_gram_solve
-    from ..kernels.resident import ResidentSolveState, fista_gram_resident
+    from ..kernels.fista_vmem import fista_gram_vmem, plan_gram_solve
+    from ..kernels.resident import fista_gram_resident
 
     if cfg is None:
         cfg = _default_cfg()
     on_cuda = gb.Q.is_cuda
     if state0 is not None:
-        if isinstance(state0, ResidentSolveState):
-            if backend == "xla":
-                raise ValueError("state0 is a ResidentSolveState; it cannot "
-                                 "resume on backend='xla'")
-            reason = _not_on_kernel_reason(interpret, on_cuda)
-            if reason is not None:
-                raise ValueError(
-                    f"state0 is a kernel-path ResidentSolveState but {reason}")
+        engine = _state_engine(state0, backend, fused_ok=False)
+        if engine == "driver":
+            return fista_gram_batch(gb, cfg, state0=state0,
+                                    return_state=return_state)
+        reason = _not_on_kernel_reason(interpret, on_cuda)
+        if reason is not None:
+            raise ValueError(f"state0 is a kernel-path {type(state0).__name__} "
+                             f"but {reason}")
+        if engine == "resident":
             if est_l_iters is None and bool((gb.L == 1.0).all()):
                 # the reference's guard (batch/api.py:137-149): an
                 # estimate_l=False Gram carries L = 1 on every lane, and τ =
@@ -154,30 +184,8 @@ def solve_gram_batch(gb, cfg=None, backend: str = "auto",
             return fista_gram_resident(gb, cfg, interpret=interpret,
                                        state0=state0, est_l_iters=est_l_iters,
                                        return_state=return_state)
-        if isinstance(state0, VmemSolveState):
-            if backend == "xla":
-                raise ValueError(
-                    "state0 is a kernel-path VmemSolveState; it cannot resume "
-                    "on backend='xla' (the torch driver's BatchState carries a "
-                    "different trajectory layout)"
-                )
-            reason = _not_on_kernel_reason(interpret, on_cuda)
-            if reason is not None:
-                raise ValueError(f"state0 is a kernel-path VmemSolveState but {reason}")
-            return fista_gram_vmem(gb, cfg, interpret=interpret, state0=state0,
-                                   return_state=return_state)
-        if isinstance(state0, BatchState):
-            if backend == "kernel":
-                raise ValueError(
-                    "state0 is a torch-driver BatchState; it cannot resume "
-                    "on backend='kernel'"
-                )
-            return fista_gram_batch(gb, cfg, state0=state0,
-                                    return_state=return_state)
-        raise TypeError(
-            f"state0 must be a ResidentSolveState, VmemSolveState, or "
-            f"BatchState, got {type(state0).__name__}"
-        )
+        return fista_gram_vmem(gb, cfg, interpret=interpret, state0=state0,
+                               return_state=return_state)
     use_kernel, reason = _kernel_route(gb.dim, cfg, backend, interpret, on_cuda)
     if est_l_iters is not None:
         if not use_kernel or plan_gram_solve(gb.dim, cfg)[0] != "resident":
@@ -302,14 +310,9 @@ def _lasso_route(n: int, m: int, cfg, backend: str, interpret: bool,
     use_kernel, _ = _kernel_route(n, cfg, backend, interpret, on_cuda)
     if not use_kernel:
         return "driver"
-    from ..kernels.fused_solve import _check_fused_cfg, auto_tiles_fused
+    from ..kernels.fused_solve import _fits
 
-    try:
-        _check_fused_cfg(cfg)
-        auto_tiles_fused(n, m)
-    except (NotImplementedError, ValueError):
-        pass
-    else:
+    if _fits(n, m, cfg):
         return "fused"
     from ..kernels.fista_vmem import plan_gram_solve
 
@@ -326,35 +329,38 @@ def _solve_lasso_batch(A, b, alpha1, alpha2, cfg, backend, feature_major, key,
                                           mesh_axis, state0, return_state)
     n = A.shape[0] if feature_major else A.shape[-1]
     if state0 is not None:
-        return _resume_lasso_batch(A, b, alpha1, alpha2, cfg, backend,
-                                   feature_major, key, interpret, state0,
-                                   return_state)
-
-    # route before building: a doomed backend='kernel' call must not first
-    # spend the Gram build
-    with span("fos.route"):
-        route = _lasso_route(n, A.shape[1], cfg, backend, interpret, A.is_cuda)
+        # the state's type pins the engine, whose own guards then decide: a
+        # checkpoint on any other engine would change the trajectory. The
+        # Gram is rebuilt from the same (A, b) by the same route, so only the
+        # solver rows round-trip.
+        route = _state_engine(state0, backend)
+        if route != "driver":
+            _kernel_route(n, cfg, "kernel", interpret, A.is_cuda)
+    else:
+        # route before building: a doomed backend='kernel' call must not
+        # first spend the Gram build
+        with span("fos.route"):
+            route = _lasso_route(n, A.shape[1], cfg, backend, interpret, A.is_cuda)
     if route == "fused":
         from ..kernels.fused_solve import solve_lasso_fused
 
         A_fm, b_fm = _feature_major(A, b, feature_major)
         return solve_lasso_fused(A_fm.contiguous(), b_fm.contiguous(),
-                                 alpha1, alpha2, cfg=cfg,
-                                 interpret=interpret,
-                                 return_state=return_state)
+                                 alpha1, alpha2, cfg=cfg, interpret=interpret,
+                                 state0=state0, return_state=return_state)
     if route == "resident":
         return _solve_resident_routed(A, b, alpha1, alpha2, cfg,
                                       feature_major, key, interpret,
-                                      return_state=return_state)
+                                      state0=state0, return_state=return_state)
     use_kernel = route == "gram"
     gb = _build_gram_routed(A, b, alpha1, alpha2, feature_major, key,
                             interpret, use_kernel)
     if use_kernel:
         from ..kernels.fista_vmem import fista_gram_vmem
 
-        return fista_gram_vmem(gb, cfg, interpret=interpret,
+        return fista_gram_vmem(gb, cfg, interpret=interpret, state0=state0,
                                return_state=return_state)
-    return fista_gram_batch(gb, cfg, return_state=return_state)
+    return fista_gram_batch(gb, cfg, state0=state0, return_state=return_state)
 
 
 def _mesh_state_engine(n: int, m: int, cfg, backend: str, interpret: bool,
@@ -363,7 +369,7 @@ def _mesh_state_engine(n: int, m: int, cfg, backend: str, interpret: bool,
     kernel first, the resident engine in the wide window; raises
     ``NotImplementedError`` (the reference's messages) for anything else."""
     from ..kernels.fista_vmem import plan_gram_solve
-    from ..kernels.fused_solve import _check_fused_cfg, auto_tiles_fused
+    from ..kernels.fused_solve import _fits
 
     if backend not in ("auto", "kernel"):
         # the mesh state path IS a per-lane-k kernel engine; refuse rather
@@ -375,18 +381,15 @@ def _mesh_state_engine(n: int, m: int, cfg, backend: str, interpret: bool,
         )
     try:
         _kernel_route(n, cfg, "kernel", interpret, on_cuda)
-        try:
-            _check_fused_cfg(cfg)
-            auto_tiles_fused(n, m)
+        if _fits(n, m, cfg):
             return "fused"
-        except (ValueError, NotImplementedError):
-            if plan_gram_solve(n, cfg)[0] != "resident":
-                raise NotImplementedError(
-                    "this configuration lands on a scalar-k engine "
-                    "(the burst kernel, qstream, or the torch driver), "
-                    "whose host-sized burst schedule cannot differ per shard"
-                )
-            return "resident"
+        if plan_gram_solve(n, cfg)[0] != "resident":
+            raise NotImplementedError(
+                "this configuration lands on a scalar-k engine "
+                "(the burst kernel, qstream, or the torch driver), "
+                "whose host-sized burst schedule cannot differ per shard"
+            )
+        return "resident"
     except (ValueError, NotImplementedError) as e:
         raise NotImplementedError(
             "mesh-routed checkpoint/resume needs a per-lane-k engine "
@@ -497,64 +500,6 @@ def _solve_lasso_batch_sharded(A, b, alpha1, alpha2, cfg, backend,
         return result
     fin = type(fin)(*(lay.gather(v, -1) for v in fin))
     return (result, fin) if return_state else result
-
-
-def _resume_lasso_batch(A, b, alpha1, alpha2, cfg, backend, feature_major,
-                        key, interpret, state0, return_state):
-    """Resume dispatch for :func:`solve_lasso_batch`: the state type pins the
-    engine. The Gram is rebuilt from the same ``(A, b)`` by the same route,
-    so only the solver rows round-trip."""
-    from ..kernels.fista_vmem import VmemSolveState, fista_gram_vmem
-    from ..kernels.fused_solve import FusedSolveState, solve_lasso_fused
-    from ..kernels.resident import ResidentSolveState
-
-    n = A.shape[0] if feature_major else A.shape[-1]
-    if isinstance(state0, ResidentSolveState):
-        if backend == "xla":
-            raise ValueError("state0 is a ResidentSolveState; it cannot "
-                             "resume on backend='xla'")
-        _kernel_route(n, cfg, "kernel", interpret, A.is_cuda)
-        return _solve_resident_routed(A, b, alpha1, alpha2, cfg, feature_major,
-                                      key, interpret, state0=state0,
-                                      return_state=return_state)
-    if isinstance(state0, FusedSolveState):
-        if backend == "xla":
-            raise ValueError(
-                "state0 is a FusedSolveState; it cannot resume on "
-                "backend='xla' (the driver's trajectory differs)"
-            )
-        # the fused engine's own guards decide; a fused checkpoint on any
-        # other engine would change the trajectory, so they raise
-        _kernel_route(n, cfg, "kernel", interpret, A.is_cuda)
-        A_fm, b_fm = _feature_major(A, b, feature_major)
-        return solve_lasso_fused(A_fm.contiguous(), b_fm.contiguous(), alpha1,
-                                 alpha2, cfg=cfg, interpret=interpret,
-                                 state0=state0, return_state=return_state)
-    if isinstance(state0, VmemSolveState):
-        if backend == "xla":
-            raise ValueError(
-                "state0 is a kernel-path VmemSolveState; it cannot resume "
-                "on backend='xla'"
-            )
-        _kernel_route(n, cfg, "kernel", interpret, A.is_cuda)
-        gb = _build_gram_routed(A, b, alpha1, alpha2, feature_major, key,
-                                interpret, use_kernel=True)
-        return fista_gram_vmem(gb, cfg, interpret=interpret, state0=state0,
-                               return_state=return_state)
-    if isinstance(state0, BatchState):
-        if backend == "kernel":
-            raise ValueError(
-                "state0 is a torch-driver BatchState; it cannot resume on "
-                "backend='kernel'"
-            )
-        gb = _build_gram_routed(A, b, alpha1, alpha2, feature_major, key,
-                                interpret, use_kernel=False)
-        return fista_gram_batch(gb, cfg, state0=state0,
-                                return_state=return_state)
-    raise TypeError(
-        f"state0 must be a FusedSolveState, ResidentSolveState, "
-        f"VmemSolveState, or BatchState; got {type(state0).__name__}"
-    )
 
 
 # ---------------------------------------------------------------------------

@@ -38,18 +38,11 @@ def stream_pass(A: torch.Tensor, b: torch.Tensor,
 def _launch(A: torch.Tensor, b: torch.Tensor, b_tile: int) -> torch.Tensor:
     """Launch ``stream_ceiling`` on the current stream."""
     n, m, B = A.shape
-    for name, t in (("A", A), ("b", b)):
-        if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous float32 CUDA tensor")
+    _build.check_tensors((("A", A), ("b", b)))
     if b.shape != (m, B):
         raise ValueError(f"b {tuple(b.shape)} does not match A {tuple(A.shape)}")
-    lib = _build.library()
     out = torch.empty((B,), dtype=A.dtype, device=A.device)
-    stream = torch.cuda.current_stream(A.device).cuda_stream
-    with torch.cuda.device(A.device):
-        err = lib.stream_ceiling(A.data_ptr(), b.data_ptr(), out.data_ptr(),
-                                 n, m, B, b_tile, stream)
-    _build.check(err, "stream_ceiling")
+    _build.call("stream_ceiling", A.device, A, b, out, n, m, B, b_tile)
     return out
 
 

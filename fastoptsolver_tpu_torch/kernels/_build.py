@@ -9,9 +9,13 @@ library lands in ``fastoptsolver_tpu_torch/_build/`` (listed in
 loads the cached build. Nothing here runs at import: the first wrapper
 that launches a kernel calls :func:`library`.
 
-Pointers and the stream go to the C functions as ``ctypes.c_void_p``; each
-function returns a ``cudaError_t`` (0 = success) that the wrappers check
-with :func:`check`.
+Every launch takes one path into the library: a wrapper checks its tensors
+with :func:`check_tensors`, encodes its momentum mode with
+:func:`mode_args` and calls its entry with :func:`call`, which passes each
+tensor as its data pointer and the current stream as ``ctypes.c_void_p``
+and raises on the ``cudaError_t`` it returns (0 = success) with
+:func:`check`. :func:`refuse_interpret` is the one rule that sends a CPU
+tensor, never a CUDA one, to the plain twins.
 """
 from __future__ import annotations
 
@@ -23,6 +27,8 @@ import subprocess
 import tempfile
 import time
 from pathlib import Path
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 # source -> extra flags. --fmad=false keeps nvcc from contracting a*b + c into
@@ -199,3 +205,48 @@ def check(err: int, what: str) -> None:
     if err != 0:
         name = library().fos_cuda_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({name}) at launch")
+
+
+def check_tensors(floats, ints=()) -> None:
+    """Raise unless each ``(name, tensor)`` of ``floats`` is a contiguous
+    float32 CUDA tensor and each of ``ints`` a contiguous int32 one, all on
+    the device of the first: the kernels read them through raw pointers."""
+    anchor, first = floats[0]
+    for dtype, named in ((torch.float32, floats), (torch.int32, ints)):
+        for name, v in named:
+            if (not isinstance(v, torch.Tensor) or not v.is_cuda or v.dtype != dtype
+                    or not v.is_contiguous()):
+                raise ValueError(f"{name} must be a contiguous "
+                                 f"{str(dtype).removeprefix('torch.')} CUDA tensor")
+            if v.device != first.device:
+                raise ValueError(f"{name} is on {v.device}, {anchor} on {first.device}")
+
+
+def mode_args(restart_threshold, greedy, armijo):
+    """The momentum mode as the C entries read it: ``(mode, restart,
+    greedy_S, greedy_shrink, armijo_c, armijo_eta, max_backtracks)``, mode 0
+    the fixed β table, 1 adaptive restart, 2 greedy; a mode's unused values
+    are zero."""
+    mode = 2 if greedy is not None else (0 if restart_threshold is None else 1)
+    S, shrink = greedy if greedy is not None else (0.0, 0.0)
+    C, eta, max_bt = armijo if armijo is not None else (0.0, 0.0, 0)
+    return mode, float(restart_threshold or 0.0), S, shrink, C, eta, max_bt
+
+
+def call(name: str, device, *args) -> None:
+    """Call the C entry ``name`` on ``device``'s current stream: each tensor
+    goes as its data pointer, None as a null pointer, anything else as it
+    is. Raises on the CUDA error the entry returns."""
+    args = [v.data_ptr() if isinstance(v, torch.Tensor) else v for v in args]
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = getattr(library(), name)(*args, stream)
+    check(err, name)
+
+
+def refuse_interpret(interpret: bool, on_cuda: bool) -> None:
+    """``interpret=True`` asks for the plain twins, which run on a CPU
+    tensor: raise when it comes with a CUDA one."""
+    if interpret and on_cuda:
+        raise ValueError("interpret=True runs the plain twin on a CPU tensor; "
+                         "the input is a CUDA tensor")

@@ -118,6 +118,91 @@ def _beta_table(k_end: int, cfg: BatchFISTAConfig) -> torch.Tensor:
     return momentum_betas(0, k_end, 1.0, cfg)[0]
 
 
+def _schedule(cfg, state0):
+    """``(k0, chunk, n_bursts)``: a solve's first iteration, its burst
+    length and its number of bursts (at most; the certified loop may exit
+    early)."""
+    k0 = int(state0.k) if state0 is not None else 0
+    remaining = max(cfg.max_iter - k0, 0)
+    chunk = cfg.check_every if cfg.check_every > 0 else max(remaining, 1)
+    return k0, chunk, -(-remaining // chunk)
+
+
+class SolvePlan(NamedTuple):
+    """What an engine takes from its config, derived once by
+    :func:`_solve_plan` for the fused, resident, burst and Q-streaming
+    engines alike."""
+
+    k0: int  # the first iteration: a burst engine's resumed k, else 0
+    chunk: int  # iterations a burst, and between two certificates
+    n_bursts: int  # bursts at most
+    k_end: int  # k0 + n_bursts·chunk, the iteration ceiling
+    tol: float
+    t_init: float  # τ·L at the start: greedy_xi under greedy, else t_init_factor
+    restart_threshold: float | None  # None unless adaptive restart
+    greedy: tuple | None  # (S, shrink) under greedy momentum
+    armijo: tuple | None  # :func:`_armijo_static`
+    betas: torch.Tensor  # the β table on the device, one chunk past k_end
+
+    def static(self) -> dict:
+        """The static arguments of the per-lane-k engines (fused, resident)."""
+        return dict(chunk=self.chunk, k_end=self.k_end, tol=self.tol,
+                    t_init=self.t_init, restart_threshold=self.restart_threshold,
+                    greedy=self.greedy, armijo=self.armijo)
+
+
+def _solve_plan(cfg: BatchFISTAConfig, device, state0=None) -> SolvePlan:
+    """The one rule from ``cfg`` to an engine's plan: :func:`_schedule`
+    (from ``state0``'s k on a burst engine; a per-lane-k engine passes
+    none), the momentum mode and the β table, copied to ``device`` once a
+    call. The table runs one chunk past ``k_end``: a resumed per-lane tile
+    may start off the burst grid."""
+    k0, chunk, n_bursts = _schedule(cfg, state0)
+    k_end = k0 + n_bursts * chunk
+    greedy = ((cfg.greedy_S, cfg.greedy_shrink) if cfg.momentum == "greedy"
+              else None)
+    betas = _beta_table(k_end + chunk, cfg)
+    # a copy from pageable memory waits for the stream: behind a Gram build,
+    # this is where the host first waits for the card
+    with span("fos.sync"):
+        betas = betas.to(device)
+    return SolvePlan(
+        k0=k0, chunk=chunk, n_bursts=n_bursts, k_end=k_end, tol=cfg.rel_gap_tol,
+        # greedy starts from the overshoot ξ/L (the reference's step_factor)
+        t_init=cfg.greedy_xi if greedy is not None else cfg.t_init_factor,
+        restart_threshold=cfg.restart_threshold if cfg.adaptive_restart else None,
+        greedy=greedy, armijo=_armijo_static(cfg), betas=betas)
+
+
+def _state_rows(state0, B: int, device, dtype):
+    """A per-lane-k engine's checkpoint as its runs' 9-tuple: planes
+    ``(n, B)`` and rows ``(1, B)`` on ``device``, contiguous (the twins'
+    sums follow the layout, and a resumed run must add in the order of the
+    run it continues)."""
+    mv = lambda v, dt=dtype: v.to(device=device, dtype=dt).reshape(-1, B).contiguous()
+    return (mv(state0.X), mv(state0.Y), mv(state0.t), mv(state0.ps),
+            mv(state0.tau), mv(state0.k, torch.int32), mv(state0.done, torch.bool),
+            mv(state0.iters, torch.int32), mv(state0.gap))
+
+
+def _certified_result(out, tol: float, state_type=None):
+    """The ``BatchResult`` of a per-lane-k engine's run from its 9-tuple
+    ``(X, Y, t, ps, tau, k, done, iters, gap)`` (rows ``(B,)`` from a kernel,
+    ``(1, B)`` from a twin), and with ``state_type`` its checkpoint."""
+    X, Y, t, ps, tv, k, done, iters, gap = out
+    done, iters, gap = done.reshape(-1) > 0, iters.reshape(-1), gap.reshape(-1)
+    failed = ~torch.all(torch.isfinite(X), dim=0)
+    result = BatchResult(x=X.T, iters=iters, rel_gap=gap,
+                         n_iters_total=torch.max(iters),
+                         converged=done & (gap <= tol) & ~failed, failed=failed)
+    if state_type is None:
+        return result
+    row = lambda v: v.reshape(1, -1)
+    return result, state_type(X=X, Y=Y, t=row(t), ps=row(ps), tau=row(tv),
+                              k=k.reshape(-1).to(torch.int32), done=done,
+                              iters=iters, gap=gap)
+
+
 def auto_b_tile(n_pad: int, vmem_budget_bytes: int = 12 * 1024 * 1024) -> int:
     """The reference's lane tile for the burst engine: the largest multiple
     of 128 lanes, clamped to [128, 1024], whose double-buffered Q tile fits
@@ -235,6 +320,33 @@ def ctas_per_sm(n: int, device: torch.device) -> int:
     return got
 
 
+def _burst_args(kernel: str, max_n: int, betas, k0, Q, c, X, Y, rows, taumin, extra, *,
+                n_steps, restart_threshold, greedy, armijo):
+    """The checks of both burst kernels' wrappers (``fista_burst``,
+    ``qstream_burst``; the kernel named by ``kernel`` takes ``n ≤ max_n``):
+    ``rows``, ``(name, row)`` pairs of one value a lane, with ``taumin``
+    under greedy, and ``extra`` tensors are float32 CUDA tensors on Q's
+    device, the fixed modes' β table covers the burst. Returns
+    :func:`_build.mode_args`."""
+    n, B = c.shape
+    if greedy is not None:
+        rows += (("taumin", taumin),)
+    _build.check_tensors((("Q", Q), ("c", c), ("X", X), ("Y", Y), ("betas", betas))
+                         + rows + extra)
+    if Q.shape != (n, n, B) or X.shape != (n, B) or Y.shape != (n, B):
+        raise ValueError(f"shapes do not match: Q {tuple(Q.shape)}, c {(n, B)}, "
+                         f"X {tuple(X.shape)}, Y {tuple(Y.shape)}")
+    for name, v in rows:
+        if v.numel() != B:
+            raise ValueError(f"{name} must hold {B} lanes, got {tuple(v.shape)}")
+    if not 1 <= n <= max_n:
+        raise ValueError(f"the {kernel} kernel takes n = 1..{max_n}, got n={n}")
+    args = _build.mode_args(restart_threshold, greedy, armijo)
+    if args[0] == 0 and betas.numel() < k0 + n_steps:
+        raise ValueError("the β table is shorter than k0 + n_steps")
+    return args
+
+
 @launch("burst")
 def _launch_burst(betas, k0, Q, c, tau, thr, a2, a1, btb, X, Y, t, ps,
                   taumin=None, tauv=None, *, n_steps, with_gap=False,
@@ -249,53 +361,24 @@ def _launch_burst(betas, k0, Q, c, tau, thr, a2, a1, btb, X, Y, t, ps,
     ``slab_ready`` the launch reads them from ``S``, which an earlier launch
     on the same Q wrote; without, it gathers them from Q and stores them to
     ``S``. With no slab it gathers and stores nothing."""
-    n, B = c.shape
+    if S is None and slab_ready:
+        raise ValueError("slab_ready needs the slab S")
     rows = (("tau", tau), ("thr", thr), ("a2", a2), ("a1", a1), ("btb", btb),
             ("t", t), ("ps", ps), ("tauv", tauv))
-    tensors = (("Q", Q), ("c", c), ("X", X), ("Y", Y), ("betas", betas)) + rows
-    if greedy is not None:
-        tensors += (("taumin", taumin),)
-    if S is not None:
-        tensors += (("S", S),)
-    elif slab_ready:
-        raise ValueError("slab_ready needs the slab S")
-    for name, v in tensors:
-        if (not isinstance(v, torch.Tensor) or not v.is_cuda
-                or v.dtype != torch.float32 or not v.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous float32 CUDA tensor")
-        if v.device != Q.device:
-            raise ValueError(f"{name} is on {v.device}, Q on {Q.device}")
-    if Q.shape != (n, n, B) or X.shape != (n, B) or Y.shape != (n, B):
-        raise ValueError(f"shapes do not match: Q {tuple(Q.shape)}, c {(n, B)}, "
-                         f"X {tuple(X.shape)}, Y {tuple(Y.shape)}")
-    for name, v in rows + ((("taumin", taumin),) if greedy is not None else ()):
-        if v.numel() != B:
-            raise ValueError(f"{name} must hold {B} lanes, got {tuple(v.shape)}")
-    if not 1 <= n <= MAX_N:
-        raise ValueError(f"the burst kernel takes n = 1..{MAX_N}, got n={n}")
+    mode, restart, gS, shrink, C, eta, max_bt = _burst_args(
+        "burst", MAX_N, betas, k0, Q, c, X, Y, rows, taumin, () if S is None else (("S", S),),
+        n_steps=n_steps, restart_threshold=restart_threshold, greedy=greedy, armijo=armijo)
+    n, B = c.shape
     if S is not None and S.numel() != slab_floats(n, B):
         raise ValueError(f"S must hold {slab_floats(n, B)} floats, got {S.numel()}")
-    fixed = greedy is None and restart_threshold is None
-    if fixed and betas.numel() < k0 + n_steps:
-        raise ValueError("the β table is shorter than k0 + n_steps")
-    mode = 2 if greedy is not None else (0 if fixed else 1)
-    gS, shrink = greedy if greedy is not None else (0.0, 0.0)
-    C, eta, max_bt = armijo if armijo is not None else (0.0, 0.0, 0)
-    lib = _build.library()
     Xo, Yo = torch.empty_like(X), torch.empty_like(Y)
     to, pso, tauvo, gap = (torch.empty_like(tau) for _ in range(4))
-    ptr = lambda v: None if v is None else v.data_ptr()
-    stream = torch.cuda.current_stream(Q.device).cuda_stream
-    with torch.cuda.device(Q.device):
-        err = lib.fista_burst(
-            *(ptr(v) for v in (Q, S, c, tau, thr, a2, a1, btb, X, Y, t, ps,
-                               taumin if greedy is not None else None, tauv,
-                               betas, Xo, Yo, to, pso, tauvo, gap)),
-            n, B, n_steps, k0, mode, int(armijo is not None), int(with_gap),
-            0 if S is None else 2 if slab_ready else 1,
-            float(restart_threshold or 0.0), gS, shrink, C, eta, max_bt, stream,
-        )
-    _build.check(err, "fista_burst")
+    _build.call(
+        "fista_burst", Q.device, Q, S, c, tau, thr, a2, a1, btb, X, Y, t, ps,
+        taumin if greedy is not None else None, tauv, betas, Xo, Yo, to, pso,
+        tauvo, gap, n, B, n_steps, k0, mode, int(armijo is not None),
+        int(with_gap), 0 if S is None else 2 if slab_ready else 1, restart, gS,
+        shrink, C, eta, max_bt)
     return Xo, Yo, to, pso, tauvo, gap
 
 
@@ -333,14 +416,13 @@ def make_burst(Q: torch.Tensor, n_bursts: int):
     return burst
 
 
-def _solve_on_device(burst, betas, Q, c, btb, alpha1, a2v, tau, thr, a2,
-                     taumin, state0, *, chunk, n_bursts, tol, certify,
-                     restart_threshold=None, greedy=None, k0: int = 0,
-                     armijo=None, early_exit: bool = True) -> VmemSolveState:
-    """The certified solve: bursts of ``chunk`` iterations with the gap
-    check between them, until every lane is certified or ``k0 + n_bursts ·
-    chunk`` iterations have run. One host sync before each burst reads the
-    count of lanes not yet certified (``fos.sync``; the counters
+def _solve_on_device(burst, plan: SolvePlan, Q, c, btb, alpha1, a2v, tau, thr,
+                     a2, taumin, state0, *, certify,
+                     early_exit: bool = True) -> VmemSolveState:
+    """The certified solve: bursts of ``plan.chunk`` iterations with the
+    gap check between them, until every lane is certified or
+    ``plan.k_end`` iterations have run. One host sync before each burst
+    reads the count of lanes not yet certified (``fos.sync``; the counters
     ``burst_lanes``/``burst_lanes_live`` add it up); ``early_exit=False``
     runs every burst and reads nothing. ``state0`` resumes a run exactly:
     the fixed modes index the β table at absolute iterations, the others
@@ -348,6 +430,7 @@ def _solve_on_device(burst, betas, Q, c, btb, alpha1, a2v, tau, thr, a2,
     the certification record."""
     with span("fos.burst_loop"):
         n, B = c.shape
+        k, chunk, greedy, tol = plan.k0, plan.chunk, plan.greedy, plan.tol
         a1row, btbrow = alpha1[None, :], btb[None, :]
         if state0 is None:
             z = lambda *s: torch.zeros(s, dtype=c.dtype, device=c.device)
@@ -362,17 +445,16 @@ def _solve_on_device(burst, betas, Q, c, btb, alpha1, a2v, tau, thr, a2,
             mv = lambda v: v.to(device=c.device).contiguous()
             X, Y, t, ps, tv = (mv(v).to(c.dtype) for v in state0[:5])
             done, iters, gap = mv(state0.done), mv(state0.iters), mv(state0.gap)
-        k = k0
 
         def step(X, Y, t, ps, tv, with_gap):
-            return burst(betas, k, Q, c, tau, thr, a2, a1row, btbrow, X, Y, t, ps,
-                         taumin, tv, n_steps=chunk, with_gap=with_gap,
-                         restart_threshold=restart_threshold, greedy=greedy,
-                         armijo=armijo)
+            return burst(plan.betas, k, Q, c, tau, thr, a2, a1row, btbrow, X, Y, t,
+                         ps, taumin, tv, n_steps=chunk, with_gap=with_gap,
+                         restart_threshold=plan.restart_threshold, greedy=greedy,
+                         armijo=plan.armijo)
 
-        if certify and n_bursts > 0:
+        if certify and plan.n_bursts > 0:
             inf = torch.full_like(gap, float("inf"))
-            while k < k0 + n_bursts * chunk:
+            while k < plan.k_end:
                 if early_exit:
                     with span("fos.sync"):
                         n_live = B - int(done.sum())
@@ -399,7 +481,7 @@ def _solve_on_device(burst, betas, Q, c, btb, alpha1, a2v, tau, thr, a2,
         else:
             # fixed-iteration runs and zero-burst resumes: certify the carried
             # iterate afterwards
-            for _ in range(n_bursts):
+            for _ in range(plan.n_bursts):
                 count("bursts")
                 X, Y, t, ps, tv, _ = step(X, Y, t, ps, tv, False)
                 k += chunk
@@ -412,31 +494,21 @@ def _solve_on_device(burst, betas, Q, c, btb, alpha1, a2v, tau, thr, a2,
                               iters=iters, gap=gap)
 
 
-def _pad_and_solve(burst, betas, Q, c, btb, alpha1, alpha2, L, state0, *,
-                   chunk, n_bursts, tol, certify, t_init_factor,
-                   restart_threshold=None, greedy=None, k0: int = 0,
-                   armijo=None, early_exit: bool = True):
-    """The per-lane rows (τ = t_init_factor/L, threshold τα₁, α₂, the greedy
-    floor 1/L), the solve and the result, as the reference's function of
-    this name; lanes need no padding here (the kernel masks its ragged
-    CTA). Returns ``(BatchResult, VmemSolveState)``."""
+def _pad_and_solve(burst, plan: SolvePlan, Q, c, btb, alpha1, alpha2, L, state0,
+                   *, certify, early_exit: bool = True):
+    """The per-lane rows (τ = t_init/L, threshold τα₁, α₂, the greedy floor
+    1/L), the solve and the result, as the reference's function of this
+    name; lanes need no padding here (the kernel masks its ragged CTA).
+    Returns ``(BatchResult, VmemSolveState)``."""
     with span("fos.plan"):
         Q, c, btb, alpha1, alpha2, L = (v.contiguous() for v in (Q, c, btb, alpha1,
                                                                 alpha2, L))
-        tau = (t_init_factor / L)[None, :]
+        tau = (plan.t_init / L)[None, :]
         thr = tau * alpha1[None, :]
         a2 = alpha2[None, :]
         taumin = (1.0 / L)[None, :]
-        # a copy from pageable memory waits for the stream: behind the Gram
-        # build, this is where the host first waits for the card
-        with span("fos.sync"):
-            betas = betas.to(Q.device)
-    fin = _solve_on_device(
-        burst, betas, Q, c, btb, alpha1, alpha2, tau, thr, a2,
-        taumin, state0, chunk=chunk, n_bursts=n_bursts, tol=tol,
-        certify=certify, restart_threshold=restart_threshold, greedy=greedy,
-        k0=k0, armijo=armijo, early_exit=early_exit,
-    )
+    fin = _solve_on_device(burst, plan, Q, c, btb, alpha1, alpha2, tau, thr, a2,
+                           taumin, state0, certify=certify, early_exit=early_exit)
     with span("fos.result"):
         failed = ~torch.all(torch.isfinite(fin.X), dim=0)
         result = BatchResult(x=fin.X.T, iters=fin.iters, rel_gap=fin.gap,
@@ -445,31 +517,12 @@ def _pad_and_solve(burst, betas, Q, c, btb, alpha1, alpha2, L, state0, *,
     return result, fin
 
 
-def _schedule(cfg, state0):
-    """``(k0, chunk, n_bursts)``: a solve's first iteration, its burst
-    length and its number of bursts (at most; the certified loop may exit
-    early)."""
-    k0 = int(state0.k) if state0 is not None else 0
-    remaining = max(cfg.max_iter - k0, 0)
-    chunk = cfg.check_every if cfg.check_every > 0 else max(remaining, 1)
-    return k0, chunk, -(-remaining // chunk)
-
-
 def _solve(burst, gb, cfg, state0, return_state):
-    k0, chunk, n_bursts = _schedule(cfg, state0)
-    certify = cfg.check_every > 0
-    greedy = ((cfg.greedy_S, cfg.greedy_shrink) if cfg.momentum == "greedy"
-              else None)
     with span("fos.plan"):
-        betas = _beta_table(max(k0 + n_bursts * chunk, 1), cfg)
-    result, fin = _pad_and_solve(
-        burst, betas, gb.Q, gb.c,
-        gb.btb, gb.alpha1, gb.alpha2, gb.L, state0, chunk=chunk,
-        n_bursts=n_bursts, tol=cfg.rel_gap_tol, certify=certify,
-        t_init_factor=cfg.greedy_xi if greedy is not None else cfg.t_init_factor,
-        restart_threshold=cfg.restart_threshold if cfg.adaptive_restart else None,
-        greedy=greedy, k0=k0, armijo=_armijo_static(cfg),
-    )
+        plan = _solve_plan(cfg, gb.Q.device, state0)
+    result, fin = _pad_and_solve(burst, plan, gb.Q, gb.c, gb.btb, gb.alpha1,
+                                 gb.alpha2, gb.L, state0,
+                                 certify=cfg.check_every > 0)
     return (result, fin) if return_state else result
 
 
@@ -535,9 +588,7 @@ def fista_gram_vmem(
     Q-streaming engine, as in the reference. ``b_tile`` selects nothing (no
     lane of the burst engines depends on another)."""
     del b_tile
-    if gb.Q.is_cuda and interpret:
-        raise ValueError("interpret=True runs the plain twin on a CPU tensor; "
-                         "the GramBatch is on a CUDA device")
+    _build.refuse_interpret(interpret, gb.Q.is_cuda)
     return _dispatch(gb, cfg, state0, return_state, twin=False)
 
 
@@ -570,26 +621,16 @@ def fista_gram_vmem_sharded(
     Q, c, btb, a1, a2, L = (lay.take(v, -1, fill) for v, fill in (
         (gb.Q, 0.0), (gb.c, 0.0), (gb.btb, 0.0), (gb.alpha1, 0.0), (gb.alpha2, 0.0),
         (gb.L, 1.0)))
-    if Q.is_cuda and interpret:
-        raise ValueError("interpret=True runs the plain twin on a CPU tensor; "
-                         "the GramBatch is on a CUDA device")
-    certify = cfg.check_every > 0
-    chunk = cfg.check_every if certify else cfg.max_iter
-    n_bursts = -(-cfg.max_iter // chunk)
-    greedy = ((cfg.greedy_S, cfg.greedy_shrink) if cfg.momentum == "greedy"
-              else None)
-    res, _ = _pad_and_solve(
-        make_burst(Q, n_bursts), _beta_table(n_bursts * chunk, cfg), Q, c, btb, a1,
-        a2, L, None, chunk=chunk, n_bursts=n_bursts, tol=cfg.rel_gap_tol, certify=certify,
-        t_init_factor=cfg.greedy_xi if greedy is not None else cfg.t_init_factor,
-        restart_threshold=cfg.restart_threshold if cfg.adaptive_restart else None,
-        greedy=greedy, armijo=_armijo_static(cfg), early_exit=False,
-    )
+    _build.refuse_interpret(interpret, Q.is_cuda)
+    with span("fos.plan"):
+        plan = _solve_plan(cfg, Q.device)
+    res, _ = _pad_and_solve(make_burst(Q, plan.n_bursts), plan, Q, c, btb, a1, a2, L,
+                            None, certify=cfg.check_every > 0, early_exit=False)
     x = lay.gather(res.x, 0)
     failed = ~torch.all(torch.isfinite(x), dim=1)
     return BatchResult(
         x=x, iters=lay.gather(res.iters), rel_gap=lay.gather(res.rel_gap),
-        n_iters_total=torch.tensor(n_bursts * chunk, dtype=torch.int32),
+        n_iters_total=torch.tensor(plan.k_end, dtype=torch.int32),
         converged=lay.gather(res.converged) & ~failed, failed=failed)
 
 
@@ -616,10 +657,8 @@ def fista_gram_vmem_adaptive(
     if cfg.check_every <= 0:
         raise ValueError("adaptive kernel needs check_every > 0")
     auto_b_tile(_round_up(max(gb.c.shape[0], SUBLANE), SUBLANE))
+    _build.refuse_interpret(interpret, gb.Q.is_cuda)
     if gb.Q.is_cuda:
-        if interpret:
-            raise ValueError("interpret=True runs the plain twin on a CPU "
-                             "tensor; the GramBatch is on a CUDA device")
         if b_tile is not None:
             raise ValueError("on a CUDA tensor the resident kernel sets its "
                              "own grouping; b_tile must be None")

@@ -25,7 +25,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..batch.fista_gram import BatchFISTAConfig, BatchResult, _lane_vector
+from ..batch.fista_gram import BatchFISTAConfig, _lane_vector
 from ..utils.profiling import launch, span
 from . import _build
 from ._common import (
@@ -35,7 +35,7 @@ from ._common import (
     make_matvec,
     power_lambda_max,
 )
-from .fista_vmem import _armijo_static, _beta_table, _check_kernel_cfg
+from .fista_vmem import _certified_result, _check_kernel_cfg, _solve_plan, _state_rows
 from .gram_build import _round_up
 
 # Feature counts the CUDA template is instantiated for (csrc/fused_solve.cu).
@@ -81,6 +81,17 @@ def _check_fused_cfg(cfg: BatchFISTAConfig, overlap: bool = False) -> None:
             "check_every > 0; fixed-iteration runs take the burst engine "
             "(fista_vmem) or the torch driver"
         )
+
+
+def _fits(n: int, m: int, cfg: BatchFISTAConfig) -> bool:
+    """Whether the fused kernel takes ``(n, m, cfg)``: its config guard and
+    its feature window both pass (the router's first question)."""
+    try:
+        _check_fused_cfg(cfg)
+        auto_tiles_fused(n, m)
+    except (NotImplementedError, ValueError):
+        return False
+    return True
 
 
 def auto_tiles_fused(n: int, m: int):
@@ -161,26 +172,21 @@ def _launch(A, b, a1, a2, betas, state0=None, *, b_tile: int, pl_iters: int,
     ``with_state``). Raises on any input the kernel does not take and on a
     launch error."""
     n, m, B = A.shape
-    f32 = [("A", A), ("b", b), ("alpha1", a1), ("alpha2", a2), ("betas", betas)]
-    ints = []
+    floats = [("A", A), ("b", b), ("alpha1", a1), ("alpha2", a2), ("betas", betas)]
+    ints, ins = [], (None,) * 9
     if state0 is not None:
         X0, Y0, t0, ps0, tv0, k0, d0, it0, g0 = state0
         d0 = d0.to(torch.int32)  # the kernel reads the done row as int32
-        state0 = (X0, Y0, t0, ps0, tv0, k0, d0, it0, g0)
-        f32 += list(zip(("X0", "Y0", "t0", "ps0", "tau0", "gap0"),
-                        (X0, Y0, t0, ps0, tv0, g0)))
+        ins = (X0, Y0, t0, ps0, tv0, k0, d0, it0, g0)
+        floats += zip(("X0", "Y0", "t0", "ps0", "tau0", "gap0"),
+                      (X0, Y0, t0, ps0, tv0, g0))
         ints = list(zip(("k0", "done0", "iters0"), (k0, d0, it0)))
-    for name, t, dtype in ([(a, v, torch.float32) for a, v in f32]
-                           + [(a, v, torch.int32) for a, v in ints]):
-        if not t.is_cuda or t.dtype != dtype or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous {dtype} CUDA tensor")
-        if t.device != A.device:
-            raise ValueError(f"{name} is on {t.device}, A on {A.device}")
+    _build.check_tensors(floats, ints)
     if b.shape != (m, B) or a1.shape != (B,) or a2.shape != (B,):
         raise ValueError(f"shapes do not match A {tuple(A.shape)}: b "
                          f"{tuple(b.shape)}, alpha {tuple(a1.shape)}")
-    if state0 is not None and (state0[0].shape != (n, B) or state0[1].shape != (n, B)
-                               or any(v.numel() != B for v in state0[2:])):
+    if state0 is not None and (X0.shape != (n, B) or Y0.shape != (n, B)
+                               or any(v.numel() != B for v in ins[2:])):
         raise ValueError(f"the state's shapes do not match A {tuple(A.shape)}")
     if not 1 <= n <= MAX_N:
         raise ValueError(f"the fused CUDA kernel is instantiated for "
@@ -191,26 +197,16 @@ def _launch(A, b, a1, a2, betas, state0=None, *, b_tile: int, pl_iters: int,
         raise ValueError("the β table is shorter than k_end + chunk")
     if greedy is not None and armijo is not None:
         raise ValueError("the fused kernel has no greedy mode with Armijo")
-    mode = 2 if greedy is not None else (0 if restart_threshold is None else 1)
-    S, shrink = greedy if greedy is not None else (0.0, 0.0)
-    C, eta, max_bt = armijo if armijo is not None else (0.0, 0.0, 0)
-    lib = _build.library()
+    mode, restart, S, shrink, C, eta, max_bt = _build.mode_args(
+        restart_threshold, greedy, armijo)
     f = lambda *s: torch.empty(s, dtype=torch.float32, device=A.device)
     i32 = lambda: torch.empty((B,), dtype=torch.int32, device=A.device)
     X, iters, gap, done = f(n, B), i32(), f(B), i32()
     out = (f(n, B), f(B), f(B), f(B), i32()) if with_state else (None,) * 5
-    ins = (None,) * 9 if state0 is None else state0
-    ptr = lambda v: None if v is None else v.data_ptr()
-    stream = torch.cuda.current_stream(A.device).cuda_stream
-    with torch.cuda.device(A.device):
-        err = lib.fused_lasso_solve(
-            *(ptr(v) for v in (A, b, a1, a2, betas, *ins, X, iters, gap, done,
-                               *out)),
-            n, m, B, b_tile, pl_iters, l_safety, t_init, chunk, k_end, tol,
-            mode, int(armijo is not None), float(restart_threshold or 0.0),
-            S, shrink, C, eta, max_bt, stream,
-        )
-    _build.check(err, "fused_lasso_solve")
+    _build.call(
+        "fused_lasso_solve", A.device, A, b, a1, a2, betas, *ins, X, iters, gap,
+        done, *out, n, m, B, b_tile, pl_iters, l_safety, t_init, chunk, k_end,
+        tol, mode, int(armijo is not None), restart, S, shrink, C, eta, max_bt)
     Y, t, ps, tv, k = out
     return X, Y, t, ps, tv, k, done, iters, gap
 
@@ -222,45 +218,15 @@ def _plan(A, alpha1, alpha2, cfg, pl_iters, l_safety, b_tile) -> dict:
         raise ValueError("A must be (n, m, B)")
     n, m, B = A.shape
     auto_bt, _ = auto_tiles_fused(n, m)
-    chunk = cfg.check_every
-    # k_end is the absolute iteration ceiling (max_iter rounded up to a
-    # burst); a resumed tile continues from its own k, which may lie off
-    # this run's burst grid: one chunk of slack in the β table
-    k_end = -(-cfg.max_iter // chunk) * chunk
-    greedy = ((cfg.greedy_S, cfg.greedy_shrink) if cfg.momentum == "greedy"
-              else None)
     a1, a2 = _lane_vector(alpha1, B, A), _lane_vector(alpha2, B, A)
-    betas = _beta_table(k_end + chunk, cfg)
-    with span("fos.sync"):  # a copy from host memory waits for the stream
-        betas = betas.to(A.device)
+    plan = _solve_plan(cfg, A.device)
     return dict(
-        a1=a1, a2=a2, betas=betas,
+        a1=a1, a2=a2, betas=plan.betas,
         # a tile never spans more than the batch, rounded as the reference rounds
         b_tile=min(auto_bt if b_tile is None else b_tile, _round_up(B, 128)),
         pl_iters=(32 if n <= 7 else 96) if pl_iters is None else pl_iters,
-        l_safety=l_safety,
-        # greedy starts from the overshoot ξ/L (the reference's step_factor)
-        t_init=cfg.greedy_xi if greedy is not None else cfg.t_init_factor,
-        chunk=chunk, k_end=k_end, tol=cfg.rel_gap_tol,
-        restart_threshold=cfg.restart_threshold if cfg.adaptive_restart else None,
-        greedy=greedy, armijo=_armijo_static(cfg),
+        l_safety=l_safety, **plan.static(),
     )
-
-
-def _state_rows(state0, A):
-    """A :class:`FusedSolveState` as the runs' 9-tuple: planes ``(n, B)``
-    and rows ``(1, B)`` on A's device, contiguous (the twin's sums follow the
-    layout, and a resumed run must add in the order of the run it
-    continues)."""
-    if not isinstance(state0, FusedSolveState):
-        raise TypeError(f"state0 must be a FusedSolveState, got "
-                        f"{type(state0).__name__} (convert.fused_state_from_numpy "
-                        "takes the reference's)")
-    B = A.shape[2]
-    mv = lambda v, dt=A.dtype: v.to(device=A.device, dtype=dt).reshape(-1, B).contiguous()
-    return (mv(state0.X), mv(state0.Y), mv(state0.t), mv(state0.ps),
-            mv(state0.tau), mv(state0.k, torch.int32), mv(state0.done, torch.bool),
-            mv(state0.iters, torch.int32), mv(state0.gap))
 
 
 def _solve(run, A, b, alpha1, alpha2, cfg, pl_iters, l_safety, b_tile,
@@ -271,29 +237,18 @@ def _solve(run, A, b, alpha1, alpha2, cfg, pl_iters, l_safety, b_tile,
         plan = _plan(A, alpha1, alpha2, cfg, pl_iters, l_safety, b_tile)
         rows = None
         if state0 is not None:
-            rows = _state_rows(state0, A)
+            if not isinstance(state0, FusedSolveState):
+                raise TypeError(f"state0 must be a FusedSolveState, got "
+                                f"{type(state0).__name__} (convert."
+                                "fused_state_from_numpy takes the reference's)")
+            rows = _state_rows(state0, A.shape[2], A.device, A.dtype)
             # k is read once per lane tile: a checkpoint cut under another
             # grouping would resume a whole tile from its first lane's k
             assert_tile_k_uniform(rows[5], A.shape[2], plan["b_tile"])
-    X, Y, t, ps, tv, k, done, iters, gap = run(A, b, state0=rows,
-                                               with_state=return_state, **plan)
+    out = run(A, b, state0=rows, with_state=return_state, **plan)
     with span("fos.result"):
-        done, iters, gap = done.reshape(-1) > 0, iters.reshape(-1), gap.reshape(-1)
-        failed = ~torch.all(torch.isfinite(X), dim=0)
-        result = BatchResult(
-            x=X.T,
-            iters=iters,
-            rel_gap=gap,
-            n_iters_total=torch.max(iters),
-            converged=done & (gap <= cfg.rel_gap_tol) & ~failed,
-            failed=failed,
-        )
-        if not return_state:
-            return result
-        row = lambda v: v.reshape(1, -1)
-        return result, FusedSolveState(
-            X=X, Y=Y, t=row(t), ps=row(ps), tau=row(tv),
-            k=k.reshape(-1).to(torch.int32), done=done, iters=iters, gap=gap)
+        return _certified_result(out, cfg.rel_gap_tol,
+                                 FusedSolveState if return_state else None)
 
 
 _DEFAULT_CFG = BatchFISTAConfig(max_iter=1000, check_every=25, rel_gap_tol=1e-6)
@@ -355,9 +310,7 @@ def solve_lasso_fused(
             "the overlap variant's solver state lives in per-column "
             "scratch and cannot round-trip (pass overlap=False/None)"
         )
-    if A.is_cuda and interpret:
-        raise ValueError("interpret=True runs the plain twin on a CPU tensor; "
-                         "A is a CUDA tensor")
+    _build.refuse_interpret(interpret, A.is_cuda)
     run = _launch if A.is_cuda else _plain_run
     return _solve(run, A, b, alpha1, alpha2, cfg, pl_iters, l_safety, b_tile,
                   state0, return_state)

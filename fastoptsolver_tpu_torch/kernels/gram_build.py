@@ -145,22 +145,14 @@ def _launch(A: torch.Tensor, b: torch.Tensor, pl_iters: int):
 def _launch_pairs(A: torch.Tensor, b: torch.Tensor):
     """``(Q, c, btb)`` from ``gram_pairs`` on the current stream."""
     n, m, B = A.shape
-    for name, t in (("A", A), ("b", b)):
-        if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous float32 CUDA tensor")
-    if b.device != A.device or b.shape != (m, B):
-        raise ValueError(f"b {tuple(b.shape)} on {b.device} does not match A "
-                         f"{tuple(A.shape)} on {A.device}")
+    _build.check_tensors((("A", A), ("b", b)))
+    if b.shape != (m, B):
+        raise ValueError(f"b {tuple(b.shape)} does not match A {tuple(A.shape)}")
     _auto_tiles(n, m)
-    lib = _build.library()
     Q = torch.empty((n, n, B), dtype=A.dtype, device=A.device)
     c = torch.empty((n, B), dtype=A.dtype, device=A.device)
     btb = torch.empty((B,), dtype=A.dtype, device=A.device)
-    stream = torch.cuda.current_stream(A.device).cuda_stream
-    with torch.cuda.device(A.device):
-        err = lib.gram_pairs(A.data_ptr(), b.data_ptr(), Q.data_ptr(),
-                             c.data_ptr(), btb.data_ptr(), n, m, B, stream)
-        _build.check(err, "gram_pairs")
+    _build.call("gram_pairs", A.device, A, b, Q, c, btb, n, m, B)
     return Q, c, btb
 
 
@@ -168,13 +160,10 @@ def _launch_pairs(A: torch.Tensor, b: torch.Tensor):
 def _launch_power(Q: torch.Tensor, c: torch.Tensor, pl_iters: int) -> torch.Tensor:
     """λ (B,) from ``gram_power`` on the (n, n, B) Gram and c (n, B) that
     ``gram_pairs`` wrote, on the current stream."""
+    _build.check_tensors((("Q", Q), ("c", c)))
     n, _, B = Q.shape
     lam = torch.empty((B,), dtype=Q.dtype, device=Q.device)
-    with torch.cuda.device(Q.device):
-        err = _build.library().gram_power(
-            Q.data_ptr(), c.data_ptr(), lam.data_ptr(), n, B, pl_iters,
-            torch.cuda.current_stream(Q.device).cuda_stream)
-        _build.check(err, "gram_power")
+    _build.call("gram_power", Q.device, Q, c, lam, n, B, pl_iters)
     return lam
 
 
@@ -205,9 +194,7 @@ def make_gram_batch_fused(
     _auto_tiles(n, m)
     if pl_iters is None:
         pl_iters = 32 if n <= 7 else 96
-    if A.is_cuda and interpret:
-        raise ValueError("interpret=True runs the plain twin on a CPU tensor; "
-                         "A is a CUDA tensor")
+    _build.refuse_interpret(interpret, A.is_cuda)
     run = _launch if A.is_cuda else gram_build_reference
     Q, c, btb, lam = run(A, b, pl_iters)
     a1 = _lane_vector(alpha1, B, A)

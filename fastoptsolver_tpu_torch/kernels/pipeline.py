@@ -40,19 +40,13 @@ def solve_pipeline_sharded(
     lanes a rank (padded lanes have Q = c = 0 and certify at once); the
     results are gathered to every rank."""
     from ..parallel.lanes import LaneLayout
-    from .fused_solve import _check_fused_cfg, auto_tiles_fused, solve_lasso_fused
+    from .fused_solve import _fits, solve_lasso_fused
 
     n, m, B = A.shape
     lay = LaneLayout(mesh, axis, B, max(b_tile_build, LANE))
     A_blk, b_blk = lay.take(A), lay.take(b)
     a1, a2 = lay.take_vector(alpha1, A_blk), lay.take_vector(alpha2, A_blk)
-    try:
-        _check_fused_cfg(cfg)
-        auto_tiles_fused(n, m)
-        single_launch = True
-    except (NotImplementedError, ValueError):
-        single_launch = False
-    if single_launch:
+    if _fits(n, m, cfg):
         res = solve_lasso_fused(A_blk, b_blk, a1, a2, cfg=cfg, interpret=interpret)
     else:
         gb = make_gram_batch_fused(A_blk, b_blk, a1, a2, b_tile=b_tile_build,

@@ -29,7 +29,7 @@ import torch
 
 from ..utils.profiling import count, launch, span
 from . import _build
-from .fista_vmem import SUBLANE, _burst_reference
+from .fista_vmem import SUBLANE, _burst_args, _burst_reference
 
 # The kernel's feature window: the reference's qstream plan holds to n_pad = 1016.
 MAX_N = 1016
@@ -122,33 +122,14 @@ def _launch_qstream(betas, k0, Q, c, tau, thr, a2, a1, btb, X, Y, t, ps,
     force a size; 0 is the streaming kernel). The cluster kernel reads
     ``Qt``, :func:`relayout` of Q at that size, made here when not passed."""
     _refuse_armijo(armijo)
-    n, B = c.shape
     rows = (("tau", tau), ("thr", thr), ("a2", a2), ("a1", a1), ("btb", btb),
             ("t", t), ("ps", ps))
-    if greedy is not None:
-        rows += (("taumin", taumin),)
-    for name, v in (("Q", Q), ("c", c), ("X", X), ("Y", Y), ("betas", betas)) + rows:
-        if (not isinstance(v, torch.Tensor) or not v.is_cuda
-                or v.dtype != torch.float32 or not v.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous float32 CUDA tensor")
-        if v.device != Q.device:
-            raise ValueError(f"{name} is on {v.device}, Q on {Q.device}")
-    if Q.shape != (n, n, B) or X.shape != (n, B) or Y.shape != (n, B):
-        raise ValueError(f"shapes do not match: Q {tuple(Q.shape)}, c {(n, B)}, "
-                         f"X {tuple(X.shape)}, Y {tuple(Y.shape)}")
-    for name, v in rows:
-        if v.numel() != B:
-            raise ValueError(f"{name} must hold {B} lanes, got {tuple(v.shape)}")
-    if not 1 <= n <= MAX_N:
-        raise ValueError(f"the qstream kernel takes n = 1..{MAX_N}, got n={n}")
-    fixed = greedy is None and restart_threshold is None
-    if fixed and betas.numel() < k0 + n_steps:
-        raise ValueError("the β table is shorter than k0 + n_steps")
-    mode = 2 if greedy is not None else (0 if fixed else 1)
-    S, shrink = greedy if greedy is not None else (0.0, 0.0)
-    lib = _build.library()
+    mode, restart, S, shrink, *_ = _burst_args(
+        "qstream", MAX_N, betas, k0, Q, c, X, Y, rows, taumin, (), n_steps=n_steps,
+        restart_threshold=restart_threshold, greedy=greedy, armijo=None)
+    n, B = c.shape
     if cluster is None:
-        cluster = lib.qstream_cluster_size(n)
+        cluster = cluster_size(n)
     if cluster == 0:
         Qt = None
     else:
@@ -161,17 +142,10 @@ def _launch_qstream(betas, k0, Q, c, tau, thr, a2, a1, btb, X, Y, t, ps,
                              f"on {Q.device}, got {tuple(Qt.shape)} on {Qt.device}")
     Xo, Yo = torch.empty_like(X), torch.empty_like(Y)
     to, pso, gap = (torch.empty_like(tau) for _ in range(3))
-    ptr = lambda v: None if v is None else v.data_ptr()
-    stream = torch.cuda.current_stream(Q.device).cuda_stream
-    with torch.cuda.device(Q.device):
-        err = lib.qstream_burst(
-            *(ptr(v) for v in (Q, Qt, c, tau, thr, a2, a1, btb, X, Y, t, ps,
-                               taumin if greedy is not None else None, betas,
-                               Xo, Yo, to, pso, gap)),
-            n, B, n_steps, k0, mode, int(with_gap), cluster,
-            float(restart_threshold or 0.0), S, shrink, stream,
-        )
-    _build.check(err, "qstream_burst")
+    _build.call(
+        "qstream_burst", Q.device, Q, Qt, c, tau, thr, a2, a1, btb, X, Y, t, ps,
+        taumin if greedy is not None else None, betas, Xo, Yo, to, pso, gap,
+        n, B, n_steps, k0, mode, int(with_gap), cluster, restart, S, shrink)
     return Xo, Yo, to, pso, tauv, gap
 
 

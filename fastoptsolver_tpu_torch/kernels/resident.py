@@ -41,7 +41,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..batch.fista_gram import BatchFISTAConfig, BatchResult, GramBatch
+from ..batch.fista_gram import BatchFISTAConfig, GramBatch
 from ..utils.profiling import launch, span
 from . import _build
 from ._common import (
@@ -53,10 +53,11 @@ from ._common import (
 from .fista_vmem import (
     LANE,
     SUBLANE,
-    _armijo_static,
-    _beta_table,
+    _certified_result,
     _check_kernel_cfg,
     _round_up,
+    _solve_plan,
+    _state_rows,
 )
 
 # The window of the engine: the reference's single-buffered VMEM bound.
@@ -185,54 +186,38 @@ def _plain_run(betas, gb, tau, thr, taumin, state0, *, b_tile, chunk, k_end,
 def _launch(betas, gb, tau, thr, taumin, state0, *, b_tile, chunk, k_end,
             tol, restart_threshold, greedy, armijo, est_l_iters, l_safety,
             t_init):
-    """One launch of ``resident_solve`` on the current stream; the same
-    9-tuple as :func:`_plain_run`. Raises on any input the kernel does not
-    take and on a launch error."""
+    """One launch of ``resident_solve`` on the current stream; the 9-tuple
+    of :func:`_plain_run` with rows ``(B,)`` and ``done`` as int32, as the
+    fused kernel's. Raises on any input the kernel does not take and on a
+    launch error."""
     n, B = gb.c.shape
     Q = gb.Q
-    f32 = (("Q", Q), ("c", gb.c), ("tau", tau), ("thr", thr), ("taumin", taumin),
-           ("a1", gb.alpha1), ("a2", gb.alpha2), ("btb", gb.btb),
-           ("betas", betas))
+    floats = (("Q", Q), ("c", gb.c), ("tau", tau), ("thr", thr), ("taumin", taumin),
+              ("a1", gb.alpha1), ("a2", gb.alpha2), ("btb", gb.btb),
+              ("betas", betas))
+    ints, ins = (), (None,) * 9
     if state0 is not None:
         # the kernel reads the done row as int32
-        state0 = (*state0[:6], state0[6].to(torch.int32), *state0[7:])
-        f32 += tuple(zip(("X0", "Y0", "t0", "ps0", "tau0", "gap0"),
-                         (*state0[:5], state0[8])))
-    ints = tuple(zip(("k0", "done0", "iters0"), state0[5:8])) if state0 else ()
-    for name, v, dtype in ([(a, b, torch.float32) for a, b in f32]
-                           + [(a, b, torch.int32) for a, b in ints]):
-        if (not isinstance(v, torch.Tensor) or not v.is_cuda or v.dtype != dtype
-                or not v.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous {dtype} CUDA tensor")
-        if v.device != Q.device:
-            raise ValueError(f"{name} is on {v.device}, Q on {Q.device}")
+        ins = (*state0[:6], state0[6].to(torch.int32), *state0[7:])
+        floats += tuple(zip(("X0", "Y0", "t0", "ps0", "tau0", "gap0"),
+                            (*ins[:5], ins[8])))
+        ints = tuple(zip(("k0", "done0", "iters0"), ins[5:8]))
+    _build.check_tensors(floats, ints)
     if Q.shape != (n, n, B):
         raise ValueError(f"Q {tuple(Q.shape)} does not match c {(n, B)}")
     if betas.numel() < k_end + chunk:
         raise ValueError("the β table is shorter than k_end + chunk")
-    mode = 2 if greedy is not None else (0 if restart_threshold is None else 1)
-    S, shrink = greedy if greedy is not None else (0.0, 0.0)
-    C, eta, max_bt = armijo if armijo is not None else (0.0, 0.0, 0)
-    lib = _build.library()
+    mode, restart, S, shrink, C, eta, max_bt = _build.mode_args(
+        restart_threshold, greedy, armijo)
     f = lambda *s: torch.empty(s, dtype=torch.float32, device=Q.device)
     i32 = lambda: torch.empty((B,), dtype=torch.int32, device=Q.device)
     out = (f(n, B), f(n, B), f(B), f(B), f(B), i32(), i32(), i32(), f(B))
-    ins = (None,) * 9 if state0 is None else state0
-    stream = torch.cuda.current_stream(Q.device).cuda_stream
-    ptr = lambda v: None if v is None else v.data_ptr()
-    with torch.cuda.device(Q.device):
-        err = lib.resident_solve(
-            *(ptr(v) for v in (Q, gb.c, tau, thr, gb.alpha2, gb.alpha1, gb.btb,
-                               taumin, betas, *ins, *out)),
-            n, B, b_tile, chunk, k_end, tol, mode, int(armijo is not None),
-            float(restart_threshold or 0.0), S, shrink, C, eta, max_bt,
-            est_l_iters or 0, l_safety, t_init, stream,
-        )
-    _build.check(err, "resident_solve")
-    X, Y, t, ps, tv, k, done, iters, gap = out
-    row = lambda v: v[None, :]
-    return (X, Y, row(t), row(ps), row(tv), row(k), row(done.bool()),
-            row(iters), row(gap))
+    _build.call(
+        "resident_solve", Q.device, Q, gb.c, tau, thr, gb.alpha2, gb.alpha1,
+        gb.btb, taumin, betas, *ins, *out, n, B, b_tile, chunk, k_end, tol, mode,
+        int(armijo is not None), restart, S, shrink, C, eta, max_bt,
+        est_l_iters or 0, l_safety, t_init)
+    return out
 
 
 def _solve(run, gb: GramBatch, cfg: BatchFISTAConfig, state0, return_state,
@@ -258,49 +243,21 @@ def _solve(run, gb: GramBatch, cfg: BatchFISTAConfig, state0, return_state,
     # must add in the order of the run it continues
     gb = GramBatch(*(v.contiguous() for v in (gb.Q, gb.c, gb.btb, gb.alpha1,
                                               gb.alpha2, gb.L)))
-    chunk = cfg.check_every
-    k_end = -(-cfg.max_iter // chunk) * chunk
-    greedy = ((cfg.greedy_S, cfg.greedy_shrink) if cfg.momentum == "greedy"
-              else None)
-    t_init = cfg.greedy_xi if greedy is not None else cfg.t_init_factor
     dev = gb.c.device
     with span("fos.plan"):
-        tau = (t_init / gb.L)[None, :].contiguous()
+        plan = _solve_plan(cfg, dev)
+        tau = (plan.t_init / gb.L)[None, :].contiguous()
         thr = (tau * gb.alpha1[None, :]).contiguous()
         taumin = (1.0 / gb.L)[None, :].contiguous()
         rows = None
         if state0 is not None:
             assert_tile_k_uniform(state0.k, B, b_tile)
-            mv = lambda v, dt=torch.float32: (
-                v.to(device=dev, dtype=dt).reshape(-1, B).contiguous())
-            rows = (mv(state0.X), mv(state0.Y), mv(state0.t), mv(state0.ps),
-                    mv(state0.tau), mv(state0.k, torch.int32),
-                    mv(state0.done, torch.bool), mv(state0.iters, torch.int32),
-                    mv(state0.gap))
-        # a resumed group may start off the burst grid: one chunk of slack;
-        # its copy from pageable memory waits for the stream (the Gram build)
-        betas = _beta_table(k_end + chunk, cfg)
-        with span("fos.sync"):
-            betas = betas.to(dev)
-    X, Y, t, ps, tv, k, done, iters, gap = run(
-        betas, gb, tau, thr, taumin, rows,
-        b_tile=b_tile, chunk=chunk, k_end=k_end, tol=cfg.rel_gap_tol,
-        restart_threshold=cfg.restart_threshold if cfg.adaptive_restart else None,
-        greedy=greedy, armijo=_armijo_static(cfg), est_l_iters=est_l_iters,
-        l_safety=l_safety, t_init=t_init,
-    )
+            rows = _state_rows(state0, B, dev, torch.float32)
+    out = run(plan.betas, gb, tau, thr, taumin, rows, b_tile=b_tile,
+              est_l_iters=est_l_iters, l_safety=l_safety, **plan.static())
     with span("fos.result"):
-        failed = ~torch.all(torch.isfinite(X), dim=0)
-        done, iters, gap = done[0], iters[0], gap[0]
-        result = BatchResult(x=X.T, iters=iters, rel_gap=gap,
-                             n_iters_total=torch.max(iters),
-                             converged=done & (gap <= cfg.rel_gap_tol) & ~failed,
-                             failed=failed)
-        if not return_state:
-            return result
-        return result, ResidentSolveState(X=X, Y=Y, t=t, ps=ps, tau=tv,
-                                          k=k[0].to(torch.int32), done=done,
-                                          iters=iters, gap=gap)
+        return _certified_result(out, cfg.rel_gap_tol,
+                                 ResidentSolveState if return_state else None)
 
 
 def fista_gram_resident_reference(gb: GramBatch, cfg: BatchFISTAConfig = _DEFAULT_CFG,
@@ -339,9 +296,7 @@ def fista_gram_resident(
     ``make_gram_batch(..., estimate_l=False)``. A resumed state needs the
     same ``est_l_iters`` as the run that produced it, and the grouping that
     produced it (the kernel's on a CUDA tensor)."""
-    if gb.Q.is_cuda and interpret:
-        raise ValueError("interpret=True runs the plain twin on a CPU tensor; "
-                         "the GramBatch is on a CUDA device")
+    _build.refuse_interpret(interpret, gb.Q.is_cuda)
     run = _launch if gb.Q.is_cuda else _plain_run
     return _solve(run, gb, cfg, state0, return_state, est_l_iters, l_safety,
                   None)

@@ -407,3 +407,41 @@ def test_burst_grouping_table_follows_its_rule():
         assert ctas == burst_grouping.sm_ctas(n, G), n
         assert G * ctas >= G0 * burst_grouping.sm_ctas(n, G0), n
         assert (ctas == 2) == (2 * G == G0), n
+
+
+@pytest.mark.parametrize("engine", ["per_lane", "burst_resumed", "unchecked"])
+@pytest.mark.parametrize("name", list(FIXED))
+def test_solve_plan_is_the_engines_old_rule(engine, name):
+    """_solve_plan gives each engine what its plan derived inline: the
+    per-lane-k engines' chunk and k_end (max_iter rounded up to a burst),
+    the burst engines' schedule from a resumed k, the sharded schedule at
+    check_every 0 (one burst of max_iter), the mode and the start step
+    (greedy_xi under greedy), and a β table one chunk past k_end whose
+    entries are momentum_betas'."""
+    kw = FIXED[name][0]
+    check_every = 0 if engine == "unchecked" else 25
+    cfg = tvmem.BatchFISTAConfig(max_iter=110, check_every=check_every, **kw)
+    state0 = None
+    if engine == "burst_resumed":
+        state0 = tvmem.VmemSolveState(*([torch.zeros(1)] * 5), torch.tensor(40, dtype=torch.int32),
+                                      *([torch.zeros(1)] * 3))
+    p = tvmem._solve_plan(cfg, torch.device("cpu"), state0)
+    if engine == "per_lane":
+        want = (0, 25, 5, -(-110 // 25) * 25)  # fused_solve._plan, resident._solve
+    elif engine == "burst_resumed":
+        want = (40, 25, 3, 40 + 3 * 25)  # _schedule: ceil(70 / 25) bursts from k = 40
+    else:
+        # a fixed run, and the sharded entry's old chunk = max_iter: one burst
+        want = (0, 110, 1, 110)
+    assert (p.k0, p.chunk, p.n_bursts, p.k_end) == want
+    assert (p.k0, p.chunk, p.n_bursts) == tvmem._schedule(cfg, state0)
+    greedy = cfg.momentum == "greedy"
+    assert p.t_init == (cfg.greedy_xi if greedy else cfg.t_init_factor)
+    assert p.greedy == ((cfg.greedy_S, cfg.greedy_shrink) if greedy else None)
+    assert p.restart_threshold == (cfg.restart_threshold if cfg.adaptive_restart else None)
+    assert p.armijo == tvmem._armijo_static(cfg) and p.tol == cfg.rel_gap_tol
+    assert p.betas.numel() == p.k_end + p.chunk
+    assert torch.equal(p.betas, tvmem.momentum_betas(0, p.k_end + p.chunk, 1.0, cfg)[0])
+    assert p.static() == dict(chunk=p.chunk, k_end=p.k_end, tol=p.tol, t_init=p.t_init,
+                              restart_threshold=p.restart_threshold, greedy=p.greedy,
+                              armijo=p.armijo)
