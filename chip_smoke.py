@@ -105,7 +105,8 @@ Phases, one line each (``--`` lines are detail):
    floor; and two splits, a one-step launch after 96 power steps and 1000
    steps in every group (tol 0), as µs a CTA-step;
 8. Q-streaming path — n=256, m=512, B=7552: the einsum build with its power
-   loop and one Q-streaming launch per burst, nothing else; at least 75%
+   estimate (one launch of the power kernel, ``csrc/lipschitz.cu``) and one
+   Q-streaming launch per burst, nothing else; at least 75%
    certified (the JAX driver: 82%); then the routed call, the engine's solve
    alone (the re-layout and the launches), the twin and the kernel on the
    first 1920 lanes, held as in phase 6, and the torch driver; then the
@@ -115,7 +116,12 @@ Phases, one line each (``--`` lines are detail):
    copy-in; both medians of 5), the matvecs' shared-memory read rate, the
    bursts at each cluster size 2, 4 and 8 (medians of 3), and the streaming
    kernel forced at n = 256 against the cluster kernel in turns (old, new,
-   new, old), their bursts held bit-identical.
+   new, old), their bursts held bit-identical. Between the checks and the
+   times, the power kernel on the routed Gram (``power_kernel_path``): its
+   100-step history against the plain twin's at every step, the route's
+   stop and L against the eager loop's, then its launch, copy-in, route,
+   twin and loop timed, and two batches where the loop takes fewer steps
+   than the kernel runs (an early stop; ``power_iters`` 20).
 9. fused modes path — the bench configuration through ``solve_lasso_batch``
    in adaptive restart, greedy, Armijo (table-β) and Armijo with restart:
    one fused launch and nothing else per call, no lane failed, the certified
@@ -254,7 +260,12 @@ the build's ``power_group_lanes``, ``power_smem_bytes``,
 ``smem_floor_ms`` and the adaptive entry's phase-3 times
 (``adaptive_entry``); the Q-streaming entry its ``cluster_size``,
 ``smem_bytes``, ``active_clusters``, ``q_bytes_per_launch``, ``copy_in_ms``,
-``relayout_ms`` and phase 8's other splits; the fused entry's
+``relayout_ms`` and phase 8's other splits; the power kernel's entry
+(``lipschitz_power``, phase 8) its history's ``max_abs_err``,
+``max_rel_err`` and ``first_step_rel_err`` against the twin, ``library_ms``
+the eager loop it replaced, ``e2e_ms`` the route with its one read,
+``copy_in_ms``, ``smem_floor_ms``, ``cluster_size``, ``early_stop`` and
+``power_iters_20``; the fused entry's
 ``modes`` holds phase 9's times; the burst entry's ``cv`` phase 10's
 launches, holds and times, its ``estimators`` phase 12's CV part and the
 entry's ``launches`` phase 12's bursts too; the fused, build, burst and
@@ -280,6 +291,7 @@ GRAM_SRC = "fastoptsolver_tpu_torch/kernels/csrc/gram_build.cu"
 BURST_SRC = "fastoptsolver_tpu_torch/kernels/csrc/fista_burst.cu"
 RESIDENT_SRC = "fastoptsolver_tpu_torch/kernels/csrc/resident.cu"
 QSTREAM_SRC = "fastoptsolver_tpu_torch/kernels/csrc/qstream.cu"
+LIPSCHITZ_SRC = "fastoptsolver_tpu_torch/kernels/csrc/lipschitz.cu"
 SMALL_SHAPES = ((5, 250, 390), (1, 64, 128), (8, 333, 300))
 BATCH = 262144  # the bench configuration's instances (bench.py:88)
 # the last has B % 4 != 0: gram_pairs' 4-byte copies beside its 16-byte ones
@@ -312,6 +324,9 @@ POWER_LIB_LANES = 1024
 W1_N, W2_N = 128, 256
 W1_B = int(2e9 / (W1_N * W1_N * 4)) // 128 * 128  # 30464
 W2_B = int(2e9 / (W2_N * W2_N * 4)) // 128 * 128  # 7552
+# phase 8: the power kernel's history against its twin's, and its L against the
+# eager loop's, relative (each feature summed in another order, with FMAs)
+POWER_HOLD = 1e-5
 # phase 10: cv_lasso at the shape of UCI's YearPredictionMSD regression (515,345
 # rows × 90 features) with the reference's defaults: 5 folds × 50 alphas, 300 lanes
 CV_M, CV_N, CV_FOLDS, CV_ALPHAS = 515345, 90, 5, 50
@@ -1444,6 +1459,12 @@ def qstream_path(dev, cfg, mods) -> dict:
     bursts = int(res.n_iters_total) // cfg.check_every
     require(counts == dict(counts, qstream=bursts) and sum(counts.values()) == bursts,
             f"qstream path: launches {counts} (want qstream {bursts} = bursts, every other 0)")
+    from fastoptsolver_tpu_torch.utils.profiling import counters
+
+    power = {k: counters()[k] for k in ("launches.lipschitz", "power_steps")}
+    require(power["launches.lipschitz"] == 1 and power["power_steps"] > 0,
+            f"qstream path: the precompute's power estimate {power} (want one launch of "
+            "its kernel)")
     chk = check_wide(res, A, b, a1, 0.75, "qstream path")
     # Q read once, c and the rows; every lane runs every burst
     bnd = bound(4 * (n * n * B + n * B + 6 * B + 2 * n * B + 4 * B),
@@ -1452,12 +1473,14 @@ def qstream_path(dev, cfg, mods) -> dict:
     res_g = solve_gram_batch(gb, cfg)
     require(bool(torch.equal(res_g.x, res.x)),
             "solve_gram_batch on the built Gram gives another x than solve_lasso_batch")
-    print(f"[8 qstream path] n={n} m={2 * n} B={B}: launches {counts} = bursts {bursts} | "
+    print(f"[8 qstream path] n={n} m={2 * n} B={B}: launches {counts} = bursts {bursts}, "
+          f"the power kernel {power['launches.lipschitz']} ({power['power_steps']} steps) | "
           f"certified {chk['certified']}/{B}, failed {chk['failed']}, max rel_gap "
           f"{chk['max_gap']:.3e} ({chk['gap_ok']:.3e} on certified lanes), f64 recheck max "
           f"rel_gap {chk['gap64']:.3e} on 4096 lanes | solve_gram_batch x equal | iters "
           f"median {chk['iters_median']} max {chk['iters_max']}")
     del res, res_g
+    power_out = power_kernel_path(dev, gb, power["launches.lipschitz"])
     routed_ms, routed_trials, _ = med_ms(lambda: solve_lasso_batch(A, b, a1, 0.0, cfg=cfg,
                                                                    feature_major=True))
     del A, b
@@ -1552,7 +1575,103 @@ def qstream_path(dev, cfg, mods) -> dict:
                 relayout_ms=relayout_ms, launches_only_ms=launches_ms,
                 smem_read_gbps=smem_gbps, q_sum_gbps=q_gb / read_ms * 1e3,
                 bursts_ms_by_cluster_size=by_size, streaming_ms=[ab[0], ab[3]],
-                cluster_ms=[ab[1], ab[2]], dx_small=dx)
+                cluster_ms=[ab[1], ab[2]], dx_small=dx, power=power_out)
+
+
+def power_kernel_path(dev, gb, launches: int) -> dict:
+    """Phase 8's power kernel on the routed Gram ``gb`` (n = 256, B = 7552,
+    as ``make_gram_batch`` leaves it) from the precompute's own start (the
+    generator seeded 0): its 100-step history held to the plain twin's at
+    every step (≤ ``POWER_HOLD`` relative), the route's L equal to the
+    history's row at its stop and within ``POWER_HOLD`` of the eager loop's
+    L with the same step count; then medians of 5 of the launch, a one-step
+    launch (the copy-in), the route (launch, stop, read), the twin and the
+    loop it replaced; and two batches where the loop needs fewer steps than
+    the kernel runs: Grams with a dominant eigenvalue at tol 1e-4 (the loop
+    stops early) and ``power_iters`` 20 (``bench/scaling.py``'s), kernel
+    route against loop in turns (loop, kernel, kernel, loop)."""
+    import torch
+
+    from fastoptsolver_tpu_torch.batch.fista_gram import _power_loop
+    from fastoptsolver_tpu_torch.kernels import lipschitz
+    from fastoptsolver_tpu_torch.utils.profiling import counters
+
+    n, _, B = gb.Q.shape
+    steps = 100
+    v0 = torch.randn((n, B), generator=torch.Generator(device=dev).manual_seed(0), device=dev)
+    hist = lipschitz._launch(gb.Q, v0, steps)
+    ref = lipschitz.power_history_reference(gb.Q, v0, steps)
+    err = (hist - ref).abs()
+    max_abs, max_rel = float(err.max()), float((err / ref.abs()).max())
+    first_rel = float((err[0] / ref[0].abs()).max())
+    require(max_rel <= POWER_HOLD,
+            f"power kernel: its history differs from the twin's by {max_rel:.3e} relative "
+            f"(step 1: {first_rel:.3e}; hold {POWER_HOLD})")
+
+    def stop_and_L(fn, *args):
+        zero_counts()
+        L = fn(*args)
+        torch.cuda.synchronize()
+        return counters()["power_steps"], L
+
+    k_loop, L_loop = stop_and_L(_power_loop, gb.Q, v0, steps, 1e-6)
+    k_route, L_route = stop_and_L(lipschitz.power_L, gb.Q, v0, steps, 1e-6)
+    rel_loop = float(((L_route - L_loop).abs() / L_loop.abs()).max())
+    require(k_route == k_loop and bool(torch.equal(L_route, hist[k_route - 1]))
+            and bool(torch.equal(gb.L, L_route + gb.alpha2)) and rel_loop <= POWER_HOLD,
+            f"power kernel: the route's {k_route} steps and L (against the loop's {k_loop} "
+            f"steps: {rel_loop:.3e} relative; hold {POWER_HOLD}) are not the history's row "
+            "or the precompute's L")
+    del ref, err
+    kernel_ms, kernel_trials, _ = med_ms(lambda: lipschitz._launch(gb.Q, v0, steps), 5)
+    copy_ms, _, _ = med_ms(lambda: lipschitz._launch(gb.Q, v0, 1), 5)
+    route_ms, _, _ = med_ms(lambda: lipschitz.power_L(gb.Q, v0, steps, 1e-6), 5)
+    plain_ms, _, _ = med_ms(lambda: lipschitz.power_history_reference(gb.Q, v0, steps), 5)
+    loop_ms, loop_trials, _ = med_ms(lambda: _power_loop(gb.Q, v0, steps, 1e-6), 5)
+    bnd = bound(4 * (n * n * B + n * B + steps * B), 2 * n * n * B * steps)
+    floor_ms = smem_floor_ms(steps * n * n * B * 4)
+    C = lipschitz.cluster_size(n)
+
+    def turns(Q, n_iter, tol):
+        """(loop ms, kernel route ms, loop steps, route steps) in turns."""
+        t = [med_ms(lambda f=f: f(Q, v0, n_iter, tol), 3)[0]
+             for f in (_power_loop, lipschitz.power_L, lipschitz.power_L, _power_loop)]
+        k_l, _ = stop_and_L(_power_loop, Q, v0, n_iter, tol)
+        k_k, _ = stop_and_L(lipschitz.power_L, Q, v0, n_iter, tol)
+        return dict(loop_ms=[t[0], t[3]], kernel_ms=[t[1], t[2]], steps=k_l,
+                    kernel_steps=k_k, n_iter=n_iter, tol=tol)
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    As = torch.randn((B, 2 * n, n), generator=g, device=dev) / n ** 0.5
+    As += 2.0 * torch.randn((B, 2 * n, 1), generator=g, device=dev) / n ** 0.5
+    Qs = torch.einsum("bmi,bmj->ijb", As, As) / (8.0 * n)
+    del As
+    early = turns(Qs, steps, 1e-4)
+    del Qs
+    torch.cuda.empty_cache()
+    short = turns(gb.Q, 20, 1e-6)
+    zero_counts()
+    print(f"[8 power kernel] n={n} B={B}: C = {C} CTAs a lane; {steps}-step history against "
+          f"the twin's: max rel {max_rel:.3e} (step 1 {first_rel:.3e}), max abs {max_abs:.3e}; "
+          f"the route {k_route} steps as the loop's {k_loop}, L within {rel_loop:.3e} of it "
+          f"| launch {kernel_ms:.3f} ms (trials {[round(x, 3) for x in kernel_trials]}), a "
+          f"one-step launch (the copy-in) {copy_ms:.3f}, the route with its read "
+          f"{route_ms:.3f}, the twin {plain_ms:.3f}, the eager loop {loop_ms:.3f} (trials "
+          f"{[round(x, 3) for x in loop_trials]})")
+    print(f"-- power kernel bound {bnd[0]:.3f} ms by {bnd[1]}; shared-memory floor "
+          f"{floor_ms:.3f} ms for {steps * n * n * B * 4 / 1e9:.1f} GB of slab reads | fewer "
+          f"steps than the kernel runs, loop against kernel route in turns (loop, kernel, "
+          f"kernel, loop): a dominant eigenvalue at tol 1e-4, {early['steps']} of "
+          f"{steps} steps (the route's stop {early['kernel_steps']}): {early['loop_ms'][0]:.3f}, {early['kernel_ms'][0]:.3f}, "
+          f"{early['kernel_ms'][1]:.3f}, {early['loop_ms'][1]:.3f} ms; power_iters 20 on the "
+          f"routed Gram ({short['steps']} steps): {short['loop_ms'][0]:.3f}, "
+          f"{short['kernel_ms'][0]:.3f}, {short['kernel_ms'][1]:.3f}, "
+          f"{short['loop_ms'][1]:.3f} ms")
+    return dict(launches=launches, max_abs_err=max_abs, max_rel_err=max_rel,
+                first_step_rel_err=first_rel, steps=k_route, ms=kernel_ms, plain_ms=plain_ms,
+                library_ms=loop_ms, e2e_ms=route_ms, copy_in_ms=copy_ms, bound_ms=bnd[0],
+                bound_by=bnd[1], smem_floor_ms=floor_ms, cluster_size=C, early_stop=early,
+                power_iters_20=short)
 
 
 def fused_bound(A, res, cfg, extra_per_step: int = 0):
@@ -4393,6 +4512,11 @@ def main() -> int:
              "q_bytes_per_launch", "copy_in_ms", "relayout_ms", "launches_only_ms",
              "smem_read_gbps", "q_sum_gbps", "bursts_ms_by_cluster_size", "streaming_ms",
              "cluster_ms")}},
+        {"name": "lipschitz_power", "route": "cuda", "source": LIPSCHITZ_SRC,
+         "replaces": "none: the XLA loop fastoptsolver_tpu/batch/fista_gram.py:66",
+         "library": "the eager loop batch/fista_gram._power_loop (a batched cuBLAS gemv "
+                    "and a host read a step)",
+         **w2["power"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(smi)

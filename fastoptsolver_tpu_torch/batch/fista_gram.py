@@ -58,17 +58,31 @@ def _gram_matvec(Q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.einsum("ijb,jb->ib", Q, v)
 
 
-def _batched_power_L(Q: torch.Tensor, v0: torch.Tensor, n_iter: int,
-                     tol: float) -> torch.Tensor:
-    """Per-lane power iteration on (n, n, B) Gram tensors: λ_max(Q) per
-    instance, all instances in lockstep. Stops after ``n_iter`` steps or once
-    every lane's estimate moved by less than ``tol``. Before each step the
-    host reads whether any lane still moves (a ``fos.sync``: it waits for
-    the card); the steps taken add to the ``power_steps`` counter."""
-    def norm(v):
-        return torch.sqrt(torch.sum(v * v, dim=0))
+def _norm(v: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt(torch.sum(v * v, dim=0))
 
-    v = v0 / torch.clamp_min(norm(v0), 1e-30)
+
+def _power_start(v0: torch.Tensor) -> torch.Tensor:
+    """The power iteration's first iterate: v0 / max(‖v0‖, 1e-30) per lane."""
+    return v0 / torch.clamp_min(_norm(v0), 1e-30)
+
+
+def _power_step(Q: torch.Tensor, v: torch.Tensor):
+    """One power step on every lane: ``(w / max(L, 1e-30), L)``, w = Q v and
+    L = ‖w‖."""
+    w = _gram_matvec(Q, v)
+    L = _norm(w)
+    return w / torch.clamp_min(L, 1e-30), L
+
+
+def _power_loop(Q: torch.Tensor, v0: torch.Tensor, n_iter: int,
+                tol: float) -> torch.Tensor:
+    """Per-lane power iteration on (n, n, B) Gram tensors, all instances in
+    lockstep, in eager torch. Stops after ``n_iter`` steps or once every
+    lane's estimate moved by less than ``tol``. Before each step the host
+    reads whether any lane still moves (a ``fos.sync``: it waits for the
+    card); the steps taken add to the ``power_steps`` counter."""
+    v = _power_start(v0)
     L = torch.zeros(Q.shape[-1], dtype=Q.dtype, device=Q.device)
     prev = torch.full_like(L, float("inf"))
     k = 0
@@ -77,13 +91,39 @@ def _batched_power_L(Q: torch.Tensor, v0: torch.Tensor, n_iter: int,
             moving = bool(torch.any(torch.abs(L - prev) >= tol))
         if not moving:
             break
-        w = _gram_matvec(Q, v)
         prev = L
-        L = norm(w)
-        v = w / torch.clamp_min(L, 1e-30)
+        v, L = _power_step(Q, v)
         k += 1
     count("power_steps", k)
     return L
+
+
+def _power_on_kernel(Q) -> bool:
+    """Whether the estimate takes the CUDA kernel of ``kernels.lipschitz``:
+    a float32 CUDA Q whose width its cluster window holds (the C export
+    ``lipschitz_cluster_size``, n ≤ 664). A CPU tensor, another dtype or a
+    wider Q takes :func:`_power_loop`."""
+    if not (Q.is_cuda and Q.dtype == torch.float32):
+        return False
+    from ..kernels import lipschitz
+
+    return lipschitz.cluster_size(Q.shape[0]) > 0
+
+
+def _batched_power_L(Q: torch.Tensor, v0: torch.Tensor, n_iter: int,
+                     tol: float) -> torch.Tensor:
+    """Per-lane power iteration on (n, n, B) Gram tensors: λ_max(Q) per
+    instance, stopped after ``n_iter`` steps or once every lane's estimate
+    moved by less than ``tol``. On the kernel (:func:`_power_on_kernel`) one
+    launch runs every step with each lane's Gram on chip and the host reads
+    the stopping step once (``kernels.lipschitz.power_L``); elsewhere the
+    eager loop :func:`_power_loop`, one host read a step. Either way the
+    steps taken add to ``power_steps``."""
+    if _power_on_kernel(Q):
+        from ..kernels import lipschitz
+
+        return lipschitz.power_L(Q, v0, n_iter, tol)
+    return _power_loop(Q, v0, n_iter, tol)
 
 
 def _lane_vector(value, B: int, like: torch.Tensor) -> torch.Tensor:
@@ -125,9 +165,9 @@ def make_gram_batch(
 
     Under a profiler the stage is the span ``fos.gram_precompute``, which
     holds ``fos.gram_products`` (the einsums) and ``fos.lipschitz`` (the
-    power iteration, whose host reads are ``fos.sync`` spans); it closes
-    on the estimate's last read, so on the host's clock it is the stage's
-    wall time."""
+    power iteration, whose host reads are ``fos.sync`` spans: one on the
+    kernel, one a step on the loop); it closes on the estimate's last read,
+    so on the host's clock it is the stage's wall time."""
     with span("fos.gram_precompute"):
         if dtype is not None:
             A = A.to(dtype)

@@ -11,6 +11,9 @@
 - ``qstream`` (CUDA ``csrc/qstream.cu``): bursts past the resident window,
   each lane's Q held in a thread-block cluster's shared memory for the burst
   (n ≤ 660), else streamed from device memory at every step;
+- ``lipschitz`` (CUDA ``csrc/lipschitz.cu``): the torch Gram precompute's
+  power estimate of L, every step in one launch with each lane's Gram in a
+  cluster's shared memory (n ≤ 664), one host read for the loop's stop;
 - over a ``torch.distributed`` mesh, per rank on its lanes:
   ``fista_vmem.fista_gram_vmem_sharded`` (the burst engine) and
   ``pipeline.solve_pipeline_sharded`` (the fused kernel, or the build

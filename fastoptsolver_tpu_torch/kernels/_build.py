@@ -33,7 +33,8 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 # source -> extra flags. --fmad=false keeps nvcc from contracting a*b + c into
 # one FMA, so those kernels round each product and each sum as their plain
-# twins do (explicit fmaf() calls stay fused).
+# twins do (explicit fmaf() calls stay fused). lipschitz.cu's estimate has no
+# bit bar and sums with fmaf().
 SOURCES = {
     "fused_solve.cu": (),
     "stream.cu": (),
@@ -41,6 +42,7 @@ SOURCES = {
     "fista_burst.cu": ("--fmad=false",),
     "resident.cu": ("--fmad=false",),
     "qstream.cu": ("--fmad=false",),
+    "lipschitz.cu": (),
 }
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 # No --use_fast_math: τ = 1/L, the norms' sqrt and the gap's divisions must be
@@ -90,6 +92,10 @@ _SIGNATURES = {
     "qstream_cluster_size": [_i],
     "qstream_smem_bytes": [_i, _i],
     "qstream_active_clusters": [_i, _i],
+    # Q, v0, hist, n, B, n_iter, Q's strides (si, sj, sb), cluster, stream
+    "lipschitz_power": [_vp] * 3 + [_i, _ll, _i, _ll, _ll, _ll, _i, _vp],
+    # n: the power kernel's cluster size
+    "lipschitz_cluster_size": [_i],
     # n: the resident kernel's lanes per CTA on the current device
     "resident_group": [_i],
     "gram_pairs_smem_bytes": [],

@@ -114,11 +114,12 @@ SPAN_LIMIT = 1 << 16
 # counts the launches of one hand-written kernel that returned without error
 # (``fused``: fused_lasso_solve; ``gram_pairs``, ``gram_power``: the Gram
 # build; ``burst``: fista_burst; ``resident``; ``qstream``; ``stream``: the
-# read-ceiling pass).
+# read-ceiling pass; ``lipschitz``: the torch precompute's power steps).
 COUNTERS = (
     "calls",  # solve_lasso_batch calls
     "launches.fused", "launches.gram_pairs", "launches.gram_power",
     "launches.burst", "launches.resident", "launches.qstream", "launches.stream",
+    "launches.lipschitz",
     "bursts",  # bursts of the host burst loop, kernels and twins alike
     # the lanes of each burst whose start reads the live count (the
     # early-exit loop), and of those the lanes not yet certified
@@ -129,7 +130,7 @@ COUNTERS = (
     # burst launches at a width where an SM holds two or more of the kernel's
     # CTAs (fista_burst_ctas_per_sm), so one CTA's copy-in runs under another's steps
     "burst_paired_launches",
-    "power_steps",  # matvec steps of the eager Lipschitz estimate (make_gram_batch)
+    "power_steps",  # power steps of make_gram_batch's Lipschitz estimate, up to its stop
     "qstream_relayouts",  # copies of Q into the Q-streaming cluster layout
     "spans_dropped",  # spans past SPAN_LIMIT in one profiler session
 )

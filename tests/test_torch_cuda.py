@@ -2,8 +2,9 @@
 PyTorch twins, on the card (``chip_smoke.py`` phase 3 for pytest users):
 the fused solve, the stream pass, the Gram build, the burst engine (its
 slab route bit for bit against its gather route), the
-resident engine (and the adaptive entry onto it) and the Q-streaming engine
-(its cluster kernel also bit for bit against its streaming kernel); and
+resident engine (and the adaptive entry onto it), the Q-streaming engine
+(its cluster kernel also bit for bit against its streaming kernel) and the
+torch precompute's power kernel against its eager loop; and
 ``bench.verify_tpu``, each kernel against the torch driver (phase 16).
 
 Every test takes the ``cuda`` fixture, which skips when torch sees no CUDA
@@ -22,9 +23,12 @@ import torch
 import burst_grouping
 from fastoptsolver_tpu_torch.batch import BatchFISTAConfig, solve_lasso_batch
 from fastoptsolver_tpu_torch.bench import stream
+from fastoptsolver_tpu_torch.batch import fista_gram
 from fastoptsolver_tpu_torch.batch.fista_gram import make_gram_batch
-from fastoptsolver_tpu_torch.kernels import _build, fista_vmem, fused_solve, gram_build, qstream, resident
+from fastoptsolver_tpu_torch.kernels import (_build, fista_vmem, fused_solve, gram_build,
+                                             lipschitz, qstream, resident)
 from fastoptsolver_tpu_torch.kernels._common import make_matvec, power_lambda_max
+from fastoptsolver_tpu_torch.utils import profiling
 from fastoptsolver_tpu_torch.utils.profiling import counters
 
 pytestmark = pytest.mark.cuda
@@ -674,6 +678,167 @@ def test_qstream_relayouts_once_a_solve_in_the_cluster_window(cuda, n):
         fista_vmem.fista_gram_vmem(gb, cfg)
         assert launches("qstream") > launched
         assert counters()["qstream_relayouts"] - before == (solves if n <= CLUSTER_MAX_N else 0)
+
+
+def _power_gram(n, B, cuda, seed, spiked=False):
+    """Q (n, n, B) as make_gram_batch's einsum leaves it (each lane's Gram
+    contiguous) and a start v0 (n, B), on the card; ``spiked`` adds a common
+    factor to every feature and scales λ to ~1, so the steps settle early."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    A = torch.randn((B, 2 * n, n), generator=g, device=cuda) / n ** 0.5
+    if spiked:
+        A += 2.0 * torch.randn((B, 2 * n, 1), generator=g, device=cuda) / n ** 0.5
+    Q = torch.einsum("bmi,bmj->ijb", A, A)
+    if spiked:
+        Q /= 8.0 * n
+    return Q, torch.randn((n, B), generator=g, device=cuda)
+
+
+def _power_both(Q, v0, n_iter=100, tol=1e-6):
+    """``(L, steps)`` of the eager loop and of the kernel's route."""
+    out = []
+    for fn in (fista_gram._power_loop, lipschitz.power_L):
+        before = counters()["power_steps"]
+        L = fn(Q, v0, n_iter, tol)
+        out.append((L, counters()["power_steps"] - before))
+    return out
+
+
+# lipschitz_cluster_size's last width: 8 CTAs' slabs fit a Hopper block to here
+POWER_TOP = 664
+
+
+def _assert_history_is_the_twins(Q, v0, n_iter=100):
+    """The kernel's ``n_iter``-step history against the plain twin's on the
+    same Q and v0, relative: step 1 of every lane to 1e-5; every step of all
+    but 1% of the lanes to 1e-5; every step of every lane to 1e-3. A start
+    nearly orthogonal to a lane's top eigenvector makes float32 itself
+    ill-conditioned there: the step at which that vector takes over moves
+    with the rounding, and two float32 summation orders of the twin differ
+    on up to 4 lanes in 1003 past 1e-5, by up to 4.3e-4 (180 CPU runs at
+    n = 5, 33, 130; step 1 ≤ 3.4e-7)."""
+    hist = lipschitz._launch(Q, v0, n_iter)
+    twin = lipschitz.power_history_reference(Q, v0, n_iter)
+    rel = (hist - twin).abs() / twin.abs()
+    assert float(rel[0].max()) <= 1e-5, float(rel[0].max())
+    off = int((rel.amax(0) > 1e-5).sum())
+    assert off <= 0.01 * Q.shape[-1], off
+    assert float(rel.max()) <= 1e-3, float(rel.max())
+
+
+def test_power_kernel_window(cuda):
+    """The C export's cluster sizes: the smallest with at most 64 features a
+    CTA, 0 outside 1..664; the kernel launches at the window's top and
+    refuses a launch one past it at any size."""
+    lib = _build.library()
+    for n in range(0, 1101):
+        assert (lib.lipschitz_cluster_size(n) > 0) == (1 <= n <= POWER_TOP), n
+    edges = {1: 1, 64: 1, 65: 2, 128: 2, 129: 4, 256: 4, 257: 8, 512: 8, POWER_TOP: 8}
+    assert {n: lipschitz.cluster_size(n) for n in edges} == edges
+    Q, v0 = _power_gram(POWER_TOP, 3, cuda, seed=2)
+    hist = lipschitz._launch(Q, v0, 2)
+    torch.testing.assert_close(hist, lipschitz.power_history_reference(Q, v0, 2), rtol=1e-5,
+                               atol=0.0)
+    wide, v = _power_gram(POWER_TOP + 1, 3, cuda, seed=2)
+    for C in (0, 8):
+        with pytest.raises(RuntimeError, match="lipschitz_power"):
+            lipschitz._launch(wide, v, 2, cluster=C)
+
+
+@pytest.mark.parametrize("n,B", [(1, 1003), (5, 1003), (33, 1003), (130, 1003), (200, 1003),
+                                 (256, 1003), (257, 1003), (600, 1003), (POWER_TOP, 1003),
+                                 (256, 7552)])
+def test_power_kernel_matches_the_loop(cuda, n, B):
+    """All 100 steps (B = 1003 is ragged; n = 256, B = 7552 is the
+    ``wide256`` deployment): the kernel's history against the plain twin's
+    on the same Q and v0 at every step (``_assert_history_is_the_twins``);
+    through the route, the loop's step count (100: the 1e-6 stop is not
+    met) and L to 1e-5 relative, in one launch."""
+    Q, v0 = _power_gram(n, B, cuda, seed=n)
+    _assert_history_is_the_twins(Q, v0)
+    launched = launches("lipschitz")
+    (loop, k_loop), (kern, k_kern) = _power_both(Q, v0)
+    torch.cuda.synchronize()
+    assert launches("lipschitz") == launched + 1
+    assert k_kern == k_loop
+    torch.testing.assert_close(kern, loop, rtol=1e-5, atol=0.0)
+
+
+@pytest.mark.parametrize("n,B", [(256, 1003), (64, 301)])
+def test_power_kernel_stops_where_the_loop_stops(cuda, n, B):
+    """At tol 1e-4 on Grams with a dominant eigenvalue the loop stops after
+    a few steps; the kernel's route picks the same step and L, and the
+    history it picks from is the twin's at every step."""
+    Q, v0 = _power_gram(n, B, cuda, seed=7, spiked=True)
+    (loop, k_loop), (kern, k_kern) = _power_both(Q, v0, tol=1e-4)
+    assert 1 < k_loop < 20 and k_kern == k_loop
+    torch.testing.assert_close(kern, loop, rtol=1e-5, atol=0.0)
+    _assert_history_is_the_twins(Q, v0)
+
+
+# width -> the cluster sizes the kernel takes there: every size whose CTA has
+# at most 128 features (512 threads) and fits a block
+POWER_SIZES = {5: (1, 2, 4, 8), 100: (1, 2, 4, 8), 256: (2, 4, 8), 257: (4, 8)}
+
+
+@pytest.mark.parametrize("n", list(POWER_SIZES))
+def test_power_kernel_bits_do_not_depend_on_layout_or_cluster(cuda, n):
+    """Each feature's sum runs in one order whatever the cluster size and
+    whatever Q's strides: the history is the same bits at every size the
+    card takes and on a lanes-last copy of Q; the other sizes raise."""
+    Q, v0 = _power_gram(n, 301, cuda, seed=3)
+    want = lipschitz._launch(Q, v0, 40)
+    assert torch.equal(lipschitz._launch(Q.contiguous(), v0, 40), want)
+    for C in (1, 2, 4, 8):
+        if C in POWER_SIZES[n]:
+            assert torch.equal(lipschitz._launch(Q, v0, 40, cluster=C), want), C
+        else:
+            with pytest.raises(RuntimeError, match="lipschitz_power"):
+                lipschitz._launch(Q, v0, 40, cluster=C)
+
+
+def test_power_kernel_refuses_what_it_cannot_take(cuda):
+    Q, v0 = _power_gram(20, 8, cuda, seed=1)
+    with pytest.raises(ValueError, match="float32 CUDA"):
+        lipschitz._launch(Q.double(), v0, 5)
+    with pytest.raises(ValueError, match="v0"):
+        lipschitz._launch(Q, v0[:, :4], 5)
+    with pytest.raises(RuntimeError, match="lipschitz_power"):
+        lipschitz._launch(Q, v0, 5, cluster=3)
+    wide, v = _power_gram(POWER_TOP + 1, 2, cuda, seed=1)
+    assert not fista_gram._power_on_kernel(wide) and not fista_gram._power_on_kernel(Q.double())
+    with pytest.raises(RuntimeError, match="lipschitz_power"):
+        lipschitz._launch(wide, v, 5)
+
+
+def test_the_precompute_reads_the_host_once_on_the_power_kernel(cuda):
+    """make_gram_batch at n = 200: ``fos.lipschitz`` holds one ``fos.sync``
+    and one launch span, ``power_steps`` is the loop's count, and
+    ``launches.lipschitz`` is 1; the loop's precompute on the same data
+    reads the host once a step."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    A = torch.randn((301, 400, 200), generator=g, device=cuda) / 200 ** 0.5
+    b = torch.randn((301, 400), generator=g, device=cuda)
+    profiling.reset_counters()
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU])
+    prof.start()
+    try:
+        gb = make_gram_batch(A, b, 0.1, 0.0)
+        torch.cuda.synchronize()
+    finally:
+        prof.stop()
+    c = counters()
+    rows = profiling.spans()
+    lip = next(i for i, row in enumerate(rows) if row[1] == "fos.lipschitz")
+    assert [row[1] for row in rows if row[2] == lip] == ["fos.launch.lipschitz", "fos.sync"]
+    assert c["launches.lipschitz"] == 1
+    v0 = torch.randn((200, 301), generator=torch.Generator(device=cuda).manual_seed(0),
+                     device=cuda)
+    Q = torch.einsum("bmi,bmj->ijb", A, A)
+    profiling.reset_counters()
+    loop = fista_gram._power_loop(Q, v0, 100, 1e-6)
+    assert c["power_steps"] == counters()["power_steps"]
+    torch.testing.assert_close(gb.L, loop, rtol=1e-5, atol=0.0)
 
 
 SLAB_MODES = dict(
