@@ -42,7 +42,7 @@ from typing import NamedTuple
 import torch
 
 from ..batch.fista_gram import BatchFISTAConfig, GramBatch
-from ..utils.profiling import launch, span
+from ..utils.profiling import launch, span, tally
 from . import _build
 from ._common import (
     assert_tile_k_uniform,
@@ -220,6 +220,18 @@ def _launch(betas, gb, tau, thr, taumin, state0, *, b_tile, chunk, k_end,
     return out
 
 
+def _count_lane_steps(out, rows) -> None:
+    """Tally the run's lane steps on the device from its 9-tuple (the
+    kernel's and the twin's alike): each lane's group steps ``k`` and its
+    own steps before its certificate ``iters``, less the resumed state's."""
+    k, iters = out[5].reshape(-1), out[7].reshape(-1)
+    steps = torch.stack((k, iters.to(k.dtype)))
+    if rows is not None:
+        steps = steps - torch.stack((rows[5].reshape(-1), rows[7].reshape(-1))).to(k.dtype)
+    tally(("resident_lane_steps", "resident_lane_steps_live"),
+          steps.sum(dim=1, dtype=torch.int64))
+
+
 def _solve(run, gb: GramBatch, cfg: BatchFISTAConfig, state0, return_state,
            est_l_iters, l_safety, b_tile):
     """The rows, the state's layout and the result around one run (the
@@ -255,6 +267,7 @@ def _solve(run, gb: GramBatch, cfg: BatchFISTAConfig, state0, return_state,
             rows = _state_rows(state0, B, dev, torch.float32)
     out = run(plan.betas, gb, tau, thr, taumin, rows, b_tile=b_tile,
               est_l_iters=est_l_iters, l_safety=l_safety, **plan.static())
+    _count_lane_steps(out, rows)
     with span("fos.result"):
         return _certified_result(out, cfg.rel_gap_tol,
                                  ResidentSolveState if return_state else None)

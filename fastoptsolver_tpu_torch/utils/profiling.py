@@ -18,7 +18,8 @@
   timeline and in memory;
 - :func:`counters`, :func:`reset_counters` — the program's counters, always
   on: calls, kernel launches, bursts and the lanes they carry, the power
-  steps of the eager L estimate, Q's re-layouts.
+  steps of the eager L estimate, Q's re-layouts, the resident engine's lane
+  steps (tallied on the device and read when the counters are).
 """
 from __future__ import annotations
 
@@ -132,9 +133,22 @@ COUNTERS = (
     "burst_paired_launches",
     "power_steps",  # power steps of make_gram_batch's Lipschitz estimate, up to its stop
     "qstream_relayouts",  # copies of Q into the Q-streaming cluster layout
+    # over every lane of every resident run, the iterations its group ran in
+    # the run (k - k0, k0 = 0 on a fresh solve): a lane iterates until every
+    # lane of its group is certified or k_end is reached
+    "resident_lane_steps",
+    # over the same lanes, the iterations each ran before its own certificate
+    # (iters - iters0). The kernel sets iters = k at every check while the
+    # lane is open and k only grows, so iters <= k on every lane, and a lane
+    # open at a resume has iters0 = k0: live steps never exceed the group's
+    "resident_lane_steps_live",
     "spans_dropped",  # spans past SPAN_LIMIT in one profiler session
 )
 _counts = dict.fromkeys(COUNTERS, 0)
+# Counts known only on a device, kept there: (names, device) -> an int64
+# tensor, one entry a name, added to by :func:`tally` and read by
+# :func:`counters`, whose read is the only sync they cost.
+_tallies: dict = {}
 
 
 def count(name: str, n: int = 1) -> None:
@@ -142,16 +156,32 @@ def count(name: str, n: int = 1) -> None:
     _counts[name] += n
 
 
+def tally(names: tuple, values: torch.Tensor) -> None:
+    """Add ``values`` (one integer entry a counter of ``names``) into the
+    tally on their device, without a sync; :func:`counters` reads it."""
+    key = (names, values.device)
+    acc = _tallies.get(key)
+    if acc is None:
+        _tallies[key] = values.to(torch.int64, copy=True)
+    else:
+        acc += values
+
+
 def counters() -> dict:
     """Every counter's value since the process started or
-    :func:`reset_counters` last ran."""
-    return dict(_counts)
+    :func:`reset_counters` last ran; the device tallies are read here."""
+    out = dict(_counts)
+    for (names, _), acc in _tallies.items():
+        for name, v in zip(names, acc.tolist()):
+            out[name] += v
+    return out
 
 
 def reset_counters() -> None:
     """Set every counter to 0."""
     for name in _counts:
         _counts[name] = 0
+    _tallies.clear()
 
 
 class _Off:

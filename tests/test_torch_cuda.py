@@ -508,6 +508,44 @@ def test_resident_kernel_reads_the_upper_triangle(cuda):
     torch.testing.assert_close(got.x, want.x, rtol=2e-4, atol=2e-5)
 
 
+def test_resident_kernel_counts_its_lane_steps(cuda, monkeypatch):
+    """The lane-step counters on the kernel at n = 128 with a ragged last
+    group (B = 301, 6 lanes a group): the sums of the returned k and iters,
+    tallied on the card without a host sync; a resume adds only its own
+    steps; and x's bits are those of the path without the tally."""
+    gb = _wide_gram(128, 0.0, cuda, B=301, seed=14)
+    cfg = BatchFISTAConfig(max_iter=1000, check_every=25, rel_gap_tol=1e-6)
+    names = ("resident_lane_steps", "resident_lane_steps_live")
+    counted = lambda: tuple(counters()[k] for k in names)
+    solve = lambda c=cfg, s=None: resident.fista_gram_resident(
+        gb, c, est_l_iters=96, state0=s, return_state=True)
+    profiling.reset_counters()
+    res, st = solve()
+    assert counted() == (int(st.k.long().sum()), int(st.iters.long().sum()))
+    assert bool((st.iters <= st.k).all()) and counted()[1] <= counted()[0]
+    profiling.reset_counters()
+    _, mid = solve(dataclasses.replace(cfg, max_iter=100))
+    first = counted()
+    profiling.reset_counters()
+    _, end = solve(s=mid)
+    assert torch.equal(end.k, st.k) and torch.equal(end.iters, st.iters)
+    assert tuple(a + b for a, b in zip(first, counted())) == (
+        int(st.k.long().sum()), int(st.iters.long().sum()))
+    out = tuple(getattr(st, f) for f in st._fields)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        resident._count_lane_steps(out, None)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    monkeypatch.setattr(resident, "_count_lane_steps", lambda out, rows: None)
+    plain, plain_st = solve()
+    assert torch.equal(res.x, plain.x)
+    for f in st._fields:
+        assert torch.equal(getattr(st, f), getattr(plain_st, f)), f
+    profiling.reset_counters()
+
+
 @pytest.mark.parametrize("mode", ["restart", "greedy"])
 def test_adaptive_entry_matches_twin(cuda, mode):
     kw, a2 = BURST_MODES[mode]

@@ -1,9 +1,9 @@
 """The benchmark's readers of the program's spans and counters
 (``benchmark/metrics/host_self_ms.py``, ``bursts_per_call.py``,
-``burst_live_pct.py``, ``precompute_ms.py``) through a traced run of every
-cell on CPU tensors, as ``benchmark/tests/test_harness_cpu.py`` runs the
-harness: each calls the plain twins of the card's kernels
-(``interpret=True``) on 48 lanes. A metric
+``burst_live_pct.py``, ``precompute_ms.py``, ``resident_live_pct.py``)
+through a traced run of every cell on CPU tensors, as
+``benchmark/tests/test_harness_cpu.py`` runs the harness: each calls the
+plain twins of the card's kernels (``interpret=True``) on 48 lanes. A metric
 reads a number in the cells ``BENCHMARK.json`` lists for it and is absent
 from the others' result lines.
 """
@@ -17,7 +17,8 @@ from benchmark import run, spec
 from fastoptsolver_tpu_torch.utils import profiling
 
 CELLS = [w["name"] for w in spec.benchmark()["workloads"]]
-NEW = ("host_self_ms", "bursts_per_call", "burst_live_pct", "precompute_ms")
+NEW = ("host_self_ms", "bursts_per_call", "burst_live_pct", "precompute_ms",
+       "resident_live_pct")
 LANES = 48
 
 
@@ -58,9 +59,16 @@ def test_each_program_metric_reads_in_its_cells_and_nowhere_else(cell):
         assert 0 < live <= 100
         assert live == 100.0 * c["burst_lanes_live"] / c["burst_lanes"]
     else:
-        assert c["bursts"] == 0  # the fused kernel's bursts run inside it
-    # the torch precompute's power loop runs in the cells that read its span alone
-    assert (c["power_steps"] > 0) == ("precompute_ms" in got)
+        assert c["bursts"] == 0  # the fused and resident kernels' bursts run inside them
+    if "resident_live_pct" in got:  # the cells on the resident engine
+        live = line["metrics"]["resident_live_pct"]["value"]
+        assert 0 < live <= 100
+        assert live == 100.0 * c["resident_lane_steps_live"] / c["resident_lane_steps"]
+    else:
+        assert c["resident_lane_steps"] == 0
+    # the torch precompute's power loop runs in the cells that read its span,
+    # but for the resident route, whose kernel estimates L itself
+    assert (c["power_steps"] > 0) == ("precompute_ms" in got and "resident_live_pct" not in got)
 
 
 def test_the_readers_give_nothing_without_the_programs_record(monkeypatch):
