@@ -91,10 +91,15 @@ Phases, one line each (``--`` lines are detail):
    largest SM clock), the routed call (median of 5; ms, certified instances/s) and
    the torch driver on the same Gram (the route this path replaces);
 7. resident path — the same recipe at n=128, m=256, B=30464 (a 2 GB Gram):
-   the einsum build without the power loop and one launch of the resident
-   kernel, nothing else; the same checks with at least 80% certified (the
-   JAX driver: 88% at B = 256), and ``solve_gram_batch(gb, est_l_iters=96)``
-   on the ``estimate_l=False`` Gram must give the same x; then medians of 3:
+   one ``gram_pairs`` launch (the build without power steps) and one launch
+   of the resident kernel, nothing else; the same checks with at least 80%
+   certified (the JAX driver: 88% at B = 256), and
+   ``solve_gram_batch(gb, est_l_iters=96)`` on the route's own Gram
+   (``_build_gram_routed(..., estimate_l=False)``) must give the same x;
+   ``gram_pairs`` at this shape against its twin as phase 3 holds the build
+   (Q bit-symmetric besides), then medians of 3 of it, its twin and the
+   einsum precompute it replaced on this route, with its bound from
+   ``gram_build._pairs_work`` and its L2 copy rate; then medians of 3:
    the routed call, the kernel solve alone, a one-step launch (the copy-in
    of the Gram and two matvecs), the twin and the kernel on the first 3840
    lanes (the twin is per-plane torch ops), and the torch driver; the
@@ -265,7 +270,9 @@ the build's ``power_group_lanes``, ``power_smem_bytes``,
 ``max_rel_err`` and ``first_step_rel_err`` against the twin, ``library_ms``
 the eager loop it replaced, ``e2e_ms`` the route with its one read,
 ``copy_in_ms``, ``smem_floor_ms``, ``cluster_size``, ``early_stop`` and
-``power_iters_20``; the fused entry's
+``power_iters_20``; the ``gram_pairs_w1`` entry phase 7's build at the
+resident window's shape (``library_ms`` the einsum precompute, ``l2_gbps``,
+``launches`` phase 7's alone); the fused entry's
 ``modes`` holds phase 9's times; the burst entry's ``cv`` phase 10's
 launches, holds and times, its ``estimators`` phase 12's CV part and the
 entry's ``launches`` phase 12's bursts too; the fused, build, burst and
@@ -765,17 +772,21 @@ def compare_stream(A, b, label: str) -> float:
     return float(err.max())
 
 
-def compare_build(A, b, label: str, lam_tol: float = 1e-5) -> float:
+def compare_build(A, b, label: str, lam_tol: float = 1e-5, pl_iters=None) -> float:
     """The build kernels against their twin on the same (A, b): Q, c, bᵀb to
     1e-5 of each lane's largest entry (the row sums run in other f32
     orders), λ to ``lam_tol`` relative (the kernel's matvec rounds as the
-    twin's; only the norm's order and the Gram's rounding differ). Returns
-    the largest absolute difference of Q."""
+    twin's; only the norm's order and the Gram's rounding differ).
+    ``pl_iters`` defaults to the build's own (32 at n ≤ 7, else 96); at 0
+    ``gram_pairs`` runs alone, as the resident route builds, and Q must
+    also be bit-symmetric (both triangles written). Returns the largest
+    absolute difference of Q."""
     import torch
 
     from fastoptsolver_tpu_torch.kernels import gram_build
 
-    pl_iters = 32 if A.shape[0] <= 7 else 96
+    if pl_iters is None:
+        pl_iters = 32 if A.shape[0] <= 7 else 96
     got = gram_build._launch(A, b, pl_iters)
     torch.cuda.synchronize()
     want = gram_build.gram_build_reference(A, b, pl_iters)
@@ -784,10 +795,12 @@ def compare_build(A, b, label: str, lam_tol: float = 1e-5) -> float:
     dlam = float(((got[3] - want[3]).abs() / want[3].abs().clamp_min(1e-30)).max())
     err = float((got[0] - want[0]).abs().max())
     n_off = int((((got[3] - want[3]).abs() / want[3].abs().clamp_min(1e-30)) > 1e-5).sum())
+    symmetric = bool(torch.equal(got[0], got[0].transpose(0, 1)))
     print(f"-- build {label}: max|dQ|/scale={rel[0]:.3e} |dc|={rel[1]:.3e} "
           f"|dbtb|={rel[2]:.3e} max rel|dlam|={dlam:.3e} (lanes above 1e-5: "
-          f"{n_off}) symmetric={bool(torch.equal(got[0], got[0].transpose(0, 1)))}")
-    require(max(rel) <= 1e-5 and dlam <= lam_tol and bool(torch.isfinite(got[0]).all()),
+          f"{n_off}) symmetric={symmetric}")
+    require(max(rel) <= 1e-5 and dlam <= lam_tol and bool(torch.isfinite(got[0]).all())
+            and (symmetric or pl_iters != 0),
             f"build kernels disagree with their twin at {label}")
     return err
 
@@ -1339,14 +1352,18 @@ def zero_counts() -> None:
 
 
 def resident_path(dev, cfg, mods) -> dict:
-    """Phase 7: W1 through solve_lasso_batch, counted, checked, then timed."""
+    """Phase 7: W1 through solve_lasso_batch, counted, checked, then timed;
+    its build, ``gram_pairs`` alone, held against its twin and timed beside
+    the einsum precompute at W1's own shape."""
     import torch
 
     from fastoptsolver_tpu_torch.batch import solve_gram_batch, solve_lasso_batch
+    from fastoptsolver_tpu_torch.batch.api import _build_gram_routed
     from fastoptsolver_tpu_torch.batch.fista_gram import (
         _batched_power_L, fista_gram_batch, make_gram_batch)
     from fastoptsolver_tpu_torch.bench.wide_n import build_problems
-    from fastoptsolver_tpu_torch.kernels import resident
+    from fastoptsolver_tpu_torch.kernels import gram_build, resident
+    from fastoptsolver_tpu_torch.utils.profiling import counters
 
     n, B = W1_N, W1_B
     A, b, a1 = build_problems(torch.Generator(device=dev).manual_seed(0), B, 2 * n, n)
@@ -1355,8 +1372,11 @@ def resident_path(dev, cfg, mods) -> dict:
     res = solve_lasso_batch(A, b, a1, 0.0, cfg=cfg, feature_major=True)
     torch.cuda.synchronize()
     counts = launch_counts(mods)
-    require(counts == dict(counts, resident=1) and sum(counts.values()) == 1,
-            f"resident path: launches {counts} (want resident 1, every other 0)")
+    build = {k: counters()[f"launches.{k}"] for k in ("gram_pairs", "gram_power")}
+    require(counts == dict(counts, gram=1, resident=1) and sum(counts.values()) == 2
+            and build == dict(gram_pairs=1, gram_power=0),
+            f"resident path: launches {counts}, build {build} (want gram_pairs 1, "
+            "resident 1, every other 0)")
     chk = check_wide(res, A, b, a1, 0.80, "resident path")
     # Q read once, c and the rows; 96 power steps, then each group of the
     # kernel's lanes runs to its last lane's iters
@@ -1367,16 +1387,37 @@ def resident_path(dev, cfg, mods) -> dict:
     # lane-matvecs, each reading the lane's n² words of Q from shared memory:
     # 96 power steps, one a step, one a gap
     lane_mv = 96 * B + steps + steps // cfg.check_every
-    gb = make_gram_batch(A.permute(2, 1, 0), b.T, a1, 0.0, estimate_l=False)
+    # the route's own build: gram_pairs alone, L = 1
+    gb = _build_gram_routed(A, b, a1, 0.0, True, None, False, True, estimate_l=False)
     res_g = solve_gram_batch(gb, cfg, est_l_iters=96)
     require(bool(torch.equal(res_g.x, res.x)), "solve_gram_batch(est_l_iters=96) on the "
-            "estimate_l=False Gram gives another x than solve_lasso_batch")
+            "route's Gram (gram_pairs alone, L = 1) gives another x than solve_lasso_batch")
     print(f"[7 resident path] n={n} m={2 * n} B={B}: launches {counts} | certified "
           f"{chk['certified']}/{B}, failed {chk['failed']}, max rel_gap {chk['max_gap']:.3e} "
           f"({chk['gap_ok']:.3e} on certified lanes), f64 recheck max rel_gap "
           f"{chk['gap64']:.3e} on 4096 lanes | solve_gram_batch x equal | iters median "
           f"{chk['iters_median']} max {chk['iters_max']}")
     del res, res_g
+    # gram_pairs at W1's shape (the ragged last feature block, n + 1 = 129, and
+    # 40 GB of L2 copies): against its twin, then timed beside the twin and the
+    # einsum precompute (its layout copies included) the route took before
+    pairs_err = compare_build(A, b, f"W1 {(n, 2 * n, B)} gram_pairs alone", pl_iters=0)
+    pairs_ms, pairs_trials, _ = med_ms(lambda: gram_build._launch(A, b, 0))
+    pairs_plain_ms, _, _ = med_ms(lambda: gram_build.gram_build_reference(A, b, 0))
+    pairs_lib_ms, _, _ = med_ms(lambda: make_gram_batch(A.permute(2, 1, 0), b.T, a1, 0.0,
+                                                        estimate_l=False))
+    work = gram_build._pairs_work(n, 2 * n, B)
+    pairs_bnd = bound(work["bytes"], work["flops"])
+    pairs_l2_gbps = work["l2_bytes"] / pairs_ms / 1e6
+    print(f"[7 gram_pairs] the route's build at n={n} m={2 * n} B={B}: {pairs_ms:.3f} ms "
+          f"(trials {[round(x, 3) for x in pairs_trials]}) vs twin {pairs_plain_ms:.3f} ms "
+          f"and the einsum precompute (make_gram_batch, estimate_l=False) "
+          f"{pairs_lib_ms:.3f} ms | bound {pairs_bnd[0]:.3f} ms by {pairs_bnd[1]}; its L2 "
+          f"copies {work['l2_bytes'] / 1e9:.1f} GB at {pairs_l2_gbps:.1f} GB/s")
+    pairs = dict(launches=build["gram_pairs"], max_abs_err=pairs_err, ms=pairs_ms,
+                 plain_ms=pairs_plain_ms, library_ms=pairs_lib_ms, bound_ms=pairs_bnd[0],
+                 bound_by=pairs_bnd[1], l2_bytes=work["l2_bytes"], l2_gbps=pairs_l2_gbps,
+                 shape=[n, 2 * n, B])
     routed_ms, routed_trials, _ = med_ms(lambda: solve_lasso_batch(A, b, a1, 0.0, cfg=cfg,
                                                                    feature_major=True))
     del A, b
@@ -1437,7 +1478,7 @@ def resident_path(dev, cfg, mods) -> dict:
                 all_steps_ms=steps_ms, cta_step_us=cta_step_us,
                 bound_ms=bnd[0], bound_by=bnd[1],
                 plain_lanes=3840, ms_at_plain_lanes=k_small_ms, e2e_ms=routed_ms,
-                driver_ms=driver_ms, copy_in_ms=copy_ms, dx_small=dx)
+                driver_ms=driver_ms, copy_in_ms=copy_ms, dx_small=dx, pairs=pairs)
 
 
 def qstream_path(dev, cfg, mods) -> dict:
@@ -3790,7 +3831,8 @@ def mesh_path(smi: str) -> dict:
                 f"(b)2 {label}: {chk}")
     require(r["w1_state"] == "ResidentSolveState" and h["converged_equal"]
             and h["iters_equal"] and h["x_ok"], f"(b)2 W1 against the one-rank call: {h}")
-    require(all(c["w1_resume"]["resident"] == 2 and sum(c["w1_resume"].values()) == 2
+    require(all(c["w1_resume"]["resident"] == 2 == c["w1_resume"]["gram"]
+                and sum(c["w1_resume"].values()) == 4
                 and 0 < c["w2"]["qstream"] == sum(c["w2"].values()) for c in per_rank)
             and max(c["w2"]["qstream"] for c in per_rank) == r["w2_bursts"],
             f"(b)2 launches {per_rank}")
@@ -4500,6 +4542,12 @@ def main() -> int:
                                "lane_matvecs", "smem_floor_ms", "power_launch_ms",
                                "all_steps_ms", "cta_step_us")},
          "adaptive_entry": adaptive},
+        {"name": "gram_pairs_w1", "route": "cuda", "source": GRAM_SRC,
+         "replaces": "none: the einsum precompute fastoptsolver_tpu/batch/fista_gram.py:99, "
+                     "the resident window's build past n = 118",
+         "library": "batch.fista_gram.make_gram_batch(..., estimate_l=False): torch.einsum "
+                    "and its layout copies",
+         **w1["pairs"]},
         {"name": "qstream_burst", "route": "cuda", "source": QSTREAM_SRC,
          "replaces": "fastoptsolver_tpu/kernels/qstream.py:90",
          "launches": w2["launches"] + launches.get("qstream", 0),

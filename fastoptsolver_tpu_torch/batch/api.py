@@ -19,8 +19,9 @@ Routing follows the reference's "guards decide" rule, in its order:
    greedy, Armijo) and with ``return_state``.
 3. Then, in the **resident window** (104 < n ≤ 168, ``check_every > 0``,
    every mode including Armijo): the Gram built without the power loop
-   (``make_gram_batch(..., estimate_l=False)``: the port's build kernels
-   stop at n = 118) and one launch of the resident kernel
+   (``gram_pairs`` alone, ``make_gram_batch_fused(..., pl_iters=0)``, at
+   every width of the window; the reference's einsum precompute past
+   n = 118) and one launch of the resident kernel
    (``kernels.resident.fista_gram_resident``) with L estimated in-kernel
    (``_RESIDENT_EST_L_ITERS`` power steps).
 4. Otherwise **the two-kernel path**: the Gram build
@@ -214,18 +215,21 @@ def _build_gram_routed(A, b, alpha1, alpha2, feature_major, key, interpret,
                        use_kernel, estimate_l=True):
     """The Gram stage of :func:`solve_lasso_batch`, shared with the resume
     dispatch: the build kernels (their twin on a CPU tensor) inside their
-    window (n ≤ 118) on the kernel route, otherwise the torch precompute
+    window on the kernel route, otherwise the torch precompute
     ``make_gram_batch`` with its power iteration started from ``key``;
     ``estimate_l=False`` skips the power iteration of either build (L = 1
-    sentinel), for the resident engine's in-kernel estimate."""
+    sentinel), for the resident engine's in-kernel estimate. The window
+    follows the estimate: n ≤ 118 with the power steps, n ≤ 168 (the
+    resident engine's) for ``gram_pairs`` alone."""
     with span("fos.gram_build"):
         n = A.shape[0] if feature_major else A.shape[-1]
+        pl_iters = None if estimate_l else 0
         fused_build = False
         if use_kernel:
             from ..kernels.gram_build import _auto_tiles
 
             try:
-                _auto_tiles(n, A.shape[1])
+                _auto_tiles(n, A.shape[1], pl_iters)
                 fused_build = True
             except ValueError:
                 fused_build = False
@@ -235,7 +239,7 @@ def _build_gram_routed(A, b, alpha1, alpha2, feature_major, key, interpret,
             A_fm, b_fm = _feature_major(A, b, feature_major)
             gb = make_gram_batch_fused(A_fm.contiguous(), b_fm.contiguous(),
                                        alpha1, alpha2, interpret=interpret,
-                                       pl_iters=None if estimate_l else 0)
+                                       pl_iters=pl_iters)
             return gb if estimate_l else dataclasses.replace(gb, L=torch.ones_like(gb.L))
         A_im = A.permute(2, 1, 0) if feature_major else A
         b_im = b.T if feature_major else b
@@ -249,9 +253,8 @@ def _solve_resident_routed(A, b, alpha1, alpha2, cfg, feature_major, key,
     resume dispatch so that both give the same floats: the Gram built
     without the power loop, then the resident engine with L estimated
     in-kernel against the Gram it holds (``_RESIDENT_EST_L_ITERS`` steps).
-    Past n = 118 the build is the einsum precompute, as in the reference;
-    at 104 < n ≤ 118 the port's build kernels take it, without their power
-    steps."""
+    The port's ``gram_pairs`` builds it at every width of the window, where
+    the reference builds past n = 118 with its einsum precompute."""
     from ..kernels.resident import fista_gram_resident
 
     gb = _build_gram_routed(A, b, alpha1, alpha2, feature_major, key,

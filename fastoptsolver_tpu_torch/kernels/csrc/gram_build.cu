@@ -45,6 +45,11 @@
 //   writes) are both near the measured time. Larger feature blocks (fewer
 //   re-reads) and no padded pairs in diagonal blocks are the next steps; TF32
 //   tensor cores are ruled out (the certificate needs f32).
+//   Launched alone, with no power steps, it builds the resident engine's Gram at every
+//   width of that window (n <= 168): neither its ring nor its grid depends on n. At n =
+//   128, m = 256, B = 30464 it copies 40.2 GB from L2 in 7.85 ms (5.1 TB/s), and 48.1 GB
+//   in 8.42 ms at n = 168, m = 336, B = 17664 (H100 80GB HBM3, 700 W), in place of ~50 ms
+//   of einsum and layout copies.
 //
 // gram_power — the resident kernel's layout (csrc/resident.cu): features on threads,
 //   round_up(n, 32) threads a lane and G = gram_power_group(n) lanes a CTA (10 at n = 96,
@@ -61,8 +66,9 @@
 //   191.6 GB at n = 96, B = 54144 (~6-7 ms at 128 B a clock on 132 SMs). Measured there on
 //   an H100 80GB HBM3 at 700 W, in turns with the 8-lane layout (256 threads, 8 warps an
 //   SM, a select and a 4-byte load of v a term): 18.5 ms against 43.2, with 30 warps an
-//   SM. The build's window stays n <= 118 (gram_build.MAX_N): this block would hold lanes
-//   past it, but the window routes the build and is kept where it was.
+//   SM. The window of the build with power steps stays n <= 118 (gram_build.MAX_N): this
+//   block would hold lanes past it, but the window routes the build and is kept where it
+//   was.
 //
 // Ragged edges are masked in-kernel: lanes >= B and features >= na load 0 and store
 // nothing. Offsets are 64-bit (n*m*B is 1.0e9 at full width). Built without

@@ -16,6 +16,11 @@ built from ``_common.augmented_gram`` and ``_common.power_lambda_max``:
 v0 = c, 32 steps at n ≤ 7, else 96, and the host rule
 ``L = where(λ > 0, 1.02·λ, 1) + α₂``.
 
+The build has two windows, chosen by whether it estimates L: with power
+steps 1 ≤ n ≤ :data:`MAX_N` (118); without them (``pl_iters=0``, the
+resident route, whose kernel estimates L itself) 1 ≤ n ≤
+:data:`PAIRS_MAX_N`, the resident engine's window (168).
+
 The reference's TPU tiling knobs ``b_tile``, ``m_tile`` and ``split_k`` have no
 counterpart: the kernels tile lanes themselves and each lane's sums do not
 depend on the tiling.
@@ -28,6 +33,7 @@ from ..batch.fista_gram import GramBatch, _lane_vector
 from ..utils.profiling import launch
 from . import _build
 from ._common import augmented_gram, make_matvec, power_lambda_max
+from .resident import MAX_N as PAIRS_MAX_N
 
 # Shared memory a Hopper block may opt into (H100: 227 KB).
 SMEM_PER_BLOCK = 232448
@@ -101,22 +107,30 @@ def _power_smem_bytes(n: int) -> int:
     return power_group_lanes(n) * _power_lane_bytes(n)
 
 
-# The build's window, 1 <= n <= 118: where gram_power's first layout, 8 lanes'
-# triangles a CTA, fit 227 KB. Its block holds lanes past it now, but the
-# window routes the build (batch/api.py) and is kept where it was.
+# The window of the build with power steps, 1 <= n <= 118: where gram_power's
+# first layout, 8 lanes' triangles a CTA, fit 227 KB. Its block holds lanes past
+# it now, but the window routes the callers that estimate L on the host side
+# (the burst engine's, the precompute's) and is kept where it was. gram_pairs
+# alone (pl_iters = 0) takes the resident engine's window, PAIRS_MAX_N: its
+# ring and grid hold any n.
 MAX_N = 118
 
 
-def _auto_tiles(n: int, m: int):
+def _auto_tiles(n: int, m: int, pl_iters: int | None = None):
     """``(b_tile, m_tile)`` of the Hopper build: 32 lanes per CTA and the
     whole row axis in the block's own loop. The window is 1 ≤ n ≤ ``MAX_N``
-    (118; the burst engine needs n ≤ 104). Raises past it, with a pointer to
-    the torch precompute, as the reference raises past its VMEM budget."""
-    if not 1 <= n <= MAX_N:
+    (118; the burst engine needs n ≤ 104) with power steps, and 1 ≤ n ≤
+    ``PAIRS_MAX_N`` (168) for ``gram_pairs`` alone (``pl_iters == 0``).
+    Raises past it, with a pointer to the torch precompute, as the reference
+    raises past its VMEM budget."""
+    if pl_iters == 0:
+        hi, build = PAIRS_MAX_N, "Gram build without power steps (pl_iters=0)"
+    else:
+        hi, build = MAX_N, "fused Gram build"
+    if not 1 <= n <= hi:
         raise ValueError(
-            f"fused Gram build: n={n} is past the build kernels' window "
-            f"(n <= {MAX_N}). Use the torch precompute (batch.make_gram_batch) "
-            "for wider problems."
+            f"{build}: n={n} is past its window (n <= {hi}). Use the torch "
+            "precompute (batch.make_gram_batch) for wider problems."
         )
     return LANE_TILE, m
 
@@ -148,7 +162,7 @@ def _launch_pairs(A: torch.Tensor, b: torch.Tensor):
     _build.check_tensors((("A", A), ("b", b)))
     if b.shape != (m, B):
         raise ValueError(f"b {tuple(b.shape)} does not match A {tuple(A.shape)}")
-    _auto_tiles(n, m)
+    _auto_tiles(n, m, 0)
     Q = torch.empty((n, n, B), dtype=A.dtype, device=A.device)
     c = torch.empty((n, B), dtype=A.dtype, device=A.device)
     btb = torch.empty((B,), dtype=A.dtype, device=A.device)
@@ -183,7 +197,9 @@ def make_gram_batch_fused(
     tensor; ``interpret=True`` asks for the twin and raises with a CUDA
     tensor. ``pl_iters`` defaults to 32 at n ≤ 7, else 96; ``L =
     where(λ > 0, l_safety·λ, 1) + α₂`` (a lane with c = 0 has λ = 0 and
-    x* = 0). ``b_tile``, ``m_tile`` and ``split_k`` are the reference's TPU
+    x* = 0). ``pl_iters=0`` builds the pairs alone (λ = 0, so L = 1 + α₂)
+    and takes n ≤ ``PAIRS_MAX_N`` (168); with power steps n ≤ ``MAX_N``
+    (118). ``b_tile``, ``m_tile`` and ``split_k`` are the reference's TPU
     knobs and select nothing here; ``split_k < 1`` still raises."""
     del b_tile, m_tile
     if A.dim() != 3:
@@ -191,7 +207,7 @@ def make_gram_batch_fused(
     n, m, B = A.shape
     if split_k < 1:
         raise ValueError(f"split_k must be >= 1 (got {split_k})")
-    _auto_tiles(n, m)
+    _auto_tiles(n, m, pl_iters)
     if pl_iters is None:
         pl_iters = 32 if n <= 7 else 96
     _build.refuse_interpret(interpret, A.is_cuda)

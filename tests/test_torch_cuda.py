@@ -319,6 +319,55 @@ def test_pairs_copy_widths_agree(cuda):
         assert torch.equal(g[..., :300], w)
 
 
+# the resident window past the build with power steps: the last feature block
+# ragged (n + 1 = 120, 129, 169 against blocks of 16), and the last lane tile
+# (B = 301)
+@pytest.mark.parametrize("n", [119, 128, 168])
+def test_pairs_kernel_matches_twin_in_the_resident_window(cuda, n):
+    """gram_pairs alone (pl_iters = 0, the resident route's build) at widths
+    the build with power steps refuses, m = 2n: one launch, Q, c and bᵀb
+    against the twin to 1e-5 of each lane's largest entry, as the build's
+    check holds them, and both triangles written, bit-symmetric."""
+    A, b, _ = _problem(n, 2 * n, 301, seed=15, device=cuda)
+    before = launches("gram_pairs"), launches("gram_power")
+    got = gram_build._launch(A, b, 0)
+    torch.cuda.synchronize()
+    assert (launches("gram_pairs"), launches("gram_power")) == (before[0] + 1, before[1])
+    want = gram_build.gram_build_reference(A, b, 0)
+    scale = torch.maximum(want[0].abs().amax(dim=(0, 1)), want[2])
+    for g, w in zip(got[:3], want[:3]):
+        assert bool(((g - w).abs() <= 1e-5 * scale).all())
+    assert torch.equal(got[0], got[0].transpose(0, 1))
+
+
+def test_resident_route_at_128_certifies_as_the_twin_route(cuda):
+    """``solve_lasso_batch`` at n = 128 (B = 61: a ragged lane tile and a
+    ragged last group of 6) builds with gram_pairs alone and solves in one
+    resident launch, with no gram_power; against the same route on the CPU
+    twins: converged identical, and on the converged lanes the float64
+    relative gap at either x within 2e-5 (the float32 floor of a 1e-6
+    certificate, as ``verify_tpu``'s resident checks hold it) and the
+    objectives within 1e-5 relative, the gap's own width."""
+    from fastoptsolver_tpu_torch.bench.verify_tpu import _f64_gap_obj
+
+    A, b, a1 = _problem(128, 256, 61, seed=16, device=cuda)
+    cfg = BatchFISTAConfig(max_iter=1000, check_every=25, rel_gap_tol=1e-6)
+    kernels = ("gram_pairs", "gram_power", "resident")
+    before = [launches(k) for k in kernels]
+    card = solve_lasso_batch(A, b, a1, 0.0, cfg=cfg, feature_major=True)
+    torch.cuda.synchronize()
+    assert [launches(k) - v for k, v in zip(kernels, before)] == [1, 0, 1]
+    A, b, a1 = A.cpu(), b.cpu(), a1.cpu()
+    twin = solve_lasso_batch(A, b, a1, 0.0, cfg=cfg, feature_major=True, interpret=True)
+    conv = twin.converged
+    assert torch.equal(card.converged.cpu(), conv) and bool(conv.any())
+    gap_card, obj_card = _f64_gap_obj(A.permute(2, 1, 0), b.T, a1, card.x.cpu())
+    gap_twin, obj_twin = _f64_gap_obj(A.permute(2, 1, 0), b.T, a1, twin.x)
+    conv = conv.numpy()
+    assert gap_card[conv].max() <= 2e-5 and gap_twin[conv].max() <= 2e-5
+    np.testing.assert_allclose(obj_card[conv], obj_twin[conv], rtol=1e-5)
+
+
 BURST_MODES = {
     "nesterov": (dict(), 0.0), "delta_ridge": (dict(momentum="delta"), 0.3),
     "restart": (dict(adaptive_restart=True), 0.0), "greedy": (dict(momentum="greedy"), 0.0),
@@ -430,7 +479,8 @@ def test_wrapper_refuses_bad_inputs(cuda):
 
 
 def _wide_gram(n, a2, cuda, B=300, seed=8, l_div=1.0, decisive=False):
-    """The torch precompute on the card (the build kernels stop at n = 118)."""
+    """The torch precompute on the card, with its L (the build with power
+    steps stops at n = 118)."""
     if decisive:  # noise-free b, α₁ = 0.5, L understated
         g = torch.Generator(device=cuda).manual_seed(seed)
         A = torch.randn((n, 2 * n, B), generator=g, device=cuda)

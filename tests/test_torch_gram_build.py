@@ -14,7 +14,9 @@ import torch
 
 from fastoptsolver_tpu.kernels import gram_build as jgram
 from fastoptsolver_tpu.kernels import make_gram_batch_fused as jax_build
+from fastoptsolver_tpu_torch.batch.fista_gram import make_gram_batch
 from fastoptsolver_tpu_torch.kernels import gram_build as tgram
+from fastoptsolver_tpu_torch.kernels import resident
 from fastoptsolver_tpu_torch.utils.profiling import counters
 
 torch.set_num_threads(1)
@@ -85,9 +87,11 @@ def test_host_rule_and_power_depth():
 def test_window_and_guards():
     for n in (1, 20, 96, 104, tgram.MAX_N):
         assert tgram._auto_tiles(n, 70) == (32, 70)
-    # the window stays where 8 lanes' triangles filled 227 KB, though
-    # gram_power's block now holds lanes past it: it routes the build
+    # with power steps the window stays where 8 lanes' triangles filled
+    # 227 KB, though gram_power's block now holds lanes past it; gram_pairs
+    # alone takes the resident engine's window
     assert tgram.MAX_N == 118
+    assert tgram.PAIRS_MAX_N == resident.MAX_N == 168
     for n in range(1, tgram.POWER_MAX_N + 1):
         assert 0 < tgram._power_smem_bytes(n) <= tgram.SMEM_PER_BLOCK
     with pytest.raises(ValueError, match="torch precompute"):
@@ -111,13 +115,75 @@ def test_window_and_guards():
 
 
 @pytest.mark.parametrize("m", [1, 70, 238])
-def test_window_stays_at_118(m):
-    """Routing at n = 119..128 does not move with gram_power's new block:
-    the build takes n <= 118 and raises at 119, as it did."""
-    assert tgram.MAX_N == 118
-    assert tgram._auto_tiles(118, m) == (32, m)
-    with pytest.raises(ValueError, match="torch precompute"):
-        tgram._auto_tiles(119, m)
+def test_windows_by_estimate(m):
+    """The window follows whether the build estimates L: gram_pairs alone
+    (pl_iters = 0) takes n <= 168 and raises at 169; with power steps (the
+    default depth or any other) the build takes n <= 118 and raises at 119,
+    as it did. Each message names its own window."""
+    assert tgram._auto_tiles(168, m, 0) == (32, m)
+    with pytest.raises(ValueError, match=r"pl_iters=0\): n=169 is past its window "
+                                         r"\(n <= 168\)\. Use the torch precompute"):
+        tgram._auto_tiles(169, m, 0)
+    for pl_iters in (None, 1, 96):
+        assert tgram._auto_tiles(118, m, pl_iters) == (32, m)
+        with pytest.raises(ValueError, match=r"fused Gram build: n=119 is past its "
+                                             r"window \(n <= 118\)\. Use the torch precompute"):
+            tgram._auto_tiles(119, m, pl_iters)
+
+
+def _routed_inputs(n, B=8, seed=11):
+    """(B, m, n) instances, m = 2n, and α₁ = 0.1‖Aᵀb‖∞ a lane."""
+    A, b, a1 = _problem(n, 2 * n, B, seed)
+    return (torch.from_numpy(A.transpose(2, 1, 0).copy()), torch.from_numpy(b.T.copy()),
+            torch.from_numpy(a1))
+
+
+def _spy_builds(monkeypatch):
+    """Record each build the router takes: the fused build's twin with its
+    power depth, and the torch precompute."""
+    from fastoptsolver_tpu_torch.batch import api
+
+    calls = []
+    twin, precompute = tgram.gram_build_reference, api.make_gram_batch
+    monkeypatch.setattr(tgram, "gram_build_reference",
+                        lambda A, b, pl_iters: calls.append(("twin", pl_iters))
+                        or twin(A, b, pl_iters))
+    monkeypatch.setattr(api, "make_gram_batch",
+                        lambda *a, **k: calls.append(("precompute",)) or precompute(*a, **k))
+    return api, calls
+
+
+@pytest.mark.parametrize("n", [128, 168])
+def test_resident_route_builds_with_the_pairs_twin(monkeypatch, n):
+    """Without an estimate of L (the resident route) the router builds the
+    whole resident window with the fused build's pairs (its twin on the CPU),
+    not the einsum precompute: the L = 1 sentinel, a Q that is exactly
+    symmetric, and Q, c and bᵀb at the einsum's within this file's f32
+    tolerance."""
+    api, calls = _spy_builds(monkeypatch)
+    A, b, a1 = _routed_inputs(n)
+    gb = api._build_gram_routed(A, b, a1, 0.0, False, None, True, use_kernel=True,
+                                estimate_l=False)
+    assert calls == [("twin", 0)]
+    want = make_gram_batch(A, b, a1, 0.0, estimate_l=False)
+    assert bool((gb.L == 1.0).all())
+    assert torch.equal(gb.Q, gb.Q.transpose(0, 1))
+    scale = torch.maximum(want.Q.abs().amax(dim=(0, 1)), want.btb)  # per lane
+    for got, ref in ((gb.Q, want.Q), (gb.c, want.c), (gb.btb, want.btb)):
+        assert got.shape == ref.shape
+        assert bool(((got - ref).abs() <= 1e-5 * scale).all())
+
+
+@pytest.mark.parametrize("n", [119, 128])
+def test_estimating_route_keeps_the_precompute_past_118(monkeypatch, n):
+    """With the estimate (the burst and Q-streaming routes) the window stays
+    at 118: past it the router takes the torch precompute, power loop and
+    all."""
+    api, calls = _spy_builds(monkeypatch)
+    A, b, a1 = _routed_inputs(n)
+    gb = api._build_gram_routed(A, b, a1, 0.0, False, None, True, use_kernel=True)
+    assert calls == [("precompute",)]
+    assert not bool((gb.L == 1.0).all())
 
 
 def test_power_group_lanes():

@@ -4,8 +4,9 @@
 through a traced run of every cell on CPU tensors, as
 ``benchmark/tests/test_harness_cpu.py`` runs the harness: each calls the
 plain twins of the card's kernels (``interpret=True``) on 48 lanes. A metric
-reads a number in the cells ``BENCHMARK.json`` lists for it and is absent
-from the others' result lines.
+reads a number in the cells ``BENCHMARK.json`` lists for it, but where the
+program no longer takes the path it reads (``SILENT``), and is absent from
+the others' result lines.
 """
 import functools
 import time
@@ -35,10 +36,20 @@ def _twins(monkeypatch, tmp_path):
     profiling.reset_counters()
 
 
+# Listed metrics that read nothing in a cell since the program left the path
+# they read: the resident route builds its Gram with the pairs kernel at every
+# width of its window, so wide128's call no longer enters the torch precompute
+# (PERF.md §7: the benchmark change that moves the cell from precompute_ms's
+# list to gram_build_roofline_pct's empties this).
+SILENT = {"wide128.bench": {"precompute_ms"}}
+
+
 def _listed(cell):
-    """The program-read metrics ``BENCHMARK.json`` asks of ``cell``."""
+    """The program-read metrics ``BENCHMARK.json`` asks of ``cell`` that the
+    program's path there gives a reading."""
     return {m["name"] for m in spec.benchmark()["per_layer"]
-            if m["name"].split(".")[0] in NEW and cell in m.get("workloads", CELLS)}
+            if m["name"].split(".")[0] in NEW and cell in m.get("workloads", CELLS)
+            } - SILENT.get(cell, set())
 
 
 @pytest.mark.parametrize("cell", CELLS)
