@@ -14,8 +14,27 @@ item sits in a file of its own under ``benchmark/``:
 - ``metrics/<metric>.py`` — one reader a metric, ``read(run)``; a metric
   split by kind of cell, ``<base>.<kind>``, shares its base's reader.
 
-A new cell, configuration, traffic mix or metric is new files and new
-entries in ``BENCHMARK.json``; no file here changes.
+A driver owns its contract with the harness and with the tests. Beside
+``lanes(config, traffic)`` and ``Session(cell, seed, device,
+lanes_override)`` (its batch made from the seed, the timed ``call()``, and
+``account``, ``totals``, ``keep``, ``work``, ``readings`` and ``judge`` for
+``run.run_cell``), ``drivers/<driver>.py`` exports:
+
+- ``ENTRY`` — ``(module, attribute)``: the program's public entry that its
+  ``Session`` times, looked up (:func:`entry`) when the session is built, so
+  a patch of that attribute reaches the timed call;
+- ``TWIN`` — the keywords that send the entry to the plain twins of the
+  card's kernels on a CPU tensor;
+- ``FAULTS`` — ``name → wrap(entry) → broken entry``: the entry's result
+  broken where it is produced (``unchanged``, ``half_left_out``,
+  ``x_altered``, ``flag_flipped``), each of which its check has to fail;
+- ``LIMITS`` and ``EXACT`` — the names of the numbers its check compares,
+  which a cell's ``limits/<cell>.json`` holds exactly, and those whose limit
+  is 0;
+- ``solver(config)`` — the program's settings for ``config["solver"]``.
+
+A new cell, configuration, traffic mix, metric or driver is new files and
+new entries in ``BENCHMARK.json``; no file here changes.
 """
 from __future__ import annotations
 
@@ -95,6 +114,13 @@ def reader(metric: str):
 def driver(config: dict):
     """The module of ``drivers/<driver>.py`` that calls the program."""
     return importlib.import_module(f"benchmark.drivers.{config['driver']}")
+
+
+def entry(where: tuple):
+    """The program's callable at ``where``, a driver's ``ENTRY``, as it
+    stands now."""
+    module, name = where
+    return getattr(importlib.import_module(module), name)
 
 
 def recipe(config: dict):

@@ -75,16 +75,16 @@ def test_counts_do_not_depend_on_the_engine():
     """The same small problem through the fused twin and through the torch
     driver: each count is the shapes' work plus 2n² for each iteration and
     check its own lanes ran, and nothing else differs."""
-    from fastoptsolver_tpu_torch.batch import BatchFISTAConfig, solve_lasso_batch
-
     from benchmark.recipes import boston_like
 
-    cfg = BatchFISTAConfig(max_iter=1000, check_every=25, rel_gap_tol=1e-6)
+    config = spec.cell("boston5.bench").config
+    drv = spec.driver(config)
+    solve, cfg = spec.entry(drv.ENTRY), drv.solver(config)
     A, b, a1 = boston_like.build(torch.Generator().manual_seed(1), 256, m=300, n=5,
                                  noise_grid=[0.5, 5.0], rho1_grid=[0.5, 0.8],
                                  rho2_grid=[0.7, 0.9], alpha_scale=0.1)
-    fused = solve_lasso_batch(A, b, a1, 0.0, cfg=cfg, feature_major=True, interpret=True)
-    driver = solve_lasso_batch(A, b, a1, 0.0, cfg=cfg, feature_major=True, backend="xla")
+    fused = solve(A, b, a1, 0.0, cfg=cfg, feature_major=True, **drv.TWIN)
+    driver = solve(A, b, a1, 0.0, cfg=cfg, feature_major=True, backend="xla")
     counts = []
     for res in (fused, driver):
         work = {"n": 5, "m": 300, "B": 256, "check_every": 25, "iters": res.iters.long()}

@@ -82,14 +82,13 @@ def test_pairs_of_config_and_traffic_appear_once():
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_every_cell_resolves(cell):
-    from fastoptsolver_tpu_torch.batch import BatchFISTAConfig
-
     c = spec.cell(cell)
-    BatchFISTAConfig(**c.config["solver"])
+    drv = spec.driver(c.config)
+    drv.solver(c.config)
     spec.recipe(c.config)
-    assert spec.driver(c.config).lanes(c.config, c.traffic) > 0
-    assert set(c.limits) == {"gap_max", "gap_median", "subopt_max", "flags_off"}
-    assert c.limits["flags_off"] == 0  # an exact comparison
+    assert drv.lanes(c.config, c.traffic) > 0
+    assert set(c.limits) == set(drv.LIMITS)
+    assert all(c.limits[k] == 0 for k in drv.EXACT)  # the exact comparisons
     reported = [m["name"] for m in c.end_to_end]
     assert "setup_s" in reported and len(reported) >= 2 and len(c.per_layer) >= 1
     for m in c.end_to_end + c.per_layer:
